@@ -1,0 +1,171 @@
+"""Capacity planning engine (paper Section 6), first part.
+
+PyTorch port of the parameter tables and analytic solvers of
+`repro.core.capacity`: the Table 5 validation cluster, the Table 6
+100-server case study with 1x..4x main memory, the Section 6 what-if
+scenarios, the SLO solver and replica sizing.  ``plan_capacity`` and
+``upgrade_grid`` are not ported yet (they need the cluster topology).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch._tensor import DEFAULT_DEVICE, DeviceLike, resolve
+from repro_torch.core import queueing
+from repro_torch.core.queueing import ServerParams
+
+Tensor = torch.Tensor
+
+__all__ = [
+    "TABLE5_PARAMS",
+    "TABLE5_SBROKER",
+    "MEMORY_TABLE",
+    "broker_service_time",
+    "scenario_params",
+    "scenario",
+    "upper_bound_curve",
+    "max_rate_under_slo",
+    "replicas_needed",
+]
+
+_MS = 1e-3
+
+# --- Paper Table 5: validation cluster (8 servers, b = 1.25M pages) -------
+TABLE5_PARAMS = ServerParams(
+    p=8, s_broker=0.52 * _MS, s_hit=9.20 * _MS, s_miss=10.04 * _MS,
+    s_disk=28.08 * _MS, hit=0.17)
+
+TABLE5_SBROKER = {2: 0.33 * _MS, 4: 0.39 * _MS, 8: 0.52 * _MS}
+
+# --- Paper Table 6: case-study parameters, p=100, b = 10M pages -----------
+# Keyed by main-memory size as a multiple of the reference machine.
+# (s_hit, s_miss, s_disk, hit)
+MEMORY_TABLE = {
+    1: (28.23 * _MS, 35.31 * _MS, 66.03 * _MS, 0.02),
+    2: (33.38 * _MS, 33.77 * _MS, 35.89 * _MS, 0.09),
+    3: (34.57 * _MS, 32.66 * _MS, 30.48 * _MS, 0.15),
+    4: (34.68 * _MS, 32.04 * _MS, 26.14 * _MS, 0.18),
+}
+
+
+def broker_service_time(p, *, device: DeviceLike = None) -> Tensor:
+    """Paper's broker fit: S_broker = 3.18e-2 * p + 0.265 ms (float32).
+
+    Gives 3.45 ms at p = 100.
+    """
+    dev, _ = resolve(p, device=device)
+    p = torch.as_tensor(p, device=dev).to(torch.float32)
+    return (3.18e-2 * p + 0.265) * _MS
+
+
+def scenario_params(
+    *, memory: int = 1, cpu: float = 1.0, disk: float = 1.0, p: int = 100,
+    device: DeviceLike = DEFAULT_DEVICE,
+) -> ServerParams:
+    """Section-6 scenario parameters.
+
+    memory in {1,2,3,4} selects the re-measured Table 6 column; cpu/disk
+    are speedup factors (divide CPU times by ``cpu``, disk time by
+    ``disk``; the broker is CPU-bound so it scales with cpu).
+    """
+    s_hit, s_miss, s_disk, hit = MEMORY_TABLE[memory]
+    return ServerParams(
+        p=p,
+        s_broker=broker_service_time(p, device=device) / cpu,
+        s_hit=s_hit / cpu,
+        s_miss=s_miss / cpu,
+        s_disk=s_disk / disk,
+        hit=hit,
+    )
+
+
+def scenario(name: str, p: int = 100, *,
+             device: DeviceLike = DEFAULT_DEVICE) -> ServerParams:
+    """Named paper scenarios (Section 6 / Figure 12)."""
+    table = {
+        "baseline": dict(memory=1),
+        "memory+disks": dict(memory=4, disk=4.0),
+        "memory+cpus": dict(memory=4, cpu=4.0),
+        "cpus+disks": dict(memory=1, cpu=4.0, disk=4.0),
+        "memory+cpus+disks": dict(memory=4, cpu=4.0, disk=4.0),
+    }
+    return scenario_params(p=p, device=device, **table[name])
+
+
+def upper_bound_curve(lam_grid, params: ServerParams, *,
+                      device: DeviceLike = None,
+                      dtype: Optional[torch.dtype] = None) -> Tensor:
+    """Eq 7 upper bound over a lambda grid."""
+    _, hi = queueing.response_time_bounds(lam_grid, params, device=device,
+                                          dtype=dtype)
+    return hi
+
+
+def max_rate_under_slo(
+    params: ServerParams,
+    slo_seconds: float,
+    *,
+    result_cache: Optional[tuple[float, float]] = None,
+    iters: int = 60,
+    device: DeviceLike = None,
+    dtype: Optional[torch.dtype] = None,
+) -> Tensor:
+    """Largest lambda with upper-bound response time <= SLO (bisection).
+
+    result_cache: optional (hit_result, s_broker_cache_hit) enabling Eq 8.
+    R(lambda) is monotone increasing up to saturation, so bisection on
+    [0, saturation_rate) is exact to float precision.  The loop runs on
+    the device with no host sync.
+    """
+    dev, dt = resolve(params, device=device, dtype=dtype)
+    lam_max = queueing.saturation_rate(params, device=dev, dtype=dt) * (
+        1.0 - 1e-6)
+
+    def response(lam):
+        if result_cache is None:
+            _, hi = queueing.response_time_bounds(lam, params, device=dev,
+                                                  dtype=dt)
+            return hi
+        hit_r, s_cache = result_cache
+        return queueing.response_time_with_result_cache(
+            lam, params, hit_r, s_cache, device=dev, dtype=dt)
+
+    lo = torch.zeros((), dtype=lam_max.dtype, device=dev)
+    hi = lam_max
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        ok = response(mid) <= slo_seconds
+        lo, hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid)
+    # infeasible SLO (even lambda->0 exceeds it) -> 0
+    feasible = response(torch.full((), 1e-6, dtype=dt, device=dev)
+                        ) <= slo_seconds
+    return torch.where(feasible, lo, 0.0)
+
+
+def replicas_needed(
+    params: ServerParams,
+    target_rate: float,
+    slo_seconds: float,
+    *,
+    result_cache: Optional[tuple[float, float]] = None,
+    device: DeviceLike = None,
+    dtype: Optional[torch.dtype] = None,
+) -> tuple[Tensor, Tensor]:
+    """Cluster replicas to serve target_rate within the SLO (Sec 6).
+
+    Replication splits arrivals evenly; gains are linear per the paper.
+    Returns (n_replicas int32, per_replica_rate).
+    """
+    per_replica = max_rate_under_slo(params, slo_seconds,
+                                     result_cache=result_cache,
+                                     device=device, dtype=dtype)
+    n = torch.ceil(torch.as_tensor(target_rate, device=per_replica.device,
+                                   dtype=per_replica.dtype)
+                   / torch.clamp_min(per_replica, 1e-9))
+    # an infeasible SLO asks for ~1e11 replicas: saturate at the int32
+    # maximum as the reference's conversion does (torch's cast wraps)
+    n = torch.clamp(n.to(torch.int64), max=torch.iinfo(torch.int32).max)
+    return n.to(torch.int32), per_replica

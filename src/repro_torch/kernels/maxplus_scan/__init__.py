@@ -1,0 +1,2 @@
+"""(max,+) scan: hand-written CUDA kernel (`kernel`), plain PyTorch
+version (`ref`), and the dispatching wrapper (`ops`)."""

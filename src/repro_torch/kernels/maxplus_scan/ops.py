@@ -1,0 +1,109 @@
+"""Public wrapper for the (max,+) scan: any leading shape, seeded or not.
+
+``impl`` picks the path: ``"cuda"`` launches the hand-written kernel
+(`repro_torch.kernels.maxplus_scan.kernel`), ``"torch"`` runs the plain
+version (`ref.maxplus_scan_ref`), and ``"auto"`` takes the kernel for a
+CUDA tensor and the plain version for a CPU tensor.  A CUDA tensor under
+``"auto"`` or ``"cuda"`` launches the kernel or raises; nothing falls
+back.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Union
+
+import torch
+
+from repro_torch._tensor import DEFAULT_DEVICE, DeviceLike
+from repro_torch.kernels.maxplus_scan import kernel, ref
+
+Tensor = torch.Tensor
+
+SCAN_IMPLS = ("auto", "torch", "cuda")
+
+__all__ = ["SCAN_IMPLS", "resolve_scan_impl", "maxplus_scan",
+           "maxplus_scan_seeded", "launch_count", "reset_launch_count"]
+
+
+def resolve_scan_impl(impl: str = "auto",
+                      device: DeviceLike = DEFAULT_DEVICE) -> str:
+    """"auto" -> "cuda" for a CUDA device, "torch" otherwise."""
+    if impl not in SCAN_IMPLS:
+        raise ValueError(f"unknown scan impl {impl!r}; choose one of "
+                         f"{SCAN_IMPLS}")
+    if impl != "auto":
+        return impl
+    return "cuda" if torch.device(device).type == "cuda" else "torch"
+
+
+def launch_count() -> int:
+    """Kernel launches made by this process so far."""
+    return kernel.launches
+
+
+def reset_launch_count() -> None:
+    kernel.launches = 0
+
+
+def _rows(x: Tensor, shape: torch.Size) -> Tensor:
+    """(..., n) -> contiguous (rows, n); broadcast views are materialized."""
+    return x.expand(shape).reshape(math.prod(shape[:-1]), shape[-1]
+                                   ).contiguous()
+
+
+def _scan_cuda(a: Tensor, b: Tensor, carry_a: Optional[Tensor],
+               carry_b: Optional[Tensor]) -> tuple[Tensor, Tensor]:
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    rows_shape = shape[:-1]
+
+    def seed(c):
+        if c is None:
+            return None
+        return c.to(a.dtype).expand(rows_shape).reshape(-1).contiguous()
+
+    out_a, out_b = kernel.maxplus_scan_cuda(
+        _rows(a, shape), _rows(b, shape), seed(carry_a), seed(carry_b))
+    return out_a.reshape(shape), out_b.reshape(shape)
+
+
+def maxplus_scan(a: Tensor, b: Tensor, *, impl: str = "auto"
+                 ) -> tuple[Tensor, Tensor]:
+    """Inclusive (max, +) scan along the last axis; any leading shape."""
+    if resolve_scan_impl(impl, a.device) == "torch":
+        return ref.maxplus_scan_ref(a, b)
+    return _scan_cuda(a, b, None, None)
+
+
+def maxplus_scan_seeded(
+    a: Tensor,
+    b: Tensor,
+    carry_a: Union[Tensor, float],
+    carry_b: Union[Tensor, float, None] = None,
+    *,
+    impl: str = "auto",
+) -> tuple[Tensor, Tensor]:
+    """Inclusive (max, +) scan seeded by the carry of everything earlier.
+
+    The streaming simulator's chunk entry point: ``(carry_a, carry_b)`` is
+    the composed map of all previous chunks (for FCFS chaining,
+    ``carry_a`` is the last completion time and ``carry_b`` defaults to 0)
+    and broadcasts against ``a.shape[:-1]``.  The result is the seed
+    composed before the scan:
+
+        out_a' = max(out_a, carry_a + out_b),   out_b' = carry_b + out_b
+
+    The plain path post-composes exactly so; the kernel starts its
+    running carry at the seed instead.
+    """
+    carry_a = torch.as_tensor(carry_a, dtype=a.dtype, device=a.device)
+    if carry_b is not None:
+        carry_b = torch.as_tensor(carry_b, dtype=a.dtype, device=a.device)
+    if resolve_scan_impl(impl, a.device) == "cuda":
+        return _scan_cuda(a, b, carry_a, carry_b)
+    out_a, out_b = ref.maxplus_scan_ref(a, b)
+    if carry_b is None:
+        carry_b = torch.zeros_like(carry_a)
+    out_a = torch.maximum(out_a, carry_a[..., None] + out_b)
+    out_b = carry_b[..., None] + out_b
+    return out_a, out_b

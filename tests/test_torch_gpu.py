@@ -1,0 +1,133 @@
+"""Card-only tests of the port: the CUDA (max,+) scan and the engine on it.
+
+Every test here carries the ``gpu`` marker and skips, with a reason,
+where no CUDA device is present; whether one is present is decided inside
+the ``cuda`` fixture, never at import.  This file imports torch and
+repro_torch only (the card's machine has no JAX), so on the card run:
+
+    python -m pytest -m gpu tests/test_torch_gpu.py
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from repro_torch import interop
+from repro_torch.core import capacity, simulator
+from repro_torch.kernels.maxplus_scan import kernel, ops
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc; run on the card with "
+                    "`python -m pytest -m gpu tests/test_torch_gpu.py`")
+    return torch.device("cuda")
+
+
+def _inputs(shape, dtype, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    arr = torch.empty(shape, dtype=dtype, device=device).exponential_(
+        generator=g).cumsum(-1)
+    svc = torch.empty(shape, dtype=dtype, device=device).exponential_(
+        generator=g)
+    carry = torch.rand(shape[:-1], dtype=dtype, device=device,
+                       generator=g) * 50.0
+    return arr + svc, svc, carry
+
+
+def _assert_rel(x, y, rtol):
+    err = ((x - y).abs() / y.abs().clamp_min(1e-30)).max().item()
+    assert err <= rtol, err
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (3, 1000), (37, 1025),
+                                   (2, 3, 4097), (64, 4096), (5, 1023)])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-12)])
+@pytest.mark.parametrize("seeded", [False, True])
+def test_kernel_matches_plain_scan(cuda, shape, dtype, rtol, seeded):
+    a, b, carry = _inputs(shape, dtype, cuda)
+    if seeded:
+        ka, kb = ops.maxplus_scan_seeded(a, b, carry, carry * 0.1,
+                                         impl="cuda")
+        pa, pb = ops.maxplus_scan_seeded(a, b, carry, carry * 0.1,
+                                         impl="torch")
+    else:
+        ka, kb = ops.maxplus_scan(a, b, impl="cuda")
+        pa, pb = ops.maxplus_scan(a, b, impl="torch")
+    torch.cuda.synchronize()
+    _assert_rel(ka, pa, rtol)
+    _assert_rel(kb, pb, rtol)
+
+
+def test_auto_launches_the_kernel_once_per_call(cuda):
+    a, b, _ = _inputs((4, 333), torch.float32, cuda)
+    before = ops.launch_count()
+    ops.maxplus_scan(a, b)
+    ops.maxplus_scan(a[:, :0], b[:, :0])      # empty: nothing to launch
+    assert ops.launch_count() == before + 1
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    a, b, carry = _inputs((4, 64), torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.maxplus_scan_cuda(a.t().contiguous().t(), b)
+    with pytest.raises(TypeError):
+        kernel.maxplus_scan_cuda(a.half(), b.half())
+    with pytest.raises(ValueError, match="one shape"):
+        kernel.maxplus_scan_cuda(a, b[:, :10].contiguous())
+    with pytest.raises(ValueError, match="carry_a"):
+        kernel.maxplus_scan_cuda(a, b, carry[:2].contiguous())
+
+
+@pytest.mark.parametrize("mode", ["exponential", "balanced", "cache"])
+def test_engine_on_the_card_goes_through_the_kernel(cuda, mode):
+    params = dataclasses.replace(capacity.TABLE5_PARAMS, p=16)
+    n, chunk = 20_000, 4096
+    ops.reset_launch_count()
+    res = simulator.simulate_fork_join(7, 25.0, n, params, mode=mode,
+                                       chunk_size=chunk)
+    assert ops.launch_count() == 2 * -(-n // chunk)
+    plain = simulator.simulate_fork_join(7, 25.0, n, params, mode=mode,
+                                         chunk_size=chunk, impl="torch")
+    _assert_rel(res.mean_response, plain.mean_response, 1e-4)
+    _assert_rel(res.std_response, plain.std_response, 1e-4)
+
+
+def test_card_equals_cpu_on_injected_draws(cuda):
+    """Same float64 draws through the kernel on the card and through the
+    plain scan on the CPU: association-order noise only."""
+    g = torch.Generator().manual_seed(3)
+    n, chunk, p = 9000, 2048, 8
+    per_chunk = [(torch.empty(2, chunk, dtype=torch.float64).exponential_(
+                      generator=g).numpy(),
+                  torch.empty(2, chunk, dtype=torch.float64).exponential_(
+                      generator=g).numpy(),
+                  (torch.empty(2, p, chunk, dtype=torch.float64)
+                   .exponential_(generator=g) * 0.03).numpy())
+                 for _ in range(-(-n // chunk))]
+    params = {"p": [p, p], "s_broker": [5e-4, 6e-4], "s_hit": [9e-3, 9e-3],
+              "s_miss": [1e-2, 1e-2], "s_disk": [2.8e-2, 2.0e-2],
+              "hit": [0.17, 0.3]}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        out[dev] = simulator.simulate_fork_join_batch(
+            0, torch.tensor([20.0, 24.0]),
+            interop.server_params_from_numpy(params, device=dev,
+                                             dtype=torch.float64),
+            n, p=p, chunk_size=chunk, device=dev, dtype=torch.float64,
+            draws=interop.draws_from_numpy(per_chunk, device=dev,
+                                           dtype=torch.float64))
+    for f in ("sum_response", "sumsq_response", "sum_broker",
+              "sum_cluster", "sum_server"):
+        _assert_rel(getattr(out["cuda"], f).cpu(), getattr(out["cpu"], f),
+                    1e-10)
+    # the histogram scale goes through float32 transcendental functions,
+    # whose last ulp may differ between the card and the CPU
+    _assert_rel(out["cuda"].hist_log_lo.cpu(), out["cpu"].hist_log_lo, 1e-6)
+    moved = (out["cuda"].hist.cpu() - out["cpu"].hist).abs().sum() / 2
+    assert moved <= 1e-3 * out["cpu"].hist.sum()
