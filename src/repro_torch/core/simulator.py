@@ -1,6 +1,8 @@
 """Streaming max-plus discrete-event simulator for fork-join search clusters.
 
-PyTorch port of the single-replica engine of `repro.core.simulator`.
+PyTorch port of `repro.core.simulator`: the single-replica engine, the
+replicated cluster (r > 1 routing, the result cache) and the reservoir
+tap.
 
 FCFS queueing is a linear recurrence in the (max, +) semiring.  With
 arrival times A_i (sorted) and service times S_i, the completion time
@@ -11,14 +13,35 @@ arrival times A_i (sorted) and service times S_i, the completion time
 and the affine maps c -> max(a, c + b) compose associatively, so a whole
 sample path is one scan — and FCFS state *streams*: the engine walks
 fixed-size query chunks in a Python loop, carrying only the per-(scenario,
-server) last completion times plus running statistics (count, sum, sum of
-squares and a fixed-bin log histogram of response times for quantiles).
-Peak memory is S x p x chunk values whatever the query count.  Each
-chunk's queues run through `repro_torch.kernels.maxplus_scan`: the
-hand-written CUDA kernel on the card, the plain PyTorch scan on the CPU.
+replica, server) last completion times plus running statistics (count,
+sum, sum of squares and a fixed-bin log histogram of response times for
+quantiles).  Peak memory is S x p x chunk values whatever the query count
+and whatever r.  Each chunk's queues run through
+`repro_torch.kernels.maxplus_scan`: the hand-written CUDA kernels on the
+card, the plain PyTorch scans on the CPU.
 
 Simulated system (paper Fig 8): broker FCFS queue -> fork to p index-server
 FCFS queues -> join (max over servers) -> response = join - arrival.
+
+Replication (paper Sec 6): with ``cluster=ClusterSpec(r > 1, routing=...)``
+a dispatcher routes each query to ONE of r identical replicas:
+
+  * "round_robin" — query i goes to replica i mod r (global index);
+  * "random"      — iid uniform replica choice (Poisson thinning);
+  * "jsq"         — join-shortest-queue on carried per-replica work
+    (`repro_torch.kernels.jsq_route`: a CUDA kernel on the card).
+
+The replicated network runs FUSED by default: each chunk is compacted so
+every replica's queries are contiguous (a pure reshape for round-robin
+when chunk % r == 0; a stable sort otherwise), and ONE segmented (max, +)
+scan per queue level covers all r replicas, so per-chunk work is
+S x p x chunk elements independent of r.  ``replica_impl="masked"`` keeps
+the reference's oracle: every replica re-scans the full stream with
+zero-service phantoms for queries routed elsewhere.
+
+An optional result cache (``result_cache=(hit_r, s_cache)``) sends each
+query, with probability hit_r, to its replica's broker-cache FCFS queue
+with Exp(s_cache) service instead of the index servers (Eq 8).
 
 Service-time generators cover three regimes:
 
@@ -29,15 +52,17 @@ Service-time generators cover three regimes:
 
 RNG plan: all randomness for chunk c comes from generators seeded by a
 hash of (seed, c) (`chunk_random_draws`), mirroring the reference's
-``fold_in(key, c)``, so a monolithic reconstruction from the same
-per-chunk draws follows the same sample path.  Torch's Philox and JAX's
-threefry never agree draw for draw, so the engine also takes ``draws=``,
-a callable
-``chunk_idx -> (u_gaps, u_broker, services)``; tests feed the
-reference's own draws through it (`repro_torch.interop.draws_from_numpy`).
+``fold_in(key, c)``; the side streams (random routing, cache hits and
+services, tap priorities) hash a salt on top (`chunk_side_draws`), so
+switching a feature on never perturbs the canonical draws.  Torch's
+Philox and JAX's threefry never agree draw for draw, so the engine also
+takes ``draws=``, a callable ``chunk_idx -> (u_gaps, u_broker, services)``
+or, when a side feature is on, ``(u_gaps, u_broker, services, side)``
+with ``side`` a dict holding the enabled streams (see
+`chunk_side_draws`); tests feed the reference's own draws through it
+(`repro_torch.interop.draws_from_numpy`).
 
-Not ported yet: replicas (``cluster=``), the result cache, autoscaling,
-faults, telemetry and the reservoir tap.
+Not ported yet: autoscaling, faults and telemetry.
 """
 
 from __future__ import annotations
@@ -53,29 +78,41 @@ import torch.nn.functional as F
 from repro_torch._tensor import DEFAULT_DEVICE, DeviceLike, from_host
 from repro_torch.core import queueing
 from repro_torch.core.arrivals import ArrivalProcess
+from repro_torch.core.cluster import ROUTING_POLICIES, ClusterSpec
 from repro_torch.core.queueing import ServerParams, service_time_server
+from repro_torch.kernels.jsq_route import ops as jsq_ops
 from repro_torch.kernels.maxplus_scan import ops as mp_ops
 from repro_torch.kernels.maxplus_scan.ref import maxplus_combine
 
 Tensor = torch.Tensor
-Draws = Callable[[int], tuple[Optional[Tensor], Tensor, Tensor]]
+Draws = Callable[[int], tuple]
 
 __all__ = [
     "maxplus_combine",
     "fcfs_completion_times",
+    "fcfs_completion_times_routed",
     "ArrivalProcess",
+    "ClusterSpec",
     "SimResult",
     "simulate_fork_join",
     "simulate_fork_join_batch",
     "simulate_mmc",
     "sample_service_times_batch",
     "chunk_random_draws",
+    "chunk_side_draws",
     "DEFAULT_CHUNK",
     "DEFAULT_HIST_BINS",
+    "ROUTING_POLICIES",
 ]
 
 DEFAULT_CHUNK = 4096
 DEFAULT_HIST_BINS = 256
+# salts of the side streams, hashed on top of (seed, chunk) so enabling
+# the tap, random routing or the result cache never perturbs the
+# canonical gap/broker/service draws (the reference's values)
+_TAP_SALT = 0x7EE5
+_ROUTE_SALT = 0x2077
+_CACHE_SALT = 0xCA8E
 # log-histogram span, in decades around the per-scenario analytic scale
 _HIST_DECADES_BELOW = 3.0
 _HIST_DECADES_TOTAL = 6.0
@@ -104,6 +141,87 @@ def fcfs_completion_times(arrivals: Tensor, services: Tensor,
     return out_a
 
 
+def _compact(assign: Tensor, r: int):
+    """Stable-sort compaction of routed queries into per-queue segments.
+
+    assign: (..., n) queue indices in [0, r).  Returns ``(order, flags,
+    counts, heads, ends)``: the stable sort order (each queue's queries
+    become one contiguous run, still in arrival order), the segment-head
+    flags of the sorted layout, the (..., r) queue sizes, each queue's
+    head position (-1 for an empty queue) and last position (clamped
+    at 0).
+    """
+    order = torch.argsort(assign, dim=-1, stable=True)
+    asg_s = torch.gather(assign, -1, order)
+    flags = torch.ones(asg_s.shape, dtype=torch.bool, device=asg_s.device)
+    flags[..., 1:] = asg_s[..., 1:] != asg_s[..., :-1]
+    counts = torch.sum(
+        assign[..., None, :] == torch.arange(r, device=assign.device)[:, None],
+        dim=-1)
+    ends = torch.cumsum(counts, dim=-1)
+    heads = torch.where(counts > 0, ends - counts, -1)
+    return order, flags, counts, heads, torch.clamp_min(ends - 1, 0)
+
+
+def _fcfs_segmented(arrivals: Tensor, services: Tensor, flags: Tensor,
+                    heads: Tensor, carry: Tensor, impl: str) -> Tensor:
+    """FCFS completions of many queues packed as contiguous segments.
+
+    ``flags`` marks each segment's first element and broadcasts against
+    the (..., n) queue arrays (one (S, n) layout serves all p server rows
+    of a scenario).  ``carry`` (..., r) holds each queue's prior
+    completion time, and ``heads`` (broadcasting against it) each queue's
+    head position, -1 where the queue is empty.  The carry is
+    pre-composed at the heads, as the reference does: seeding a head and
+    resetting there is exactly seeding the whole segment.  Only the r
+    heads of a row are touched, so no per-element carry array is built.
+    Then ONE segmented (max, +) scan computes every queue's sample path.
+    """
+    a = arrivals + services
+    b = services.expand(a.shape)
+    idx = torch.clamp_min(heads, 0).expand(carry.shape)
+    a_h = torch.gather(a, -1, idx)
+    seeded = torch.where(heads >= 0,
+                         torch.maximum(a_h, carry + torch.gather(b, -1, idx)),
+                         -math.inf)
+    # distinct non-empty queues have distinct heads; an empty queue's
+    # -inf cannot raise the value it may share a slot with
+    a.scatter_reduce_(-1, idx, seeded, reduce="amax", include_self=True)
+    out_a, _ = mp_ops.maxplus_segment_scan(a, b, flags, impl=impl)
+    return out_a
+
+
+def fcfs_completion_times_routed(
+    arrivals: Tensor, services: Tensor, assign: Tensor, r: int,
+    *, impl: str = "auto", carry: Optional[Tensor] = None,
+) -> tuple[Tensor, Tensor]:
+    """Completions of r parallel FCFS queues with per-query routing.
+
+    arrivals: (..., n) nondecreasing; services: (..., n) positive;
+    assign: (..., n) integers in [0, r) — each query joins the FCFS queue
+    of its assigned replica, in arrival order.  carry: optional (..., r)
+    completion time of each queue's prior work.
+
+    Fused route-compaction: stable-sort by assignment so each queue is a
+    contiguous segment, seed segment heads from the carry, run one
+    segmented (max, +) scan, and scatter completions back to arrival
+    order.  Returns ``(completions (..., n), new_carry (..., r))`` where
+    empty queues keep their old carry.
+    """
+    if r < 1:
+        raise ValueError(f"need at least one queue; got r={r}")
+    if carry is None:
+        carry = torch.full(assign.shape[:-1] + (r,), -math.inf,
+                           dtype=arrivals.dtype, device=arrivals.device)
+    order, flags, counts, heads, ends = _compact(assign, r)
+    done_s = _fcfs_segmented(torch.gather(arrivals, -1, order),
+                             torch.gather(services, -1, order), flags,
+                             heads, carry, impl)
+    new_carry = torch.where(counts > 0, torch.gather(done_s, -1, ends),
+                            carry)
+    return torch.empty_like(done_s).scatter_(-1, order, done_s), new_carry
+
+
 @dataclasses.dataclass(frozen=True)
 class SimResult:
     """Streaming summary statistics of a fork-join simulation.
@@ -116,6 +234,10 @@ class SimResult:
     ``hist[..., k]`` counts responses in
     ``[exp(log_lo + k*step), exp(log_lo + (k+1)*step))``; under/overflow
     is clamped into the edge bins.
+
+    ``tap_response`` is a uniform reservoir sample (without replacement)
+    of per-query post-warmup response times, ``tap_size`` slots carried
+    through the chunk loop; slots not yet filled hold NaN.
     """
 
     count: Tensor           # post-warmup samples per scenario
@@ -127,6 +249,11 @@ class SimResult:
     hist: Tensor            # (..., n_bins) response-time histogram counts
     hist_log_lo: Tensor     # (...,) ln(lowest bin edge, seconds)
     hist_log_step: Tensor   # (...,) ln(bin edge ratio)
+    tap_response: Tensor    # (..., tap_size) reservoir sample of responses
+
+    @property
+    def tap_size(self) -> int:
+        return self.tap_response.shape[-1]
 
     @property
     def _n(self) -> Tensor:
@@ -271,6 +398,44 @@ def chunk_random_draws(seed: int, chunk_idx: int, n_scen: int, chunk: int,
     return u_gaps, u_broker, services
 
 
+def chunk_side_draws(seed: int, chunk_idx: int, n_scen: int, chunk: int, *,
+                     route_r: Optional[int] = None,
+                     cache_hit: Optional[Tensor] = None,
+                     tap: bool = False,
+                     device: DeviceLike = DEFAULT_DEVICE,
+                     dtype: torch.dtype = torch.float32) -> dict:
+    """The salted side streams of chunk ``chunk_idx``, each only if asked.
+
+    * ``"route"`` (random routing over ``route_r`` replicas): (S, chunk)
+      int64 replica indices;
+    * ``"cache_hit"`` / ``"cache_unit"`` (result cache with (S,) hit
+      ratios ``cache_hit``): (S, chunk) bool hits and unit-mean
+      exponential cache services;
+    * ``"tap"``: (S, chunk) U(0, 1) reservoir priorities.
+
+    Each stream hashes its salt on top of (seed, chunk), mirroring the
+    reference's ``fold_in(fold_in(key, c), SALT)``.
+    """
+    dev = torch.device(device)
+    shape = (n_scen, chunk)
+    side = {}
+    if route_r is not None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(_mix(seed, chunk_idx, _ROUTE_SALT))
+        side["route"] = torch.randint(0, route_r, shape, generator=gen,
+                                      device=dev)
+    if cache_hit is not None:
+        side["cache_hit"] = _unit_uniform(
+            _mix(seed, chunk_idx, _CACHE_SALT, 0), shape, dev,
+            dtype) < cache_hit[:, None]
+        side["cache_unit"] = _unit_exponential(
+            _mix(seed, chunk_idx, _CACHE_SALT, 1), shape, dev, dtype)
+    if tap:
+        side["tap"] = _unit_uniform(_mix(seed, chunk_idx, _TAP_SALT), shape,
+                                    dev, dtype)
+    return side
+
+
 # -- engine -----------------------------------------------------------------
 
 def _vec_params(params: ServerParams, device: torch.device,
@@ -345,26 +510,43 @@ def _simulate_stream(
     chunk: int,
     warmup_fraction: float,
     hist_bins: int,
+    tap_size: int = 0,
+    r: int = 1,
+    routing: str = "round_robin",
+    cache: Optional[tuple[Tensor, Tensor]] = None,
+    replica_impl: str = "fused",
 ) -> SimResult:
-    """The chunked single-replica engine behind every entry point.
+    """The chunked engine behind every entry point.
 
-    ``proc`` and ``params`` are already on the run's device in its dtype.
-    The chunk loop issues device work only: no host sync, no branch on a
-    tensor value.
+    ``proc`` and ``params`` are already on the run's device in its dtype;
+    ``cache`` is the result cache's ((S,) hit ratio, (S,) mean service)
+    or None.  At r = 1 without a cache this is the single-replica program
+    of the reference, op for op.  r > 1 runs the fused route-compacted
+    engine (``replica_impl="fused"``) or the masked re-scan oracle
+    ("masked"); both consume the same routing choices and draws, so their
+    sample paths agree query for query.  The chunk loop issues device
+    work only: no host sync, no branch on a tensor value.
     """
     dtype = proc.rates.dtype
     device = proc.rates.device
     n_scen = proc.rates.shape[0]
     n_chunks = -(-n_queries // chunk)
     n_warm = int(n_queries * warmup_fraction)
+    has_cache = cache is not None
 
     s_broker = params.s_broker.to(dtype).expand(n_scen)
 
     # Per-scenario histogram scale off the Eq 7 analytic ballpark so the
-    # fixed bin budget lands where each scenario's mass actually is.
+    # fixed bin budget lands where each scenario's mass actually is.  The
+    # dispatcher splits arrivals over r replicas and the result cache
+    # short-circuits hits, so the per-replica operating point is
+    # lam * (1 - hit_r) / r (both exact no-ops at r = 1 without a cache).
     ref_rate = proc.mean_rate.to(dtype).expand(n_scen)
+    if has_cache:
+        cache_hit, cache_service = cache
+        ref_rate = ref_rate * (1.0 - cache_hit)
     s_mean = service_time_server(params).to(dtype).expand(n_scen)
-    _, hi = queueing.response_time_bounds(ref_rate, params)
+    _, hi = queueing.response_time_bounds(ref_rate / r, params)
     hi = hi.to(dtype).expand(n_scen)
     scale = torch.where(torch.isfinite(hi) & (hi > 0), hi, 100.0 * s_mean)
     ln10 = math.log(10.0)
@@ -380,6 +562,9 @@ def _simulate_stream(
 
     col = torch.arange(chunk, device=device)
     period = proc.period_seconds.to(dtype)
+    need = (({"route"} if r > 1 and routing == "random" else set())
+            | ({"cache_hit", "cache_unit"} if has_cache else set())
+            | ({"tap"} if tap_size > 0 else set()))
 
     def zeros(*shape):
         return torch.zeros((n_scen,) + shape, dtype=dtype, device=device)
@@ -389,13 +574,25 @@ def _simulate_stream(
     # arrival, and only the (period-wrapped) absolute clock `t_origin` is
     # kept for profile lookups.  Clock magnitudes stay O(chunk duration),
     # so float32 accuracy does not depend on the simulated horizon.
-    t_origin, c_brk, c_srv = zeros(), zeros(), zeros(p)
+    # Replicated carries: broker and cache queues (S, r), servers and the
+    # JSQ work tracker (S, r, p).
+    t_origin = zeros()
+    c_brk, c_srv, c_cache, w_jsq = zeros(r), zeros(r, p), zeros(r), \
+        zeros(r, p)
     count, s_resp, ss_resp = zeros(), zeros(), zeros()
     s_br, s_cl, s_sv = zeros(), zeros(), zeros()
     hist = zeros(hist_bins)
+    tap_pri = torch.full((n_scen, tap_size), -math.inf, dtype=dtype,
+                         device=device)
+    tap_val = torch.full((n_scen, tap_size), math.nan, dtype=dtype,
+                         device=device)
 
     for c_idx in range(n_chunks):
-        u_gaps, u_brk, services = draws(c_idx)
+        u_gaps, u_brk, services, *rest = draws(c_idx)
+        side = rest[0] if rest else {}
+        if not need <= side.keys():
+            raise ValueError(f"draws({c_idx}) lacks the side stream(s) "
+                             f"{sorted(need - side.keys())}")
         if gap_chunks is not None:
             gaps = gap_chunks[c_idx][None, :].expand(n_scen, chunk)
         else:
@@ -404,25 +601,182 @@ def _simulate_stream(
             rate = torch.clamp_min(proc.rate_at(t_origin), 1e-30)
             gaps = u_gaps / rate[:, None]
         arrivals = torch.cumsum(gaps, dim=-1)   # relative to chunk origin
-        last_arrival = arrivals[:, -1]          # the rebase shift
+        # the rebase shift; captured BEFORE the fused branches permute
+        # `arrivals` into replica-compacted layout
+        last_arrival = arrivals[:, -1]
         gidx = col + c_idx * chunk
 
-        broker_done = fcfs_completion_times(
-            arrivals, u_brk * s_broker[:, None], impl=impl, carry=c_brk)
-        # fork: every server sees the broker's completions as arrivals
-        completions = fcfs_completion_times(
-            broker_done[:, None, :], services, impl=impl, carry=c_srv)
-        join = torch.amax(completions, dim=1)
-        server0 = completions[:, 0, :]
+        if has_cache:
+            # hits short-circuit at their replica's broker cache: an FCFS
+            # queue with Exp(s_cache) service, no index-server work
+            is_hit = side["cache_hit"]
+            miss_f = 1.0 - is_hit.to(dtype)
+            t_cache = (side["cache_unit"] * cache_service[:, None]
+                       * is_hit.to(dtype))
+        s_broker_c = u_brk * s_broker[:, None]
 
-        response = join - arrivals
+        # `perm` maps chunk-order (S, chunk) arrays into the layout the
+        # fused branches compute in (replica-compacted); None = identity.
+        # The statistics are permutation-invariant, so the epilogue only
+        # needs mf, the tap priorities and is_hit permuted likewise.
+        perm = None
+        if r == 1:
+            if has_cache:
+                s_broker_c = s_broker_c * miss_f
+                services = services * miss_f[:, None, :]
+                cache_done = fcfs_completion_times(
+                    arrivals, t_cache, impl=impl, carry=c_cache[:, 0])
+                c_cache_new = cache_done[:, -1:]
+            broker_done = fcfs_completion_times(arrivals, s_broker_c,
+                                                impl=impl, carry=c_brk[:, 0])
+            # fork: every server sees the broker's completions as arrivals
+            completions = fcfs_completion_times(
+                broker_done[:, None, :], services, impl=impl,
+                carry=c_srv[:, 0])
+            join = torch.amax(completions, dim=1)
+            server0 = completions[:, 0, :]
+            c_brk_new = broker_done[:, -1:]
+            c_srv_new = completions[:, None, :, -1]
+            w_jsq_new = w_jsq
+        else:
+            live = miss_f if has_cache else torch.ones_like(gaps)
+            w_jsq_new = w_jsq
+            if routing == "round_robin":
+                assign = (gidx % r)[None, :].expand(n_scen, chunk)
+            elif routing == "random":
+                assign = side["route"]
+            else:   # jsq: needs the carried work state
+                assign, w_jsq_new = jsq_ops.jsq_route(
+                    w_jsq, gaps, services, live, impl=impl)
+
+        if r == 1:
+            pass
+        elif replica_impl == "masked":
+            # Reference oracle: every replica scans the FULL stream;
+            # phantom (zero-service) entries cannot delay later real
+            # queries.  ~r x redundant work.
+            mask = (assign[:, None, :] == torch.arange(
+                r, device=device)[None, :, None]).to(dtype)
+            # hits occupy their replica's cache queue; only misses enter
+            # its broker + index servers
+            mask_srv = mask * miss_f[:, None, :] if has_cache else mask
+            arr_r = arrivals[:, None, :].expand(n_scen, r, chunk)
+            if has_cache:
+                cache_done_r = fcfs_completion_times(
+                    arr_r, t_cache[:, None, :] * mask, impl=impl,
+                    carry=c_cache)
+                cache_done = torch.sum(cache_done_r * mask, dim=1)
+                c_cache_new = cache_done_r[:, :, -1]
+            broker_done_r = fcfs_completion_times(
+                arr_r, s_broker_c[:, None, :] * mask_srv, impl=impl,
+                carry=c_brk)
+            completions = fcfs_completion_times(
+                broker_done_r[:, :, None, :],
+                services[:, None, :, :] * mask_srv[:, :, None, :],
+                impl=impl, carry=c_srv)
+            join_r = torch.amax(completions, dim=2)
+            # read each query off its OWN replica's sample path
+            broker_done = torch.sum(broker_done_r * mask_srv, dim=1)
+            join = torch.sum(join_r * mask_srv, dim=1)
+            server0 = torch.sum(completions[:, :, 0, :] * mask_srv, dim=1)
+            c_brk_new = broker_done_r[:, :, -1]
+            c_srv_new = completions[:, :, :, -1]
+        elif routing == "round_robin" and chunk % r == 0:
+            # Fused fast path: with chunk % r == 0 the round-robin
+            # assignment is col % r every chunk, so compaction into
+            # per-replica contiguous runs is a pure reshape (no sort) and
+            # the plain scan covers the (S, r, ...) queues.
+            ct = chunk // r
+
+            def to_rep(x):                       # (S, chunk) -> (S, r, ct)
+                return x.reshape(n_scen, ct, r).transpose(-1, -2)
+
+            def perm(x):
+                return to_rep(x.expand(n_scen, chunk)).reshape(n_scen, chunk)
+
+            arr_q = to_rep(arrivals)
+            svc_q = services.reshape(n_scen, p, ct, r).permute(0, 3, 1, 2)
+            brk_q = to_rep(s_broker_c)
+            if has_cache:
+                miss_q = to_rep(miss_f)
+                brk_q = brk_q * miss_q
+                svc_q = svc_q * miss_q[:, :, None, :]
+                cache_done_q = fcfs_completion_times(
+                    arr_q, to_rep(t_cache), impl=impl, carry=c_cache)
+                cache_done = cache_done_q.reshape(n_scen, chunk)
+                c_cache_new = cache_done_q[..., -1]
+            broker_done_q = fcfs_completion_times(arr_q, brk_q, impl=impl,
+                                                  carry=c_brk)
+            completions = fcfs_completion_times(
+                broker_done_q[:, :, None, :], svc_q, impl=impl, carry=c_srv)
+            broker_done = broker_done_q.reshape(n_scen, chunk)
+            join = torch.amax(completions, dim=2).reshape(n_scen, chunk)
+            server0 = completions[:, :, 0, :].reshape(n_scen, chunk)
+            c_brk_new = broker_done_q[..., -1]
+            c_srv_new = completions[..., -1]
+            arrivals = arr_q.reshape(n_scen, chunk)
+        else:
+            # Fused general path (random, jsq, uneven round-robin):
+            # stable-sort by replica so each replica's queries form a
+            # contiguous segment (still in arrival order), seed segment
+            # heads from the carries, and run ONE segmented (max, +) scan
+            # per queue level.  Gathers index with expanded views, so no
+            # (S, p, chunk) index tensor exists.
+            order, flags, counts, heads, ends = _compact(assign, r)
+
+            def perm(x):
+                return torch.gather(x.expand(n_scen, chunk), -1, order)
+
+            arrivals = perm(arrivals)
+            svc_s = torch.gather(services, -1,
+                                 order[:, None, :].expand(n_scen, p, chunk))
+            brk_s = perm(s_broker_c)
+            if has_cache:
+                miss_s = perm(miss_f)
+                brk_s = brk_s * miss_s
+                svc_s = svc_s * miss_s[:, None, :]
+                cache_done = _fcfs_segmented(arrivals, perm(t_cache), flags,
+                                             heads, c_cache, impl)
+                c_cache_new = torch.where(
+                    counts > 0, torch.gather(cache_done, -1, ends), c_cache)
+            broker_done = _fcfs_segmented(arrivals, brk_s, flags, heads,
+                                          c_brk, impl)
+            completions = _fcfs_segmented(
+                broker_done[:, None, :], svc_s, flags[:, None, :],
+                heads[:, None, :], c_srv.transpose(1, 2), impl)
+            join = torch.amax(completions, dim=1)
+            server0 = completions[:, 0, :]
+            c_brk_new = torch.where(
+                counts > 0, torch.gather(broker_done, -1, ends), c_brk)
+            srv_ends = torch.gather(completions, -1, ends[:, None, :].expand(
+                n_scen, p, r))                           # (S, p, r)
+            c_srv_new = torch.where(counts[:, :, None] > 0,
+                                    srv_ends.transpose(1, 2), c_srv)
+
+        if has_cache:
+            if perm is not None:
+                is_hit = perm(is_hit)
+            resp_cache = cache_done - arrivals
+            response = torch.where(is_hit, resp_cache, join - arrivals)
+            broker_res = torch.where(is_hit, resp_cache,
+                                     broker_done - arrivals)
+            cluster_res = torch.where(is_hit, 0.0, join - broker_done)
+            server_res = torch.where(is_hit, 0.0, server0 - broker_done)
+        else:
+            response = join - arrivals
+            broker_res = broker_done - arrivals
+            cluster_res = join - broker_done
+            server_res = server0 - broker_done
+            c_cache_new = c_cache
         mf = ((gidx >= n_warm) & (gidx < n_queries)).to(dtype)[None, :]
+        if perm is not None:
+            mf = perm(mf)
         count = count + torch.sum(mf, -1).expand(n_scen)
         s_resp = s_resp + torch.sum(response * mf, -1)
         ss_resp = ss_resp + torch.sum(response * response * mf, -1)
-        s_br = s_br + torch.sum((broker_done - arrivals) * mf, -1)
-        s_cl = s_cl + torch.sum((join - broker_done) * mf, -1)
-        s_sv = s_sv + torch.sum((server0 - broker_done) * mf, -1)
+        s_br = s_br + torch.sum(broker_res * mf, -1)
+        s_cl = s_cl + torch.sum(cluster_res * mf, -1)
+        s_sv = s_sv + torch.sum(server_res * mf, -1)
 
         bins = torch.clamp(
             torch.floor((torch.log(torch.clamp_min(response, 1e-30))
@@ -430,14 +784,36 @@ def _simulate_stream(
             0, hist_bins - 1).to(torch.int64)
         hist = hist.scatter_add(1, bins, mf.expand(n_scen, chunk))
 
-        c_brk = broker_done[:, -1] - last_arrival
-        c_srv = completions[:, :, -1] - last_arrival[:, None]
-        t_origin = torch.remainder(t_origin + last_arrival, period)
+        if tap_size > 0:
+            # Reservoir via random priorities (A-Res with equal weights):
+            # every valid query gets an iid U(0,1) priority and the tap
+            # keeps the tap_size largest seen so far.  A stable descending
+            # sort keeps the LOWER index on ties, as the reference's
+            # top_k does: the -inf of masked queries never displaces an
+            # unfilled (NaN) slot.
+            pri = side["tap"]
+            if perm is not None:
+                pri = perm(pri)
+            pri = torch.where(mf > 0, pri, -math.inf)
+            cat_pri = torch.cat([tap_pri, pri], dim=-1)
+            cat_val = torch.cat([tap_val, response.expand(n_scen, chunk)],
+                                dim=-1)
+            top = torch.sort(cat_pri, dim=-1, descending=True, stable=True)
+            tap_pri = top.values[:, :tap_size]
+            tap_val = torch.gather(cat_val, -1, top.indices[:, :tap_size])
+
+        shift = last_arrival
+        c_brk = c_brk_new - shift[:, None]
+        c_srv = c_srv_new - shift[:, None, None]
+        c_cache = c_cache_new - shift[:, None] if has_cache else c_cache_new
+        w_jsq = w_jsq_new
+        t_origin = torch.remainder(t_origin + shift, period)
 
     return SimResult(
         count=count, sum_response=s_resp, sumsq_response=ss_resp,
         sum_broker=s_br, sum_cluster=s_cl, sum_server=s_sv,
-        hist=hist, hist_log_lo=hist_log_lo, hist_log_step=hist_log_step)
+        hist=hist, hist_log_lo=hist_log_lo, hist_log_step=hist_log_step,
+        tap_response=tap_val)
 
 
 def simulate_fork_join_batch(
@@ -452,6 +828,8 @@ def simulate_fork_join_batch(
     warmup_fraction: float = 0.1,
     chunk_size: int = DEFAULT_CHUNK,
     hist_bins: int = DEFAULT_HIST_BINS,
+    tap_size: int = 0,
+    cluster: Optional[ClusterSpec] = None,
     draws: Optional[Draws] = None,
     device: DeviceLike = DEFAULT_DEVICE,
     dtype: torch.dtype = torch.float32,
@@ -460,12 +838,22 @@ def simulate_fork_join_batch(
 
     ``lam`` is an (S,) rate vector or an :class:`ArrivalProcess` with
     (S, n_bins) rates; every ``params`` field is (S,) (or broadcasts).
-    All scenarios share the server count ``p``.  The per-chunk (S, p,
-    chunk) and (S, chunk) FCFS recurrences flatten onto the rows of one
-    kernel launch each.  ``draws`` replaces the port's own RNG plan (see
-    the module docstring); it is called with the chunk chosen here, after
+    All scenarios share the server count ``p`` and the topology
+    ``cluster=ClusterSpec(...)`` (None: one replica, no cache).  The
+    per-chunk FCFS recurrences flatten onto the rows of one kernel launch
+    per queue level.  ``tap_size > 0`` carries a reservoir sample of
+    responses.  ``draws`` replaces the port's own RNG plan (see the
+    module docstring); it is called with the chunk chosen here, after
     the profile clamp.
+
+    Peak memory of the fused replicated engine is S x p x chunk values,
+    independent of ``n_queries`` and of r; the carries grow with r, at
+    S x r x p values.  The "masked" oracle needs S x r x p x chunk.
     """
+    spec = ClusterSpec() if cluster is None else cluster
+    if not isinstance(spec, ClusterSpec):
+        raise TypeError("cluster must be a repro_torch ClusterSpec; got "
+                        f"{type(spec).__name__}")
     dev = torch.device(device)
     mp_ops.resolve_scan_impl(impl, dev)       # reject a bad impl up front
     proc = _as_batch_process(lam, dev, dtype)
@@ -473,15 +861,30 @@ def simulate_fork_join_batch(
     chunk = _clamp_chunk_for_profile(
         proc, max(1, min(chunk_size, n_queries)))
     vp = _vec_params(params, dev, dtype)
+    n_scen = proc.rates.shape[0]
+    r = spec.engine_r
+    cache = None
+    if spec.result_cache is not None:
+        cache = tuple(torch.full((n_scen,), v, dtype=dtype, device=dev)
+                      for v in spec.result_cache)
     if draws is None:
-        n_scen, with_gaps = proc.rates.shape[0], proc.trace_gaps is None
+        with_gaps = proc.trace_gaps is None
+        side_kw = dict(
+            route_r=r if r > 1 and spec.routing == "random" else None,
+            cache_hit=None if cache is None else cache[0],
+            tap=tap_size > 0)
 
         def draws(chunk_idx: int):
-            return chunk_random_draws(seed, chunk_idx, n_scen, chunk, p, vp,
+            base = chunk_random_draws(seed, chunk_idx, n_scen, chunk, p, vp,
                                       mode, with_gaps=with_gaps, device=dev,
                                       dtype=dtype)
+            side = chunk_side_draws(seed, chunk_idx, n_scen, chunk,
+                                    device=dev, dtype=dtype, **side_kw)
+            return (*base, side) if side else base
     return _simulate_stream(draws, proc, vp, n_queries, p, impl, chunk,
-                            warmup_fraction, hist_bins)
+                            warmup_fraction, hist_bins, tap_size, r=r,
+                            routing=spec.routing, cache=cache,
+                            replica_impl=spec.replica_impl)
 
 
 def simulate_fork_join(
@@ -496,6 +899,8 @@ def simulate_fork_join(
     warmup_fraction: float = 0.1,
     chunk_size: int = DEFAULT_CHUNK,
     hist_bins: int = DEFAULT_HIST_BINS,
+    tap_size: int = 0,
+    cluster: Optional[ClusterSpec] = None,
     draws: Optional[Draws] = None,
     device: DeviceLike = DEFAULT_DEVICE,
     dtype: torch.dtype = torch.float32,
@@ -505,16 +910,20 @@ def simulate_fork_join(
     The broker is visited once per query with service S_broker; its
     completions are the fork times.  Each index server runs an
     independent FCFS queue over the forked stream, and the join waits for
-    the slowest server.  ``lam`` is a constant rate in qps or any
-    :class:`ArrivalProcess`.  Streams through ``chunk_size`` query chunks;
-    warmup queries are discarded from the returned statistics, whose
-    fields are 0-dim.
+    the slowest server.  ``lam`` is the TOTAL rate in qps or any
+    :class:`ArrivalProcess`.  ``cluster=ClusterSpec(r=..., routing=...,
+    result_cache=..., replica_impl=...)`` sets the topology: r replicas
+    behind a dispatcher, and the Eq 8 result cache at each replica's
+    broker.  Streams through ``chunk_size`` query chunks; warmup queries
+    are discarded from the returned statistics, whose fields are 0-dim
+    (``tap_response`` is (tap_size,)).
     """
     p = int(params.p) if p is None else p
     res = simulate_fork_join_batch(
         seed, lam, params, n_queries, p=p, mode=mode, impl=impl,
         warmup_fraction=warmup_fraction, chunk_size=chunk_size,
-        hist_bins=hist_bins, draws=draws, device=device, dtype=dtype)
+        hist_bins=hist_bins, tap_size=tap_size, cluster=cluster, draws=draws,
+        device=device, dtype=dtype)
     return SimResult(**{f.name: getattr(res, f.name)[0]
                         for f in dataclasses.fields(SimResult)})
 

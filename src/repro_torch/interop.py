@@ -54,11 +54,22 @@ def draws_from_numpy(per_chunk: Sequence[tuple], *,
     """A ``draws=`` callable serving precomputed per-chunk draws.
 
     ``per_chunk[c]`` is (u_gaps (S, chunk) or None, u_broker (S, chunk),
-    services (S, p, chunk)) for chunk c, as numpy arrays; they are moved
-    to ``device`` in ``dtype`` once, up front.
+    services (S, p, chunk)) for chunk c, as numpy arrays, optionally
+    followed by a dict of side streams (``"route"`` int replica indices,
+    ``"cache_hit"`` bool, ``"cache_unit"``, ``"tap"``; each (S, chunk); see
+    `repro_torch.core.simulator.chunk_side_draws`).  Everything is moved
+    to ``device`` once, up front: floating arrays in ``dtype``, integer
+    and bool arrays as they are.
     """
-    chunks = [tuple(None if x is None else from_host(x, device, dtype)
-                    for x in triple) for triple in per_chunk]
+    def move(x):
+        return None if x is None else from_host(x, device, dtype)
+
+    chunks = []
+    for entry in per_chunk:
+        base = tuple(move(x) for x in entry[:3])
+        if len(entry) > 3:
+            base += ({k: move(v) for k, v in entry[3].items()},)
+        chunks.append(base)
 
     def draws(chunk_idx: int):
         return chunks[chunk_idx]

@@ -29,42 +29,11 @@
 // Plain C interface (bound with ctypes): each entry point returns
 // cudaGetLastError() after the launch.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "maxplus_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kItems = 4;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = kThreads * kItems;
-constexpr unsigned kFull = 0xffffffffu;
-
-template <typename T>
-struct Map {
-  T a;
-  T b;
-};
-
-template <typename T>
-__device__ __forceinline__ T neg_inf();
-
-template <>
-__device__ __forceinline__ float neg_inf<float>() {
-  return __int_as_float(0xff800000);
-}
-
-template <>
-__device__ __forceinline__ double neg_inf<double>() {
-  return __longlong_as_double(0xfff0000000000000ULL);
-}
-
-// x is the EARLIER map, y the later one.
-template <typename T>
-__device__ __forceinline__ Map<T> combine(Map<T> x, Map<T> y) {
-  const T s = x.a + y.b;
-  return Map<T>{y.a > s ? y.a : s, x.b + y.b};
-}
+using namespace maxplus;
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)

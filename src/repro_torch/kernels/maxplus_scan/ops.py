@@ -1,9 +1,10 @@
-"""Public wrapper for the (max,+) scan: any leading shape, seeded or not.
+"""Public wrappers for the (max,+) scans: any leading shape, seeded or not,
+plain or segmented.
 
 ``impl`` picks the path: ``"cuda"`` launches the hand-written kernel
 (`repro_torch.kernels.maxplus_scan.kernel`), ``"torch"`` runs the plain
-version (`ref.maxplus_scan_ref`), and ``"auto"`` takes the kernel for a
-CUDA tensor and the plain version for a CPU tensor.  A CUDA tensor under
+version (`ref`), and ``"auto"`` takes the kernel for a CUDA tensor and
+the plain version for a CPU tensor.  A CUDA tensor under
 ``"auto"`` or ``"cuda"`` launches the kernel or raises; nothing falls
 back.
 """
@@ -16,34 +17,40 @@ from typing import Optional, Union
 import torch
 
 from repro_torch._tensor import DEFAULT_DEVICE, DeviceLike
+from repro_torch.kernels._cuda import IMPLS as SCAN_IMPLS
+from repro_torch.kernels._cuda import resolve_impl
 from repro_torch.kernels.maxplus_scan import kernel, ref
 
 Tensor = torch.Tensor
 
-SCAN_IMPLS = ("auto", "torch", "cuda")
-
 __all__ = ["SCAN_IMPLS", "resolve_scan_impl", "maxplus_scan",
-           "maxplus_scan_seeded", "launch_count", "reset_launch_count"]
+           "maxplus_scan_seeded", "maxplus_segment_scan", "launch_count",
+           "reset_launch_count", "segment_launch_count",
+           "reset_segment_launch_count"]
 
 
 def resolve_scan_impl(impl: str = "auto",
                       device: DeviceLike = DEFAULT_DEVICE) -> str:
     """"auto" -> "cuda" for a CUDA device, "torch" otherwise."""
-    if impl not in SCAN_IMPLS:
-        raise ValueError(f"unknown scan impl {impl!r}; choose one of "
-                         f"{SCAN_IMPLS}")
-    if impl != "auto":
-        return impl
-    return "cuda" if torch.device(device).type == "cuda" else "torch"
+    return resolve_impl(impl, device)
 
 
 def launch_count() -> int:
-    """Kernel launches made by this process so far."""
+    """Plain-scan kernel launches made by this process so far."""
     return kernel.launches
 
 
 def reset_launch_count() -> None:
     kernel.launches = 0
+
+
+def segment_launch_count() -> int:
+    """Segmented-scan kernel launches made by this process so far."""
+    return kernel.segment_launches
+
+
+def reset_segment_launch_count() -> None:
+    kernel.segment_launches = 0
 
 
 def _rows(x: Tensor, shape: torch.Size) -> Tensor:
@@ -107,3 +114,40 @@ def maxplus_scan_seeded(
     out_a = torch.maximum(out_a, carry_a[..., None] + out_b)
     out_b = carry_b[..., None] + out_b
     return out_a, out_b
+
+
+def _flag_rows(f: Tensor, shape: torch.Size) -> Tensor:
+    """Reset flags as a contiguous (flag_rows, n) uint8 tensor.
+
+    Where ``f`` varies only along a prefix of the leading axes (the
+    simulator's (S, 1, chunk) flags against (S, p, chunk) servers), the
+    broadcast trailing axes become the kernel's rows per flag row and no
+    full-size flag tensor is built; any other broadcast is materialized.
+    """
+    lead = shape[:-1]
+    fs = (1,) * (len(shape) - f.ndim) + tuple(f.shape)
+    k = next((k for k in range(len(lead), -1, -1)
+              if fs[:k] == tuple(lead[:k]) and all(d == 1 for d in fs[k:-1])),
+             len(lead))
+    if fs[-1] != shape[-1]:
+        k = len(lead)
+    flags = ref._cut(f).reshape(fs).expand(tuple(lead[:k]) + fs[k:-1]
+                                           + (shape[-1],))
+    return flags.reshape(math.prod(lead[:k]), shape[-1]).contiguous().view(
+        torch.uint8)
+
+
+def maxplus_segment_scan(a: Tensor, b: Tensor, f: Tensor, *,
+                         impl: str = "auto") -> tuple[Tensor, Tensor]:
+    """Segmented inclusive (max, +) scan along the last axis.
+
+    ``f`` holds reset flags (bool, integer or float 0/1; nonzero starts a
+    new segment) and broadcasts against ``a``: the scan never looks back
+    across a flagged element.  Any leading shape.
+    """
+    if resolve_scan_impl(impl, a.device) == "torch":
+        return ref.maxplus_segment_scan_ref(a, b, f)
+    shape = torch.broadcast_shapes(a.shape, b.shape, f.shape)
+    out_a, out_b = kernel.maxplus_segment_scan_cuda(
+        _rows(a, shape), _rows(b, shape), _flag_rows(f, shape))
+    return out_a.reshape(shape), out_b.reshape(shape)

@@ -1,4 +1,4 @@
-"""Card-only tests of the port: the CUDA (max,+) scan and the engine on it.
+"""Card-only tests of the port: the CUDA kernels and the engine on them.
 
 Every test here carries the ``gpu`` marker and skips, with a reason,
 where no CUDA device is present; whether one is present is decided inside
@@ -15,6 +15,8 @@ import torch
 
 from repro_torch import interop
 from repro_torch.core import capacity, simulator
+from repro_torch.core.cluster import ClusterSpec
+from repro_torch.kernels.jsq_route import ops as jsq_ops
 from repro_torch.kernels.maxplus_scan import kernel, ops
 
 pytestmark = pytest.mark.gpu
@@ -131,3 +133,75 @@ def test_card_equals_cpu_on_injected_draws(cuda):
     _assert_rel(out["cuda"].hist_log_lo.cpu(), out["cpu"].hist_log_lo, 1e-6)
     moved = (out["cuda"].hist.cpu() - out["cpu"].hist).abs().sum() / 2
     assert moved <= 1e-3 * out["cpu"].hist.sum()
+
+
+def _flags(shape, device, p_flag=0.05, seed=1):
+    g = torch.Generator(device=device).manual_seed(seed)
+    f = torch.rand(shape, device=device, generator=g) < p_flag
+    f[..., 0] = True
+    return f
+
+
+@pytest.mark.parametrize("shape,fshape", [
+    ((1, 1), (1, 1)), ((3, 1000), (3, 1000)), ((37, 1025), (37, 1025)),
+    ((2, 3, 4097), (2, 1, 4097)), ((64, 100, 512), (64, 1, 512)),
+    ((5, 1023), (1023,))])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-12)])
+def test_segment_kernel_matches_plain_scan(cuda, shape, fshape, dtype, rtol):
+    a, b, _ = _inputs(shape, dtype, cuda)
+    f = _flags(fshape, cuda)
+    before = ops.segment_launch_count()
+    ka, kb = ops.maxplus_segment_scan(a, b, f, impl="cuda")
+    pa, pb = ops.maxplus_segment_scan(a, b, f, impl="torch")
+    torch.cuda.synchronize()
+    assert ops.segment_launch_count() == before + 1
+    _assert_rel(ka, pa, rtol)
+    _assert_rel(kb, pb, rtol)
+
+
+@pytest.mark.parametrize("r,p,n", [(4, 100, 300), (3, 5, 1000), (1, 7, 33),
+                                   (16, 40, 65)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_jsq_kernel_matches_plain_loop(cuda, r, p, n, dtype):
+    g = torch.Generator(device=cuda).manual_seed(r * 1000 + p)
+    s = 6
+    w = torch.rand((s, r, p), dtype=dtype, device=cuda, generator=g)
+    w[0] = 0.0                                 # idle: ties everywhere
+    gaps = torch.empty((s, n), dtype=dtype, device=cuda).exponential_(
+        generator=g) * 0.3 / r
+    svc = torch.empty((s, p, n), dtype=dtype, device=cuda).exponential_(
+        generator=g)
+    live = (torch.rand((s, n), device=cuda, generator=g) > 0.2).to(dtype)
+    before = jsq_ops.launch_count()
+    kc, kw = jsq_ops.jsq_route(w, gaps, svc, live, impl="cuda")
+    pc, pw = jsq_ops.jsq_route(w, gaps, svc, live, impl="torch")
+    torch.cuda.synchronize()
+    assert jsq_ops.launch_count() == before + 1
+    assert torch.equal(kc, pc)
+    assert torch.equal(kw, pw)
+
+
+@pytest.mark.parametrize("routing", ["random", "jsq"])
+def test_replicated_engine_goes_through_both_kernels(cuda, routing):
+    params = dataclasses.replace(capacity.TABLE5_PARAMS, p=16)
+    n, chunk, r = 12_000, 4096, 3
+    cluster = ClusterSpec(r=r, routing=routing, result_cache=(0.2, 2e-3))
+    ops.reset_launch_count()
+    ops.reset_segment_launch_count()
+    jsq_ops.reset_launch_count()
+    res = simulator.simulate_fork_join(7, 3 * 25.0, n, params, tap_size=64,
+                                       cluster=cluster, chunk_size=chunk)
+    n_chunks = -(-n // chunk)
+    assert ops.launch_count() == 0
+    assert ops.segment_launch_count() == 3 * n_chunks
+    assert jsq_ops.launch_count() == (n_chunks if routing == "jsq" else 0)
+    plain = simulator.simulate_fork_join(7, 3 * 25.0, n, params,
+                                         tap_size=64, cluster=cluster,
+                                         chunk_size=chunk, impl="torch")
+    _assert_rel(res.mean_response, plain.mean_response, 1e-4)
+    masked = simulator.simulate_fork_join(
+        7, 3 * 25.0, n, params, tap_size=64, chunk_size=chunk,
+        cluster=dataclasses.replace(cluster, replica_impl="masked"))
+    _assert_rel(res.mean_response, masked.mean_response, 1e-4)
+    assert int(torch.isfinite(res.tap_response).sum()) == 64
