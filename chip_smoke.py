@@ -4,18 +4,26 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from the checkout's sources (the
-(max,+) scan, the segmented (max,+) scan and the JSQ router, one nvcc
-each, in parallel), holds each against its plain PyTorch version on the
-card, and drives the port's two paths over Table 6's 100-server case
-study, 64 scenarios: the single-replica engine (phases 3-4) and the
-replicated cluster, r = 4 with the result cache, under random and JSQ
-routing (phases 6-7).  It checks the answers against the Eq 7 bounds and
-against the plain path, and prints timings beside the card's name and
-power limit.  Any failed check raises (non-zero exit).  The last lines
-are the kernel report (JSON), the card, and the device line (JSON).
+(max,+) scan, the segmented (max,+) scan, the JSQ router, flash attention
+and decode attention, one nvcc each, in parallel), holds each against
+its plain PyTorch version on the card, and drives the port's paths:
+
+  * the simulator over Table 6's 100-server case study, 64 scenarios:
+    the single-replica engine (phases 3-4) and the replicated cluster,
+    r = 4 with the result cache, under random and JSQ routing (phases
+    6-7), checked against the Eq 7 bounds and the plain path;
+  * LM serving: `LMServer` at Qwen3-8B's full width in bfloat16 with
+    random weights from a seed, 12 requests through 8 slots (phases
+    10-10b), its logits held against the plain path (phase 11), and the
+    serving planner on the measured step (phase 12).
+
+It prints timings beside the card's name and power limit.  Any failed
+check raises (non-zero exit).  The last lines are the kernel report
+(JSON), the card, and the device line (JSON).  TF32 is off for matrix
+products and cuDNN (`torch.backends`), so float32 means float32.
 
 Needs a CUDA device and nvcc; it refuses to run anywhere else.  Imports
-torch and repro_torch only.
+torch, numpy and repro_torch only.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, data sheet
 FP32_OPS_PER_S = 67e12          # H100 SXM, non-tensor float32
+BF16_OPS_PER_S = 989e12         # H100 SXM, dense bf16 tensor cores
 N_SCEN, P, CHUNK, N_CHUNKS = 64, 100, 4096, 25   # Table 6, full width
 TIMED_SHAPE = (N_SCEN * P, CHUNK)   # the server scan: 64 scenarios x p
 N_TIMED = 50
@@ -80,6 +89,31 @@ def _time_ms(fn, n: int = N_TIMED, warm: int = 3) -> float:
     return start.elapsed_time(stop) / n
 
 
+def _device_ms(fn, n: int = N_TIMED, warm: int = 3) -> float:
+    """Device time of one ``fn()`` call.  A spin kernel holds the stream
+    while the host queues all ``n`` calls, so a call whose host cost
+    (Python wrapper, launches) exceeds its device time is timed by the
+    card, not by the host."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * host_s * 2e9))   # >= 2 x host_s at <= 2 GHz
+    start.record()
+    for _ in range(n):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n
+
+
 def _wall(run) -> float:
     """Host wall seconds of ``run()`` through to a device sync."""
     import torch
@@ -91,11 +125,15 @@ def _wall(run) -> float:
 
 
 def _reset_counts() -> None:
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.jsq_route import ops as jsq_ops
     from repro_torch.kernels.maxplus_scan import ops
     ops.reset_launch_count()
     ops.reset_segment_launch_count()
     jsq_ops.reset_launch_count()
+    fa_ops.reset_counts()
+    dec_ops.reset_counts()
 
 
 def _counts() -> dict:
@@ -106,17 +144,25 @@ def _counts() -> dict:
             "jsq_route": jsq_ops.launch_count()}
 
 
+def _attention_counts() -> dict:
+    """Attention kernel launches, and calls that took a plain version."""
+    from repro_torch.kernels.decode_attention import ops as dec_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    return {"flash_attention": fa_ops.launch_count(),
+            "decode_attention": dec_ops.launch_count(),
+            "plain": fa_ops.plain_count() + dec_ops.plain_count()}
+
+
 def phase_device():
     import torch
-    from repro_torch.kernels.jsq_route import kernel as jsq_kernel
-    from repro_torch.kernels.maxplus_scan import kernel
+    from repro_torch.kernels import _cuda
     card = _card()
     print("== phase 1: device and kernel builds")
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
           f"device {torch.cuda.get_device_name(0)}; "
           f"count {torch.cuda.device_count()}")
-    libs = (kernel.SCAN_LIB, kernel.SEGMENT_LIB, jsq_kernel.LIB)
+    libs = _cuda.all_libraries()
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: lib.load(), libs))   # raises on failure
@@ -596,6 +642,412 @@ def phase_memory_law(card: str) -> None:
                              f"S*p*chunk buffers per replica")
 
 
+# ------------------------------------------------------------ LM serving
+HEADS, KV_HEADS, D_HEAD = 32, 8, 128   # Qwen3-8B's attention
+SLOTS, MAX_SEQ, MAX_NEW = 8, 4096, 32
+PROMPTS = (512, 1024, 1536, 2048) * 3
+PROFILE_PROMPT, CHECK_PROMPT = 512, 128   # phases 10b and 11
+# Attention kernels against their plain version in float32 on the same
+# values: the largest relative L2 error of one output row (one query and
+# head, D values), so the limit scales with the output, which shrinks as
+# (positions)^-1/2 (~0.01 at 32k positions; an absolute limit would not).
+# bfloat16 rounds at u = 2^-8: the output's rounding gives ~u/sqrt(3) a
+# row, the bf16 probabilities of the flash kernel's mma products as much
+# again; 1e-2 holds both in the worst row, and fails a kernel that drops
+# one split of positions or one K tile (0.2 and more), or even one of
+# 32k positions (~0.02, where a row's softmax is peaked).  float32: 1e-4 holds
+# float32 rounding over 32k-term sums, and fails anything rounded to
+# bfloat16 on the way (>= 1e-3).
+ATTN_ROW_RTOL = {"torch.bfloat16": 1e-2, "torch.float32": 1e-4}
+# Logits of two paths through the whole model, relative L2 error.
+# bfloat16 keeps 8 significant bits (relative rounding up to 2^-9); the
+# kernel path and the plain prefill round at different places (matmul
+# shapes M = 8 vs M = 8 x S, the attention kernels), and a few such
+# roundings per layer compound over 36 layers as a random walk to a few
+# per cent: 5e-2.  float32 rounds at 2^-24: 1e-4 holds float32 rounding
+# with room, and fails anything computed in bfloat16 (~4e-3 per op).
+BF16_LOGITS_RTOL = 5e-2
+F32_LOGITS_RTOL = 1e-4
+PLAN_RATE, PLAN_SLO = 500.0, 0.6   # examples/plan_llm_serving.py, decode
+
+
+def _attn_check(out, expect, dtype, what) -> float:
+    """The largest relative L2 error of an output row against the plain
+    version's float32 output, held to ATTN_ROW_RTOL; returns max abs
+    err."""
+    tol = ATTN_ROW_RTOL[str(dtype)]
+    diff = out.float() - expect
+    row_err = float((diff.norm(dim=-1) / expect.norm(dim=-1)).max())
+    abs_err = float(diff.abs().max())
+    print(f"  {what}: max row relative L2 err {row_err:.3e} (limit {tol:g}),"
+          f" max abs err {abs_err:.3e}, output std "
+          f"{float(expect.std()):.3e}")
+    if not row_err <= tol:
+        raise AssertionError(f"{what}: kernel disagrees with its plain "
+                             f"version by {row_err} > {tol} (row relative "
+                             "L2)")
+    return abs_err
+
+
+def _sdpa(q, k, v, **kw):
+    """The library yardstick, timed only: one SDPA call on the model
+    layout's (B, heads, S, D) views.  Returns (fn, note)."""
+    import torch
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    try:
+        F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **kw)
+        return (lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True, **kw)), "enable_gqa=True"
+    except TypeError:            # torch without enable_gqa
+        rep = q.shape[2] // k.shape[2]
+        kr, vr = (x.repeat_interleave(rep, dim=1) for x in (kt, vt))
+        torch.cuda.synchronize()
+        return (lambda: F.scaled_dot_product_attention(qt, kr, vr, **kw)), \
+            "K/V repeat_interleave'd first (no enable_gqa)"
+
+
+def phase_flash_kernel(card: str) -> dict:
+    """The flash kernel against its plain version at the prefill's
+    shapes (one prompt, Qwen3-8B's heads), then timings at S = 2048."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel, ops
+    print("== phase 8: flash-attention kernel vs plain version on the card")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    main = None
+    for s, dtype in itertools.product((2048, 1000),
+                                      (torch.bfloat16, torch.float32)):
+        q = torch.randn((1, s, HEADS, D_HEAD), generator=gen,
+                        device="cuda").to(dtype)
+        k, v = (torch.randn((1, s, KV_HEADS, D_HEAD), generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        out = ops.flash_attention(q, k, v, impl="cuda")
+        expect = ops.flash_attention(q.float(), k.float(), v.float(),
+                                     impl="torch")
+        torch.cuda.synchronize()
+        err = _attn_check(out, expect, dtype,
+                          f"(1, {s}, {HEADS}, {KV_HEADS}, {D_HEAD}) {dtype}")
+        if s == 2048 and dtype == torch.bfloat16:
+            main = (q, k, v, err)
+    q, k, v, main_err = main
+    b, s, h, d = q.shape
+    ms = _device_ms(lambda: kernel.flash_attention_cuda(q, k, v), n=20)
+    plain_ms = _device_ms(lambda: ops.flash_attention(q, k, v,
+                                                      impl="torch"), n=5)
+    library, note = _sdpa(q, k, v, is_causal=True)
+    library_ms = _device_ms(library, n=20)
+    flops = 4 * b * h * d * s * (s + 1) // 2     # QK^T and PV, causal pairs
+    moved = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    ops_ms = flops / BF16_OPS_PER_S * 1e3
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    print(f"  at (1, {s}, {h}, {KV_HEADS}, {d}) bfloat16 causal, one layer, "
+          f"device time [{card}]:")
+    print(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  SDPA "
+          f"({note}) {library_ms:.4f} ms  bound {bound_ms:.4f} ms "
+          f"({flops / 1e9:.1f} GFLOP at 989 TFLOP/s; {moved / 1e6:.1f} MB "
+          f"= {bytes_ms:.4f} ms); kernel at "
+          f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:84",
+            "launches": None, "max_abs_err": main_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": library_ms}
+
+
+def phase_decode_kernel(card: str) -> dict:
+    """The decode kernel against its plain version: the serving batch at
+    ~2100 positions, and decode_32k's sequence at a one-chip batch."""
+    import torch
+    from repro_torch.kernels.decode_attention import kernel, ops
+    print("== phase 9: decode-attention kernel vs plain version on the card")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    report = None
+    for b, s, length, dtype in ((8, 4096, 2100, torch.bfloat16),
+                                (8, 4096, 2100, torch.float32),
+                                (8, 32768, 32767, torch.bfloat16)):
+        q = torch.randn((b, 1, HEADS, D_HEAD), generator=gen,
+                        device="cuda").to(dtype)
+        k, v = (torch.randn((b, s, KV_HEADS, D_HEAD), generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        out = ops.decode_attention(q, k, v, length, impl="cuda")
+        expect = ops.decode_attention(q.float(), k.float(), v.float(),
+                                      length, impl="torch")
+        torch.cuda.synchronize()
+        what = f"B={b} S={s} length={length} {dtype}"
+        err = _attn_check(out, expect, dtype, what)
+        if dtype == torch.float32:
+            continue
+        def call():
+            return kernel.decode_attention_cuda(q, k, v, length)
+        ms = _device_ms(call)
+        host_ms = _time_ms(call)
+        plain_ms = _device_ms(lambda: ops.decode_attention(
+            q, k, v, length, impl="torch"), n=3)
+        mask = (torch.arange(s, device="cuda") <= length).view(1, 1, 1, s)
+        library, note = _sdpa(q, k, v, attn_mask=mask)
+        library_ms = _device_ms(library, n=10)
+        n = length + 1
+        moved = (2 * b * n * KV_HEADS * D_HEAD + 2 * q.numel()) \
+            * q.element_size()
+        flops = 4 * b * HEADS * n * D_HEAD
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / BF16_OPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        chunk, splits = kernel.split_plan(
+            n, b * KV_HEADS, torch.cuda.get_device_properties(0)
+            .multi_processor_count)
+        print(f"    one layer, device time [{card}]: kernel {ms:.4f} ms "
+              f"({host_ms:.4f} ms a call back to back, its host cost "
+              f"included)  plain "
+              f"{plain_ms:.4f} ms  SDPA with a boolean mask ({note}) "
+              f"{library_ms:.4f} ms  bound {bound_ms:.4f} ms "
+              f"({moved / 1e6:.1f} MB of K/V at 3.35 TB/s); kernel at "
+              f"{moved / (ms * 1e-3) / 1e9:.0f} GB/s; {splits} splits of "
+              f"{chunk} positions")
+        if report is None:
+            report = {"name": "decode_attention", "route": "cuda",
+                      "source": "src/repro_torch/kernels/decode_attention/"
+                                "csrc/decode_attention.cu",
+                      "replaces": "src/repro/kernels/decode_attention/"
+                                  "kernel.py:69",
+                      "launches": None, "max_abs_err": err, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": ("bytes" if bytes_ms >= ops_ms
+                                   else "operations"),
+                      "library_ms": library_ms}
+    return report
+
+
+def _kv_bytes(cfg, rows: int, positions: int) -> int:
+    """K and V of ``positions`` cache positions for ``rows`` sequences,
+    all layers, in the config's dtype."""
+    return (2 * cfg.n_layers * rows * positions * cfg.n_kv_heads
+            * cfg.d_head * (2 if cfg.dtype == "bfloat16" else 4))
+
+
+def phase_lm_server(card: str) -> dict:
+    """`LMServer` at Qwen3-8B's full width: 12 requests through 8 slots,
+    admitted as slots free (continuous batching), greedy decoding."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import qwen3_8b
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import LMServer
+    cfg = qwen3_8b.FULL
+    print(f"== phase 10: LMServer, {cfg.name} at full width ({cfg.n_layers} "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads, vocab {cfg.vocab_padded}), {cfg.dtype}, random weights "
+          f"(seed 0); {SLOTS} slots, max_seq {MAX_SEQ}, {len(PROMPTS)} "
+          f"requests of {sorted(set(PROMPTS))} prompt tokens, {MAX_NEW} new "
+          "tokens each")
+    t0 = time.perf_counter()
+    model = T.init_params(0, cfg)
+    srv = LMServer(cfg, model, slots=SLOTS, max_seq=MAX_SEQ)
+    torch.cuda.synchronize()
+    weight_bytes = sum(p.numel() * p.element_size()
+                       for p in model.parameters())
+    # a decode step reads every weight once, but of the embedding table
+    # only the SLOTS rows it gathers
+    step_weight_bytes = weight_bytes - model.embed.element_size() * (
+        model.embed.numel() - SLOTS * cfg.d_model)
+    print(f"  weights {weight_bytes / 1e9:.2f} GB and cache "
+          f"{_kv_bytes(cfg, SLOTS, MAX_SEQ) / 1e9:.2f} GB allocated and drawn "
+          f"in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(10)
+    # warm-up (cuBLAS handles, allocator, first launches), uncounted
+    srv.admit(-1, rng.integers(0, cfg.vocab_size, 64).astype(np.int32), 2)
+    while srv.step():
+        pass
+    srv.completed.clear()
+
+    queue = [(i, rng.integers(0, cfg.vocab_size, n).astype(np.int32),
+              MAX_NEW) for i, n in enumerate(PROMPTS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    prefill_s = 0.0
+    admits, decode_tokens, step_s, step_bound_s, lens = 0, 0, [], [], []
+    while queue or any(sl.remaining > 0 for sl in srv.slots):
+        while queue:
+            t0 = time.perf_counter()
+            if not srv.admit(*queue[0]):     # admit syncs (first token)
+                break
+            prefill_s += time.perf_counter() - t0
+            queue.pop(0)
+            admits += 1
+        _, length = srv.decode_inputs()
+        t0 = time.perf_counter()
+        active = srv.step()                  # step syncs (greedy tokens)
+        step_s.append(time.perf_counter() - t0)
+        decode_tokens += active
+        lens.append(length)
+        step_bound_s.append((step_weight_bytes
+                             + _kv_bytes(cfg, SLOTS, length + 1))
+                            / HBM_BYTES_PER_S)
+    decode_s = sum(step_s)
+    peak = torch.cuda.max_memory_allocated()
+    counts = _attention_counts()
+    steps = len(step_s)
+    done = {c["req_id"]: c["tokens"] for c in srv.completed}
+    want = {i: n + 1 + MAX_NEW for i, n in enumerate(PROMPTS)}
+    if {i: len(t) for i, t in done.items()} != want:
+        raise AssertionError(f"completions {sorted(done)} with lengths "
+                             f"{[len(t) for t in done.values()]}, expected "
+                             f"{want}")
+    expect = {"flash_attention": cfg.n_layers * admits,
+              "decode_attention": cfg.n_layers * steps, "plain": 0}
+    if counts != expect:
+        raise AssertionError(f"attention launches {counts}, expected "
+                             f"{expect} ({admits} admits, {steps} steps)")
+    mean_step = decode_s / steps
+    mean_bound = sum(step_bound_s) / steps
+    print(f"  {admits} admits, {steps} decode steps; launches {counts} "
+          f"[{card}]")
+    print(f"  prefill: {sum(PROMPTS)} tokens in {prefill_s:.3f} s = "
+          f"{sum(PROMPTS) / prefill_s:.0f} tokens/s")
+    print(f"  decode: {decode_tokens} tokens in {decode_s:.3f} s = "
+          f"{decode_tokens / decode_s:.1f} tokens/s; {mean_step * 1e3:.2f} "
+          f"ms per step (median {sorted(step_s)[steps // 2] * 1e3:.2f}, "
+          f"cache length {min(lens)}..{max(lens)}) against a bound of "
+          f"{mean_bound * 1e3:.2f} ms ({step_weight_bytes / 1e9:.2f} GB of "
+          f"weights, the embedding's {SLOTS} gathered rows only, + K/V read "
+          "at 3.35 TB/s)")
+    print(f"  peak memory {peak / 1e9:.2f} GB (weights "
+          f"{weight_bytes / 1e9:.2f} GB, cache "
+          f"{_kv_bytes(cfg, SLOTS, MAX_SEQ) / 1e9:.2f} GB)")
+    return {"cfg": cfg, "model": model, "srv": srv, "rng": rng,
+            "counts": counts, "step_s": mean_step,
+            "mean_len": sum(lens) / steps,
+            "step_weight_bytes": step_weight_bytes}
+
+
+def phase_lm_profile(card: str, lm: dict) -> None:
+    """Where a decode step's time goes: 8 fresh prompts, 4 steps timed,
+    then the same 4-step window under the profiler."""
+    import numpy as np
+    srv, cfg, rng = lm["srv"], lm["cfg"], lm["rng"]
+    for i in range(SLOTS):
+        if not srv.admit(100 + i, rng.integers(0, cfg.vocab_size,
+                                               PROFILE_PROMPT)
+                         .astype(np.int32), 14):
+            raise AssertionError("a slot did not free up")
+    srv.step()
+    srv.step()
+
+    def four():
+        for _ in range(4):
+            srv.step()
+    wall = _wall(four)
+    phase_profile(card, wall, four,
+                  "phase 10b: device time by kernel, 4 decode steps "
+                  f"({cfg.name}, {SLOTS} slots, cache length "
+                  f"~{PROFILE_PROMPT + 4})")
+
+
+def _logits_through_cache(model, cfg, prompts, steps: int = 3):
+    """Prefill ``prompts`` and decode ``steps`` greedy tokens through the
+    cache (the kernel path); hold each step's logits against the plain
+    path's prefill over the whole sequence so far.  Returns the relative
+    L2 errors."""
+    import torch
+    from repro_torch.models import transformer as T
+    b, s = prompts.shape
+    logits, pre = T.prefill(model, cfg, prompts, chunk=s)
+    cache = T.init_kv_cache(cfg, b, s + steps)
+    cache["k"][:, :, :s], cache["v"][:, :, :s] = pre["k"], pre["v"]
+    cache["len"] = s
+    seq, errs = prompts, []
+    for _ in range(steps):
+        nxt = logits[:, -1].argmax(dim=-1, keepdim=True)
+        seq = torch.cat([seq, nxt], dim=1)
+        logits, cache = T.decode_step(model, cfg, nxt, cache)
+        plain, _ = T.prefill(model, cfg, seq, chunk=seq.shape[1],
+                             impl="torch")
+        errs.append(_rel_l2(logits[:, 0], plain[:, 0]))
+    return errs
+
+
+def _rel_l2(x, y) -> float:
+    return float((x.float() - y.float()).norm() / y.float().norm())
+
+
+def phase_lm_correctness(card: str, lm: dict) -> None:
+    """Full-width logits through the kernel path against the plain path."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as T
+    print("== phase 11: full-width logits, kernel path vs plain path")
+    cfg, model, srv = lm["cfg"], lm["model"], lm["srv"]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    prompts = torch.randint(0, cfg.vocab_size, (SLOTS, CHECK_PROMPT),
+                            device="cuda", generator=gen)
+    errs = _logits_through_cache(model, cfg, prompts)
+    print(f"  1. {cfg.name} bfloat16, {SLOTS} equal {CHECK_PROMPT}-token "
+          f"prompts, 3 "
+          f"steps through the cache vs plain prefill of the whole sequence: "
+          f"relative L2 {', '.join(f'{e:.2e}' for e in errs)} (limit "
+          f"{BF16_LOGITS_RTOL:g})")
+    if not max(errs) <= BF16_LOGITS_RTOL:
+        raise AssertionError(f"bfloat16 logits differ by {max(errs)}")
+
+    cfg2 = dataclasses.replace(cfg, name=f"{cfg.name}-2-layer-f32",
+                               n_layers=2, dtype="float32")
+    model2 = T.init_params(1, cfg2)
+    errs = _logits_through_cache(model2, cfg2, prompts)
+    print(f"  2. {cfg2.name} (full width), same check: relative L2 "
+          f"{', '.join(f'{e:.2e}' for e in errs)} (limit "
+          f"{F32_LOGITS_RTOL:g})")
+    if not max(errs) <= F32_LOGITS_RTOL:
+        raise AssertionError(f"float32 logits differ by {max(errs)}")
+    del model2
+
+    cur, length = srv.decode_inputs()
+    cache = {"k": srv.cache["k"], "v": srv.cache["v"], "len": length}
+    plain, _ = T.decode_step(model, cfg, cur, cache, impl="torch")
+    kern, _ = T.decode_step(model, cfg, cur, cache)
+    err = _rel_l2(kern[:, 0], plain[:, 0])
+    print(f"  3. the server's next step (cache length {length}), kernel vs "
+          f"impl=\"torch\": relative L2 {err:.2e} (limit "
+          f"{BF16_LOGITS_RTOL:g}) [{card}]")
+    if not err <= BF16_LOGITS_RTOL:
+        raise AssertionError(f"server step logits differ by {err}")
+
+
+def phase_planner(card: str, lm: dict) -> None:
+    """The serving planner on one decode step: counted FLOPs and bytes on
+    H100_SXM, and the measured step, as one-chip cells of batch 8."""
+    from repro_torch.core import planner
+    print("== phase 12: serving planner on the decode step")
+    cfg = lm["cfg"]
+    n = lm["mean_len"] + 1
+    flops = (2 * (cfg.n_params - cfg.vocab_size * cfg.d_model) * SLOTS
+             + 4 * SLOTS * cfg.n_heads * n * cfg.d_head * cfg.n_layers)
+    nbytes = lm["step_weight_bytes"] + _kv_bytes(cfg, SLOTS, n)
+    counted = planner.terms_from_analysis(
+        hlo_flops=flops, hlo_bytes=nbytes, collective_bytes=0.0, n_chips=1,
+        hw=planner.H100_SXM)
+    measured = planner.RooflineTerms(compute_s=0.0, memory_s=lm["step_s"],
+                                     collective_s=0.0)
+    for what, terms in (("counted bound", counted),
+                        ("measured step", measured)):
+        model = planner.ServingModel(name=f"{cfg.name} decode, {what}",
+                                     terms=terms, n_chips=1,
+                                     batch_per_step=SLOTS)
+        plan = planner.plan_serving(model, PLAN_RATE, PLAN_SLO)
+        print(f"  {what}: step {terms.step_time_lower_bound * 1e3:.2f} ms "
+              f"({terms.bound}-bound) -> {plan.cells} cells for "
+              f"{PLAN_RATE:g} req/s under {PLAN_SLO * 1e3:.0f} ms: "
+              f"{plan.per_cell_rate:.1f} req/s a cell, utilization "
+              f"{plan.utilization:.3f}, response <= "
+              f"{plan.response_upper_ms:.1f} ms [{card}]")
+        if plan.cells < 1:
+            raise AssertionError(f"{what}: no feasible plan")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -608,6 +1060,9 @@ def main() -> int:
         print(f"chip_smoke: the repro_torch package is missing ({exc}); "
               "run from a checkout of the repository", file=sys.stderr)
         return 2
+    # full float32 where float32 is asked for: no TF32 in products
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = phase_device()
     scan = phase_kernel(card)
     scan["launches"], wall = phase_main_path(card)
@@ -629,7 +1084,15 @@ def main() -> int:
         f"phase 6b: device time by kernel, replicated path (random, r = {R},"
         " result cache)")
     phase_memory_law(card)
-    print(json.dumps({"kernels": [scan, segment, jsq]}))
+    flash = phase_flash_kernel(card)
+    decode = phase_decode_kernel(card)
+    lm = phase_lm_server(card)
+    flash["launches"] = lm["counts"]["flash_attention"]
+    decode["launches"] = lm["counts"]["decode_attention"]
+    phase_lm_profile(card, lm)
+    phase_lm_correctness(card, lm)
+    phase_planner(card, lm)
+    print(json.dumps({"kernels": [scan, segment, jsq, flash, decode]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

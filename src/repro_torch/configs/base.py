@@ -1,0 +1,109 @@
+"""Config dataclasses of the language models the port serves, and their
+input-shape cells.
+
+A port of the LM half of `repro.configs.base`: every architecture
+field, default and derived property is the reference's, so a config
+built here describes the same model (`vocab_padded`, `n_params` and
+`n_active_params` agree with the reference's).  The reference's JAX
+execution knobs (`scan_layers`, `scan_unroll`, `attn_chunk`,
+`unroll_attn`) have no meaning here and are left out.  One `ArchSpec` per architecture lives in
+``repro_torch/configs/<id>.py``; the registry maps an id to it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+__all__ = ["MoESpec", "LMConfig", "ShapeSpec", "ArchSpec", "LM_SHAPES"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    n_experts: int
+    top_k: int
+    d_expert: int               # per-expert FFN hidden size
+    capacity_factor: float = 1.25
+    n_experts_padded: int = 0   # padded up for even expert-parallel sharding
+
+    def padded(self, multiple: int) -> "MoESpec":
+        pad = (-self.n_experts) % multiple
+        return dataclasses.replace(
+            self, n_experts_padded=self.n_experts + pad)
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int                   # dense FFN hidden (MoE: per-expert = moe.d_expert)
+    vocab_size: int
+    d_head: int = 128
+    qk_norm: bool = False
+    rope_theta: float = 1e6
+    moe: Optional[MoESpec] = None
+    tie_embeddings: bool = False
+    dtype: str = "bfloat16"
+    vocab_pad_multiple: int = 2048
+
+    @property
+    def vocab_padded(self) -> int:
+        return self.vocab_size + (-self.vocab_size) % self.vocab_pad_multiple
+
+    @property
+    def n_params(self) -> int:
+        """Approximate parameter count (for 6ND model FLOPs)."""
+        d, h, kv, dh = self.d_model, self.n_heads, self.n_kv_heads, self.d_head
+        attn = d * h * dh + 2 * d * kv * dh + h * dh * d
+        if self.moe is not None:
+            ffn = 3 * d * self.moe.d_expert * self.moe.n_experts
+            ffn += d * self.moe.n_experts          # router
+        else:
+            ffn = 3 * d * self.d_ff
+        per_layer = attn + ffn + 2 * d             # norms
+        emb = (1 if self.tie_embeddings else 2) * self.vocab_size * d
+        return self.n_layers * per_layer + emb
+
+    @property
+    def n_active_params(self) -> int:
+        """Activated params per token (MoE: only top_k experts count)."""
+        if self.moe is None:
+            return self.n_params
+        d = self.d_model
+        full_ffn = 3 * d * self.moe.d_expert * self.moe.n_experts
+        act_ffn = 3 * d * self.moe.d_expert * self.moe.top_k
+        return self.n_params - self.n_layers * (full_ffn - act_ffn)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned input-shape cell."""
+
+    name: str
+    kind: str                    # train | prefill | decode
+    dims: Dict[str, int]
+
+    def __getitem__(self, k):
+        return self.dims[k]
+
+
+LM_SHAPES = (
+    ShapeSpec("train_4k", "train", dict(seq_len=4096, global_batch=256)),
+    ShapeSpec("prefill_32k", "prefill", dict(seq_len=32768, global_batch=32)),
+    ShapeSpec("decode_32k", "decode", dict(seq_len=32768, global_batch=128)),
+    ShapeSpec("long_500k", "decode", dict(seq_len=524288, global_batch=1)),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    arch_id: str
+    family: str                 # lm
+    config: object              # LMConfig
+    smoke_config: object        # reduced same-family config
+    shapes: Tuple[ShapeSpec, ...]
+    source: str = ""
+    notes: str = ""

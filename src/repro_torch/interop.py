@@ -1,10 +1,11 @@
-"""Carry parameters, load and random numbers across from numpy.
+"""Carry parameters, load, random numbers and weights across from numpy.
 
 A simulator has no weights; what a run is made of is its server
-parameters, its arrival process and its random draws.  These functions
-build the port's objects from numpy arrays — never from a `repro`
-object — so that a test can hand both packages the same parameters, the
-same load and the same random numbers.
+parameters, its arrival process and its random draws.  A language model
+is its weights.  These functions build the port's objects from numpy
+arrays — never from a `repro` object — so that a test can hand both
+packages the same parameters, the same load, the same random numbers and
+the same weights.
 """
 
 from __future__ import annotations
@@ -17,9 +18,10 @@ import torch
 from repro_torch._tensor import DEFAULT_DEVICE, DeviceLike, from_host
 from repro_torch.core.arrivals import ArrivalProcess
 from repro_torch.core.queueing import ServerParams
+from repro_torch.models.transformer import Transformer
 
 __all__ = ["server_params_from_numpy", "arrival_process_from_numpy",
-           "draws_from_numpy"]
+           "draws_from_numpy", "lm_params_from_numpy"]
 
 
 def server_params_from_numpy(fields: dict, *,
@@ -74,3 +76,49 @@ def draws_from_numpy(per_chunk: Sequence[tuple], *,
     def draws(chunk_idx: int):
         return chunks[chunk_idx]
     return draws
+
+
+def lm_params_from_numpy(tree: dict, cfg, *,
+                         device: DeviceLike = DEFAULT_DEVICE,
+                         dtype: Optional[torch.dtype] = None) -> Transformer:
+    """The port's `Transformer` from the reference's parameter pytree.
+
+    ``tree`` is `repro.models.transformer.init_params`'s layout as nested
+    dicts of numpy arrays (bfloat16 arrays are accepted): "embed"
+    (Vp, d), "final_norm", optional "lm_head" (d, Vp), and "layers" with
+    a leading L axis on every tensor.  This is the one place a layout
+    changes: the reference's (in, out) matrices become `nn.Linear`'s
+    (out, in).  ``dtype`` defaults to ``cfg.dtype``.
+    """
+    model = Transformer(cfg, device=device, dtype=dtype)
+
+    def put(param: torch.Tensor, arr, transpose: bool = False) -> None:
+        a = np.asarray(arr)
+        if a.dtype.name == "bfloat16":      # numpy has no bfloat16 of its own
+            a = a.astype(np.float32)
+        param.copy_(torch.tensor(a.T if transpose else a))
+
+    if (model.lm_head is None) != ("lm_head" not in tree):
+        raise ValueError(f"{cfg.name}: tie_embeddings={cfg.tie_embeddings} "
+                         f"but the tree {'has' if 'lm_head' in tree else 'lacks'}"
+                         " an lm_head")
+    with torch.no_grad():
+        put(model.embed, tree["embed"])
+        put(model.final_norm.scale, tree["final_norm"]["scale"])
+        if model.lm_head is not None:
+            put(model.lm_head.weight, tree["lm_head"], transpose=True)
+        layers = tree["layers"]
+        for i, blk in enumerate(model.layers):
+            put(blk.ln_attn.scale, layers["ln_attn"]["scale"][i])
+            put(blk.ln_mlp.scale, layers["ln_mlp"]["scale"][i])
+            attn = layers["attn"]
+            for name in ("wq", "wk", "wv", "wo"):
+                put(getattr(blk.attn, name).weight, attn[name][i],
+                    transpose=True)
+            if cfg.qk_norm:
+                put(blk.attn.q_norm.scale, attn["q_norm"]["scale"][i])
+                put(blk.attn.k_norm.scale, attn["k_norm"]["scale"][i])
+            for name in ("w_gate", "w_up", "w_down"):
+                put(getattr(blk.mlp, name).weight, layers["mlp"][name][i],
+                    transpose=True)
+    return model

@@ -32,10 +32,11 @@ IMPLS = ("auto", "torch", "cuda")
 
 
 def resolve_impl(impl: str = "auto",
-                 device: DeviceLike = DEFAULT_DEVICE) -> str:
+                 device: DeviceLike = DEFAULT_DEVICE, *,
+                 what: str = "scan") -> str:
     """"auto" -> "cuda" for a CUDA device, "torch" otherwise."""
     if impl not in IMPLS:
-        raise ValueError(f"unknown scan impl {impl!r}; choose one of "
+        raise ValueError(f"unknown {what} impl {impl!r}; choose one of "
                          f"{IMPLS}")
     if impl != "auto":
         return impl
@@ -123,3 +124,30 @@ class CudaLibrary:
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     """A tensor's device pointer for ctypes; None stays a null pointer."""
     return None if t is None else t.data_ptr()
+
+
+def int64_array(values: Sequence[int]) -> ctypes.Array:
+    """Host int64 array for an entry point's ``const int64_t*`` argument
+    (the kernels read it before they launch)."""
+    return (ctypes.c_int64 * len(values))(*values)
+
+
+def check_rows16(name: str, t: torch.Tensor) -> None:
+    """Raise unless ``t``'s last axis is contiguous and every row of it
+    starts on 16 bytes (the attention kernels load 16 B a lane)."""
+    vec = 16 // t.element_size()
+    if t.stride(-1) != 1 or t.data_ptr() % 16 or any(
+            s % vec for s in t.stride()[:-1]):
+        raise ValueError(f"{name} needs a contiguous last axis and "
+                         f"16-byte aligned rows (strides {t.stride()} of "
+                         f"{t.dtype})")
+
+
+def all_libraries() -> tuple[CudaLibrary, ...]:
+    """Every kernel library of the port, so that a caller can build them
+    all at once (`chip_smoke.py` builds them in parallel)."""
+    from repro_torch.kernels.decode_attention import kernel as decode
+    from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.jsq_route import kernel as jsq
+    from repro_torch.kernels.maxplus_scan import kernel as scan
+    return (scan.SCAN_LIB, scan.SEGMENT_LIB, jsq.LIB, flash.LIB, decode.LIB)

@@ -10,14 +10,20 @@ repro_torch only (the card's machine has no JAX), so on the card run:
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
 from repro_torch import interop
+from repro_torch.configs import qwen3_8b
 from repro_torch.core import capacity, simulator
 from repro_torch.core.cluster import ClusterSpec
+from repro_torch.kernels.decode_attention import ops as dec_ops
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.jsq_route import ops as jsq_ops
 from repro_torch.kernels.maxplus_scan import kernel, ops
+from repro_torch.models import transformer as T
+from repro_torch.serving.engine import LMServer
 
 pytestmark = pytest.mark.gpu
 
@@ -205,3 +211,141 @@ def test_replicated_engine_goes_through_both_kernels(cuda, routing):
         cluster=dataclasses.replace(cluster, replica_impl="masked"))
     _assert_rel(res.mean_response, masked.mean_response, 1e-4)
     assert int(torch.isfinite(res.tap_response).sum()) == 64
+
+
+# ------------------------------------------------------------ attention
+# The largest relative L2 error of one output row (one query and head)
+# against the plain version's float32 output on the same values, as
+# chip_smoke.py holds the kernels: bfloat16 rounds at 2^-8 (1e-2 holds the
+# output's and the probabilities' rounding, and fails a dropped split or
+# K tile); float32's 1e-4 fails anything rounded to bfloat16 on the way.
+ATTN_ROW_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _attn_close(out, expect, dtype):
+    err = ((out.float() - expect).norm(dim=-1)
+           / expect.norm(dim=-1)).max().item()
+    assert err <= ATTN_ROW_RTOL[dtype], err
+
+
+def _f32(*xs):
+    return (x.float() for x in xs)
+
+
+def _randn(shape, dtype, device, gen):
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,sk,h,kv,causal", [
+    (1, 1000, 1000, 8, 2, True), (2, 77, 77, 4, 2, True),
+    (1, 256, 256, 32, 8, True), (2, 8, 8, 8, 1, True),
+    (1, 40, 100, 8, 8, False)])
+def test_flash_kernel_matches_plain_version(cuda, d, dtype, b, sq, sk, h,
+                                            kv, causal):
+    g = torch.Generator(device=cuda).manual_seed(d + sq)
+    q = _randn((b, sq, h, d), dtype, cuda, g)
+    k = _randn((b, sk, kv, d), dtype, cuda, g)
+    v = _randn((b, sk, kv, d), dtype, cuda, g)
+    before = fa_ops.launch_count()
+    out = fa_ops.flash_attention(q, k, v, causal=causal, impl="cuda")
+    expect = fa_ops.flash_attention(*_f32(q, k, v), causal=causal,
+                                    impl="torch")
+    torch.cuda.synchronize()
+    assert fa_ops.launch_count() == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    _attn_close(out, expect, dtype)
+
+
+def test_flash_kernel_reads_strided_views(cuda):
+    """q, k, v as views of one fused projection, as a model may hold them."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    qkv = _randn((2, 300, 6, 64), torch.bfloat16, cuda, g)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:5], qkv[:, :, 5:6]
+    out = fa_ops.flash_attention(q, k, v, impl="cuda")
+    expect = fa_ops.flash_attention(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), impl="cuda")
+    assert torch.equal(out, expect)
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,kv,length", [
+    (8, 4096, 32, 8, 2100), (2, 1024, 8, 2, 0), (2, 512, 16, 8, 511),
+    (1, 3000, 4, 4, 2999), (3, 100, 8, 1, 57)])
+def test_decode_kernel_matches_plain_version(cuda, d, dtype, b, s, h, kv,
+                                             length):
+    g = torch.Generator(device=cuda).manual_seed(d + s + length)
+    q = _randn((b, 1, h, d), dtype, cuda, g)
+    k = _randn((b, s, kv, d), dtype, cuda, g)
+    v = _randn((b, s, kv, d), dtype, cuda, g)
+    before = dec_ops.launch_count()
+    out = dec_ops.decode_attention(q, k, v, length, impl="cuda")
+    expect = dec_ops.decode_attention(*_f32(q, k, v), length, impl="torch")
+    torch.cuda.synchronize()
+    assert dec_ops.launch_count() == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    _attn_close(out, expect, dtype)
+
+
+def test_decode_kernel_never_reads_past_length(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = _randn((2, 1, 8, 128), torch.bfloat16, cuda, g)
+    cache = _randn((3, 2, 600, 2, 128), torch.bfloat16, cuda, g)
+    k, v = cache[1], cache[2]             # one layer of an (L, ...) cache
+    clean = dec_ops.decode_attention(q, k, v, 400, impl="cuda")
+    k[:, 401:] = float("nan")
+    v[:, 401:] = float("nan")
+    assert torch.equal(dec_ops.decode_attention(q, k, v, 400, impl="cuda"),
+                       clean)
+
+
+def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros((1, 8, 6, 48), device=cuda)
+    k = torch.zeros((1, 8, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="D in"):
+        fa_ops.flash_attention(q, k, k, impl="cuda")
+    q = torch.zeros((1, 1, 6, 64), device=cuda)
+    k = torch.zeros((1, 8, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="H / KV in"):
+        dec_ops.decode_attention(q, k, k, 3, impl="cuda")
+    k = torch.zeros((1, 8, 3, 64), device=cuda)
+    with pytest.raises(ValueError, match="length"):
+        dec_ops.decode_attention(q[:, :, :3], k, k, 8, impl="cuda")
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(q.half(), k.half(), k.half(), impl="cuda")
+
+
+def test_lm_server_on_the_card_goes_through_both_kernels(cuda):
+    """A SMOKE-size server on the card: every prefill launches the flash
+    kernel once a layer, every decode step the decode kernel once a
+    layer, and nothing takes the plain versions.  Its logits agree with
+    the same weights on the CPU."""
+    cfg = qwen3_8b.SMOKE
+    model = T.init_params(3, cfg, device=cuda)
+    srv = LMServer(cfg, model, slots=2, max_seq=64, device=cuda)
+    rng = np.random.default_rng(0)
+    fa_ops.reset_counts()
+    dec_ops.reset_counts()
+    admits = steps = 0
+    queue = [(i, rng.integers(0, cfg.vocab_size, n).astype(np.int32), m)
+             for i, (n, m) in enumerate([(8, 5), (16, 3), (24, 4)])]
+    while queue or any(s.remaining > 0 for s in srv.slots):
+        while queue and srv.admit(*queue[0]):
+            queue.pop(0)
+            admits += 1
+        steps += srv.step() > 0
+    assert admits == 3 and steps > 0
+    assert fa_ops.launch_count() == cfg.n_layers * admits
+    assert dec_ops.launch_count() == cfg.n_layers * steps
+    assert fa_ops.plain_count() == dec_ops.plain_count() == 0
+    assert sorted(len(c["tokens"]) for c in srv.completed) == [
+        8 + 1 + 5, 16 + 1 + 3, 24 + 1 + 4]
+
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 24)),
+                             device=cuda)
+    on_card, _ = T.prefill(model, cfg, tokens, chunk=8)
+    on_cpu, _ = T.prefill(model.cpu(), cfg, tokens.cpu(), chunk=8)
+    # float32 on both sides: rounding only (normwise, logits cross zero)
+    assert float((on_card.cpu() - on_cpu).norm() / on_cpu.norm()) <= 1e-5
