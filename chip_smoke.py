@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from the checkout's sources (the
-(max,+) scan, the segmented (max,+) scan, the JSQ router, flash attention
-and decode attention, one nvcc each, in parallel), holds each against
-its plain PyTorch version on the card, and drives the port's paths:
+(max,+) scan, the segmented (max,+) scan, the JSQ router, flash attention,
+decode attention, the embedding bag and the fused CIN layer, one nvcc
+each, in parallel), holds each against its plain PyTorch version on the
+card, and drives the port's paths:
 
   * the simulator over Table 6's 100-server case study, 64 scenarios:
     the single-replica engine (phases 3-4) and the replicated cluster,
@@ -15,7 +16,14 @@ its plain PyTorch version on the card, and drives the port's paths:
   * LM serving: `LMServer` at Qwen3-8B's full width in bfloat16 with
     random weights from a seed, 12 requests through 8 slots (phases
     10-10b), its logits held against the plain path (phase 11), and the
-    serving planner on the measured step (phase 12).
+    serving planner on the measured step (phase 12);
+  * CTR serving: the embedding-bag and CIN kernels at xDeepFM's shapes
+    (phases 13-14), then xDeepFM at full width (39 fields, 33.8 M rows,
+    CIN 200-200-200) in bfloat16 with random weights serving four
+    serve_p99 batches (B = 512) and one serve_bulk batch (B = 262,144) of
+    `ctr_batch` requests, DeepFM and AutoInt one serve_p99 batch each,
+    logits and each CIN layer on the served values held against the
+    plain path (phase 15), and where the device time goes (phase 15b).
 
 It prints timings beside the card's name and power limit.  Any failed
 check raises (non-zero exit).  The last lines are the kernel report
@@ -324,26 +332,38 @@ def phase_main_path(card: str) -> tuple[int, float]:
     return launches, exp_wall
 
 
-def phase_profile(card: str, wall: float, run, title: str) -> None:
-    """Where a path's device time goes (one run of ``run()``).
+def phase_profile(card: str, wall: float, run, title: str) -> list:
+    """Where a path's device time goes (one run of ``run()``); returns the
+    names of the kernels the trace lists.
 
     Only device-side events are summed: `key_averages` also lists each
     aten op with the time of the kernels it launched, which would count
-    them twice.  ``wall`` is the unprofiled run's wall time.
+    them twice.  ``wall`` is the unprofiled run's wall time.  A warm-up
+    step (a few small kernels, discarded) starts the device tracing
+    before ``run()``: started cold, the trace lost the first kernels of a
+    run (an xDeepFM call's two bags and a sum, after earlier sessions).
     """
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     print(f"== {title}")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+                 ) as prof:
+        warm = torch.ones(1, device="cuda")
+        for _ in range(8):
+            warm.add_(1)
+        torch.cuda.synchronize()
+        prof.step()
         run()
         torch.cuda.synchronize()
+        prof.step()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0
+               and not e.key.startswith("ProfilerStep")]
     if not kernels:
         print("  the profiler recorded no device-side events")
-        return
+        return []
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"  device busy {busy_ms:.2f} ms in {len(kernels)} kernels; "
           f"unprofiled wall {wall * 1e3:.2f} ms, so the card idles "
@@ -352,13 +372,15 @@ def phase_profile(card: str, wall: float, run, title: str) -> None:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms "
               f"{e.count:5d}x  {e.key[:100]}")
     host = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CPU]
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and not e.key.startswith("ProfilerStep")]   # the step's span
     host_ms = sum(e.self_cpu_time_total for e in host) / 1e3
     print(f"  host: {host_ms:.2f} ms of self time in {len(host)} op kinds "
           f"(profiled); the largest:")
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
         print(f"    {e.self_cpu_time_total / 1e3:8.3f} ms "
               f"{e.count:5d}x  {e.key[:80]}")
+    return [e.key for e in kernels]
 
 
 def _route_flags(rows, length, gen):
@@ -1048,6 +1070,370 @@ def phase_planner(card: str, lm: dict) -> None:
             raise AssertionError(f"{what}: no feasible plan")
 
 
+# ------------------------------------------------------------ CTR serving
+REC_P99, REC_BULK, N_P99 = 512, 262_144, 4   # serve_p99, serve_bulk
+CIN_BATCHES = (512, 4096, 1000)   # p99, a larger batch, B D ragged
+CIN_BULK_SLICE = 4096   # serve_bulk samples the plain CIN can hold
+# Kernels against their plain version's float32 output on the same values,
+# the largest relative L2 error of one output row: a bag's D values, a
+# sample's O x D CIN outputs (a row of D = 10 can cancel to near zero; a
+# sample's 2,000 values cannot).  A bag of bfloat16 rows sums in float32
+# and rounds once (2^-9); the CIN kernel rounds each product and the
+# output to bfloat16 (~2^-9 each, the products' errors averaging out over
+# K terms): 1e-2 holds both, and fails a kernel that drops one of a bag's
+# rows (~0.25 and more) or one (h, j) slice of K (~0.1).  float32: the bag
+# sums up to 4 rows in the plain version's order (1e-5); the CIN sums K =
+# 7,800 products in another order than the plain einsum (1e-4).
+BAG_ROW_RTOL = {"torch.bfloat16": 1e-2, "torch.float32": 1e-5}
+CIN_ROW_RTOL = {"torch.bfloat16": 1e-2, "torch.float32": 1e-4}
+
+
+def _row_check(out, expect, tol, what, row_dims: int = 1) -> float:
+    """The largest relative L2 error of a row (the last ``row_dims`` axes)
+    against the plain version's float32 output, held to ``tol``; a row
+    that should be all zeros must be exactly zero.  Returns max abs err."""
+    diff = (out.float() - expect).flatten(start_dim=expect.ndim - row_dims)
+    ref = expect.flatten(start_dim=expect.ndim - row_dims)
+    num, den = diff.norm(dim=-1), ref.norm(dim=-1)
+    zero = den == 0
+    # rows that should be zeros are checked apart: exactly zero
+    row_err = float((num / den.masked_fill(zero, 1.0)).masked_fill(zero, 0.0)
+                    .max())
+    abs_err = float(diff.abs().max())
+    print(f"  {what}: max row relative L2 err {row_err:.3e} (limit {tol:g}),"
+          f" max abs err {abs_err:.3e}, {int(zero.sum())} all-zero rows "
+          f"exact: {not bool((num[zero] > 0).any())}")
+    if not row_err <= tol or bool((num[zero] > 0).any()):
+        raise AssertionError(f"{what}: kernel disagrees with its plain "
+                             f"version by {row_err} > {tol} (row relative "
+                             "L2), or a zero row is not zero")
+    return abs_err
+
+
+def _ctr_batches(cfg):
+    """N_P99 serve_p99 batches and one serve_bulk batch of ctr_batch
+    requests on the card: (ids int32, mask bool) each, made before any
+    timed window (step i for the i-th, seed 0)."""
+    import numpy as np
+    import torch
+    from repro_torch.data.recsys_data import ctr_batch
+    t0 = time.perf_counter()
+    out = []
+    for step, b in enumerate((REC_P99,) * N_P99 + (REC_BULK,)):
+        ids, mask, _ = ctr_batch(cfg, b, step=step, seed=0)
+        out.append((torch.from_numpy(ids.astype(np.int32)).to(device="cuda"),
+                    torch.from_numpy(mask).to(device="cuda")))
+    torch.cuda.synchronize()
+    print(f"  {N_P99} x {REC_P99} + 1 x {REC_BULK} ctr_batch requests made "
+          f"and moved to the card in {time.perf_counter() - t0:.1f} s "
+          "(set-up, outside every timed window)")
+    return out
+
+
+def _bag_bytes(table, ids, mask):
+    """Bytes of one embedding-bag call: (distinct valid rows once; valid
+    ids, mask and output; the valid rows as gathered; the same at 32-byte
+    sectors)."""
+    import torch
+    valid = ids[mask].long()
+    row_bytes = table.shape[1] * table.element_size()
+    first = valid * row_bytes
+    sectors = (first + row_bytes - 1) // 32 - first // 32 + 1
+    rest = (valid.numel() * ids.element_size() + mask.numel()
+            + ids[..., 0].numel() * row_bytes)
+    return (torch.unique(valid).numel() * row_bytes, rest,
+            valid.numel() * row_bytes, int(sectors.sum()) * 32)
+
+
+def phase_bag_kernel(card: str, table, wide, batches) -> dict:
+    """The embedding-bag kernel against its plain version: the model's
+    33.8 M-row tables (D = 10 and the wide D = 1) with ctr_batch ids, D =
+    16, float32, a non-prefix mask with an all-masked bag and ids past the
+    table's end under the mask; then timings at both serving batches."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.embedding_bag import kernel, ops, ref
+    print("== phase 13: embedding-bag kernel vs plain version on the card")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = table.shape[0]
+    (p_ids, p_mask), (b_ids, b_mask) = batches[0], batches[-1]
+    # a non-prefix mask; bag (0, 0) all masked; past-the-end ids under it
+    odd_mask = torch.rand(p_mask.shape, generator=gen, device="cuda") < 0.5
+    odd_mask[0, 0] = False
+    odd_ids = torch.where(odd_mask, p_ids, rows + 12_345)
+    t32 = table.float()
+    cases = [("D=10 bf16, serve_p99", table, t32, p_ids, p_mask),
+             ("D=10 bf16, serve_bulk", table, t32, b_ids, b_mask),
+             ("D=1 bf16 (wide), serve_p99", wide, wide.float(), p_ids,
+              p_mask),
+             ("D=10 float32, serve_p99", t32, t32, p_ids, p_mask),
+             ("D=10 bf16, non-prefix mask, an empty bag, past-the-end ids "
+              "masked", table, t32, odd_ids, odd_mask)]
+    t16 = (0.01 * torch.randn((1 << 20, 16), generator=gen, device="cuda")
+           ).to(torch.bfloat16)
+    ids16 = torch.randint(0, 1 << 20, p_ids.shape, generator=gen,
+                          device="cuda", dtype=torch.int32)
+    cases.append(("D=16 bf16, 2^20 rows", t16, t16.float(), ids16, p_mask))
+    for what, tab, tab32, ids, mask in cases:
+        out = ops.embedding_bag(tab, ids, mask, impl="cuda")
+        expect = ref.embedding_bag_masked(tab32, ids, mask)
+        torch.cuda.synchronize()
+        err = _row_check(out, expect, BAG_ROW_RTOL[str(tab.dtype)], what)
+        if what.startswith("D=10 bf16, serve_bulk"):
+            main_err = err
+    del t32, t16
+    report = None
+    for what, (ids, mask) in (("serve_p99", batches[0]),
+                              ("serve_bulk", batches[-1])):
+        ms = _device_ms(lambda: kernel.embedding_bag_cuda(table, ids, mask))
+        plain_ms = _device_ms(lambda: ops.embedding_bag(table, ids, mask,
+                                                        impl="torch"), n=5)
+        flat = ids[mask]
+        counts = mask.sum(-1).flatten()
+        offsets = torch.cumsum(counts, 0) - counts
+        library_ms = _device_ms(lambda: F.embedding_bag(
+            flat, table, offsets, mode="mean"))
+        distinct, other, gathered, sectors = _bag_bytes(table, ids, mask)
+        least = distinct + other
+        bound_ms = least / HBM_BYTES_PER_S * 1e3
+        print(f"  {what} (B = {ids.shape[0]}, {flat.numel()} valid ids), "
+              f"D = 10 bf16, device time [{card}]:")
+        print(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"F.embedding_bag(mode='mean') {library_ms:.4f} ms  bound "
+              f"{bound_ms:.4f} ms ({least / 1e6:.2f} MB: distinct rows, "
+              f"valid ids, mask, output at 3.35 TB/s; DRAM traffic, as hot "
+              f"rows stay in L2); gathered rows {gathered / 1e6:.2f} MB "
+              f"({(gathered + other) / HBM_BYTES_PER_S * 1e3:.4f} ms with "
+              f"the rest), at 32-byte sectors {sectors / 1e6:.2f} MB "
+              f"({(sectors + other) / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+        report = {"name": "embedding_bag", "route": "cuda",
+                  "source": "src/repro_torch/kernels/embedding_bag/csrc/"
+                            "embedding_bag.cu",
+                  "replaces": "src/repro/kernels/embedding_bag/kernel.py:47",
+                  "launches": None, "max_abs_err": main_err, "ms": ms,
+                  "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "bound_by": "bytes", "library_ms": library_ms}
+    return report
+
+
+def _cin_inputs(b, hk, m, d, o, dtype, gen):
+    import torch
+    xk, x0 = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+              for shape in ((b, hk, d), (b, m, d)))
+    w = (torch.randn((hk * m, o), generator=gen, device="cuda")
+         * (hk * m) ** -0.5).to(dtype)
+    return xk, x0, w
+
+
+def _cin_costs(b, hk, m, d, o, el):
+    """(FLOP, bytes: xk, x0, W read once, y written once) of a layer."""
+    flops = 2 * b * d * hk * m * o
+    moved = (b * hk * d + b * m * d + hk * m * o + b * o * d) * el
+    return flops, moved
+
+
+def phase_cin_kernel(card: str, cfg) -> dict:
+    """The CIN kernel against its plain version at the three xDeepFM
+    layers, then timings at serve_p99 (kernel, plain, library) and
+    serve_bulk (kernel)."""
+    import torch
+    from repro_torch.kernels.cin_fuse import kernel, ops
+    print("== phase 14: CIN kernel vs plain version on the card")
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    m, d = cfg.n_sparse, cfg.embed_dim
+    layers = list(zip((m,) + cfg.cin_layers[:-1], cfg.cin_layers))
+    main_err = None
+    for b, (hk, o), dtype in itertools.product(
+            CIN_BATCHES, layers, (torch.bfloat16, torch.float32)):
+        xk, x0, w = _cin_inputs(b, hk, m, d, o, dtype, gen)
+        out = ops.cin_layer(xk, x0, w, impl="cuda")
+        expect = ops.cin_layer(xk.float(), x0.float(), w.float(),
+                               impl="torch")
+        torch.cuda.synchronize()
+        what = f"B={b} {hk}x{m} -> {o} {dtype}"
+        err = _row_check(out, expect, CIN_ROW_RTOL[str(dtype)], what,
+                         row_dims=2)
+        if dtype == torch.bfloat16 and b == REC_P99 and (hk, o) == layers[-1]:
+            main_err = err
+
+    hk, o = layers[-1]
+    xk, x0, w = _cin_inputs(REC_P99, hk, m, d, o, torch.bfloat16, gen)
+    ms = _device_ms(lambda: kernel.cin_layer_cuda(xk, x0, w))
+    plain_ms = _device_ms(lambda: ops.cin_layer(xk, x0, w, impl="torch"),
+                          n=5)
+    outer = (xk[:, :, None, :] * x0[:, None, :, :]).permute(0, 3, 1, 2
+                                                            ).reshape(
+        REC_P99 * d, hk * m).contiguous()
+    library_ms = _device_ms(lambda: torch.matmul(outer, w))
+    del outer
+    flops, moved = _cin_costs(REC_P99, hk, m, d, o, 2)
+    ops_ms = flops / BF16_OPS_PER_S * 1e3
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    print(f"  serve_p99 (B = {REC_P99}), {hk}x{m} -> {o} bf16, device time "
+          f"[{card}]:")
+    print(f"    kernel {ms:.4f} ms ({flops / (ms * 1e-3) / 1e12:.1f} "
+          f"TFLOP/s)  plain {plain_ms:.4f} "
+          f"ms  torch.matmul over the outer product materialized as (B D, "
+          f"Hk m) beforehand {library_ms:.4f} ms  bound {bound_ms:.4f} ms "
+          f"({flops / 1e9:.2f} GFLOP at 989 TFLOP/s; {moved / 1e6:.1f} MB = "
+          f"{bytes_ms:.4f} ms)")
+    total_ms = total_bound = 0.0
+    for hk_l, o_l in layers:
+        xk, x0, w = _cin_inputs(REC_BULK, hk_l, m, d, o_l, torch.bfloat16,
+                                gen)
+        t = _device_ms(lambda: kernel.cin_layer_cuda(xk, x0, w), n=3,
+                       warm=1)
+        fl, mv = _cin_costs(REC_BULK, hk_l, m, d, o_l, 2)
+        bd = max(fl / BF16_OPS_PER_S, mv / HBM_BYTES_PER_S) * 1e3
+        total_ms, total_bound = total_ms + t, total_bound + bd
+        print(f"  serve_bulk (B = {REC_BULK}), {hk_l}x{m} -> {o_l} bf16: "
+              f"kernel {t:.3f} ms ({fl / (t * 1e-3) / 1e12:.1f} TFLOP/s) "
+              f"bound {bd:.3f} ms ({fl / 1e12:.2f} TFLOP; {mv / 1e9:.2f} "
+              f"GB) [{card}]")
+    del xk, x0, w
+    print(f"  serve_bulk, three layers: kernel {total_ms:.2f} ms, bound "
+          f"{total_bound:.2f} ms ({100 * total_bound / total_ms:.1f} %)")
+    return {"name": "cin_layer", "route": "cuda",
+            "source": "src/repro_torch/kernels/cin_fuse/csrc/cin_fuse.cu",
+            "replaces": "src/repro/kernels/cin_fuse/kernel.py:41",
+            "launches": None, "max_abs_err": main_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": library_ms}
+
+
+def _recsys_counts() -> dict:
+    from repro_torch.kernels.cin_fuse import ops as cin_ops
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+    return {"embedding_bag": bag_ops.launch_count(),
+            "cin_layer": cin_ops.launch_count(),
+            "plain": bag_ops.plain_count() + cin_ops.plain_count()}
+
+
+def _reset_recsys_counts() -> None:
+    from repro_torch.kernels.cin_fuse import ops as cin_ops
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+    bag_ops.reset_counts()
+    cin_ops.reset_counts()
+
+
+def _served_cin_check(params, ids, mask, what) -> None:
+    """Each CIN layer on the values the served model feeds it (the bag's
+    output and the kernel path's previous layer) against the plain
+    version's float32 output.  The logits cannot show the CIN: with the
+    tables at 0.01 its share of a logit is ~1e-4, below bfloat16's
+    resolution at logits of ~0.05."""
+    from repro_torch.kernels.cin_fuse import ops as cin_ops
+    from repro_torch.models import recsys as RS
+    v = RS.embedding_bag(params["embedding"]["table"], ids, mask)
+    xk = v
+    for i, w in enumerate(params["cin"]):
+        out = cin_ops.cin_layer(xk, v, w, impl="cuda")
+        expect = cin_ops.cin_layer(xk.float(), v.float(), w.float(),
+                                   impl="torch")
+        _row_check(out, expect, CIN_ROW_RTOL[str(out.dtype)],
+                   f"{what}, CIN layer {i + 1} on the served values",
+                   row_dims=2)
+        xk = out
+
+
+def phase_ctr_serving(card: str, cfg, params, batches) -> dict:
+    """xDeepFM at full width serves N_P99 serve_p99 batches and one
+    serve_bulk batch through `xdeepfm_logits`; DeepFM and AutoInt serve
+    the first serve_p99 batch."""
+    import torch
+    from repro_torch.configs import autoint, deepfm
+    from repro_torch.models import recsys as RS
+    print(f"== phase 15: CTR serving, {cfg.name} at full width "
+          f"({cfg.n_sparse} fields, {RS.padded_rows(cfg.total_rows)} rows x "
+          f"D = {cfg.embed_dim}, CIN {cfg.cin_layers}, MLP {cfg.mlp}), "
+          f"{cfg.dtype}, random weights (seed 0); {N_P99} x serve_p99 "
+          f"(B = {REC_P99}) + 1 x serve_bulk (B = {REC_BULK})")
+    RS.xdeepfm_logits(params, cfg, *batches[0])       # warm-up, uncounted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _reset_recsys_counts()
+    walls, outs = [], []
+    for ids, mask in batches:
+        t0 = time.perf_counter()
+        outs.append(RS.xdeepfm_logits(params, cfg, ids, mask))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    counts = _recsys_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n = len(batches)
+    expect = {"embedding_bag": 2 * n, "cin_layer": len(cfg.cin_layers) * n,
+              "plain": 0}
+    if counts != expect:
+        raise AssertionError(f"CTR launches {counts}, expected {expect} "
+                             f"({n} batches)")
+    for (ids, _), out in zip(batches, outs):
+        if out.shape != (ids.shape[0],) or out.dtype != torch.float32 \
+                or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"logits {tuple(out.shape)} {out.dtype}, "
+                                 f"finite {bool(torch.isfinite(out).all())}")
+    p99 = walls[:N_P99]
+    print(f"  launches {counts} for {n} batches [{card}]")
+    print(f"  serve_p99: {', '.join(f'{w * 1e3:.2f}' for w in p99)} ms a "
+          f"batch = {REC_P99 * N_P99 / sum(p99):.0f} samples/s")
+    print(f"  serve_bulk: {walls[-1] * 1e3:.1f} ms = "
+          f"{REC_BULK / walls[-1]:.0f} samples/s")
+    unfused = (REC_BULK * max(cfg.cin_layers) * cfg.n_sparse * cfg.embed_dim
+               * params["cin"][0].element_size())
+    print(f"  peak memory {peak / 1e9:.2f} GB ({base / 1e9:.2f} GB of "
+          "weights and batches before the run); the unfused CIN's outer "
+          f"product would be {unfused / 1e9:.1f} GB a layer at serve_bulk")
+
+    bulk_ids, bulk_mask = batches[-1]
+    for what, (ids, mask) in (
+            (f"serve_p99 (B = {REC_P99})", batches[0]),
+            (f"serve_bulk's first {CIN_BULK_SLICE} samples",
+             (bulk_ids[:CIN_BULK_SLICE], bulk_mask[:CIN_BULK_SLICE]))):
+        _served_cin_check(params, ids, mask, what)
+
+    ids, mask = batches[0]
+    plain = RS.xdeepfm_logits(params, cfg, ids, mask, impl="torch")
+    errs = {cfg.name: _rel_l2(outs[0], plain)}
+    for name, mod, seed in (("deepfm", deepfm, 1), ("autoint", autoint, 2)):
+        other = getattr(RS, f"init_{name}")(seed, mod.FULL)
+        logits = getattr(RS, f"{name}_logits")
+        _reset_recsys_counts()
+        t0 = time.perf_counter()
+        out = logits(other, mod.FULL, ids, mask)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _recsys_counts()
+        if got != {"embedding_bag": 2, "cin_layer": 0, "plain": 0}:
+            raise AssertionError(f"{name}: launches {got}, expected 2 bags")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{name}: non-finite logits")
+        errs[name] = _rel_l2(out, logits(other, mod.FULL, ids, mask,
+                                          impl="torch"))
+        print(f"  {name} (full width, D = {mod.FULL.embed_dim}), serve_p99: "
+              f"launches {got}; {wall * 1e3:.2f} ms (first call)")
+        del other
+    print(f"  logits, kernel path vs plain path at serve_p99, bf16: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" relative L2 (limit {BF16_LOGITS_RTOL:g})")
+    if not max(errs.values()) <= BF16_LOGITS_RTOL:
+        raise AssertionError(f"bf16 CTR logits differ: {errs}")
+    import dataclasses
+    cfg2 = dataclasses.replace(cfg, name=f"{cfg.name}-2-cin-f32",
+                               cin_layers=cfg.cin_layers[:2],
+                               dtype="float32")
+    params2 = RS.init_xdeepfm(1, cfg2)
+    err = _rel_l2(RS.xdeepfm_logits(params2, cfg2, ids, mask),
+                  RS.xdeepfm_logits(params2, cfg2, ids, mask, impl="torch"))
+    print(f"  {cfg2.name} (full field count and width), same check: "
+          f"relative L2 {err:.2e} (limit {F32_LOGITS_RTOL:g}) [{card}]")
+    if not err <= F32_LOGITS_RTOL:
+        raise AssertionError(f"float32 CTR logits differ by {err}")
+    return {"counts": counts, "walls": walls}
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1092,7 +1478,30 @@ def main() -> int:
     phase_lm_profile(card, lm)
     phase_lm_correctness(card, lm)
     phase_planner(card, lm)
-    print(json.dumps({"kernels": [scan, segment, jsq, flash, decode]}))
+    del lm
+    torch.cuda.empty_cache()
+    from repro_torch.configs import xdeepfm
+    from repro_torch.models import recsys as RS
+    cfg = xdeepfm.FULL
+    params = RS.init_xdeepfm(0, cfg)
+    batches = _ctr_batches(cfg)
+    bag = phase_bag_kernel(card, params["embedding"]["table"],
+                           params["embedding"]["wide"], batches)
+    cin = phase_cin_kernel(card, cfg)
+    ctr = phase_ctr_serving(card, cfg, params, batches)
+    bag["launches"] = ctr["counts"]["embedding_bag"]
+    cin["launches"] = ctr["counts"]["cin_layer"]
+    for b, wall in ((REC_P99, ctr["walls"][0]), (REC_BULK, ctr["walls"][-1])):
+        ids, mask = next(x for x in batches if x[0].shape[0] == b)
+        traced = phase_profile(
+            card, wall, lambda: RS.xdeepfm_logits(params, cfg, ids, mask),
+            f"phase 15b: device time by kernel, {cfg.name} logits at B = {b}")
+        for kernel in ("embedding_bag_kernel", "cin_"):
+            if not any(kernel in key for key in traced):
+                raise AssertionError(f"the B = {b} trace lists no {kernel} "
+                                     "kernel, though the path launched it")
+    print(json.dumps({"kernels": [scan, segment, jsq, flash, decode, bag,
+                                  cin]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

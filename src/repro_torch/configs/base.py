@@ -1,10 +1,11 @@
-"""Config dataclasses of the language models the port serves, and their
-input-shape cells.
+"""Config dataclasses of the language models and CTR recommenders the
+port serves, and their input-shape cells.
 
-A port of the LM half of `repro.configs.base`: every architecture
-field, default and derived property is the reference's, so a config
-built here describes the same model (`vocab_padded`, `n_params` and
-`n_active_params` agree with the reference's).  The reference's JAX
+A port of the LM and recsys parts of `repro.configs.base`: every
+architecture field, default and derived property is the reference's, so
+a config built here describes the same model (`vocab_padded`,
+`n_params`, `n_active_params` and `total_rows` agree with the
+reference's).  The reference's JAX
 execution knobs (`scan_layers`, `scan_unroll`, `attn_chunk`,
 `unroll_attn`) have no meaning here and are left out.  One `ArchSpec` per architecture lives in
 ``repro_torch/configs/<id>.py``; the registry maps an id to it.
@@ -15,7 +16,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
-__all__ = ["MoESpec", "LMConfig", "ShapeSpec", "ArchSpec", "LM_SHAPES"]
+__all__ = ["MoESpec", "LMConfig", "RecsysConfig", "ShapeSpec", "ArchSpec",
+           "LM_SHAPES", "RECSYS_SHAPES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,11 +81,36 @@ class LMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    interaction: str                      # fm | cin | self-attn | multi-interest
+    n_sparse: int = 39
+    embed_dim: int = 10
+    field_vocabs: Tuple[int, ...] = ()    # per-field vocab sizes
+    mlp: Tuple[int, ...] = (400, 400, 400)
+    cin_layers: Tuple[int, ...] = ()
+    n_attn_layers: int = 0
+    n_heads: int = 0
+    d_attn: int = 0
+    n_interests: int = 0
+    capsule_iters: int = 0
+    hist_len: int = 50                    # behavior sequence (MIND)
+    item_vocab: int = 1_000_000           # MIND item universe
+    multi_hot: int = 4                    # avg ids per multi-hot field
+    dtype: str = "bfloat16"
+
+    @property
+    def total_rows(self) -> int:
+        return sum(self.field_vocabs) + (
+            self.item_vocab if self.interaction == "multi-interest" else 0)
+
+
+@dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     """One assigned input-shape cell."""
 
     name: str
-    kind: str                    # train | prefill | decode
+    kind: str                    # train | prefill | decode | recsys_*
     dims: Dict[str, int]
 
     def __getitem__(self, k):
@@ -97,12 +124,20 @@ LM_SHAPES = (
     ShapeSpec("long_500k", "decode", dict(seq_len=524288, global_batch=1)),
 )
 
+RECSYS_SHAPES = (
+    ShapeSpec("train_batch", "recsys_train", dict(batch=65536)),
+    ShapeSpec("serve_p99", "recsys_serve", dict(batch=512)),
+    ShapeSpec("serve_bulk", "recsys_serve", dict(batch=262144)),
+    ShapeSpec("retrieval_cand", "recsys_retrieval",
+              dict(batch=1, n_candidates=1_000_000)),
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                 # lm
-    config: object              # LMConfig
+    family: str                 # lm | recsys
+    config: object              # LMConfig | RecsysConfig
     smoke_config: object        # reduced same-family config
     shapes: Tuple[ShapeSpec, ...]
     source: str = ""

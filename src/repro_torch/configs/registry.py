@@ -1,7 +1,8 @@
 """``arch id -> ArchSpec`` over the architectures the port can run.
 
 The reference's registry (`repro.configs.registry`) lists ten; the port
-lists the dense, qk-norm GQA language models its serving path runs.  Any
+lists the dense, qk-norm GQA language models its serving path runs and
+the three CTR recommenders whose logits it serves (MIND is not ported).  Any
 other id raises `KeyError`, as the reference does for an unknown one.
 """
 
@@ -16,6 +17,9 @@ __all__ = ["get_arch", "list_archs"]
 _MODULES = {
     "qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
     "qwen3-8b": "repro_torch.configs.qwen3_8b",
+    "deepfm": "repro_torch.configs.deepfm",
+    "xdeepfm": "repro_torch.configs.xdeepfm",
+    "autoint": "repro_torch.configs.autoint",
 }
 
 

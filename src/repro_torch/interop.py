@@ -5,7 +5,7 @@ parameters, its arrival process and its random draws.  A language model
 is its weights.  These functions build the port's objects from numpy
 arrays — never from a `repro` object — so that a test can hand both
 packages the same parameters, the same load, the same random numbers and
-the same weights.
+the same weights (a language model's or a CTR recommender's).
 """
 
 from __future__ import annotations
@@ -21,7 +21,8 @@ from repro_torch.core.queueing import ServerParams
 from repro_torch.models.transformer import Transformer
 
 __all__ = ["server_params_from_numpy", "arrival_process_from_numpy",
-           "draws_from_numpy", "lm_params_from_numpy"]
+           "draws_from_numpy", "lm_params_from_numpy",
+           "recsys_params_from_numpy"]
 
 
 def server_params_from_numpy(fields: dict, *,
@@ -122,3 +123,24 @@ def lm_params_from_numpy(tree: dict, cfg, *,
                 put(getattr(blk.mlp, name).weight, layers["mlp"][name][i],
                     transpose=True)
     return model
+
+
+def recsys_params_from_numpy(tree, cfg, *,
+                             device: DeviceLike = DEFAULT_DEVICE):
+    """The port's parameters of a CTR recommender from the reference's
+    pytree (`repro.models.recsys.init_deepfm` / `init_xdeepfm` /
+    `init_autoint`) as nested dicts and lists of numpy arrays (bfloat16
+    arrays are accepted).  The layout stays the reference's: MLP weights
+    (in, out), CIN weights (Hk*m, O), in ``cfg.dtype``."""
+    dtype = getattr(torch, cfg.dtype)
+
+    def put(node):
+        if isinstance(node, dict):
+            return {k: put(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [put(v) for v in node]
+        a = np.asarray(node)
+        if a.dtype.name == "bfloat16":      # numpy has no bfloat16 of its own
+            a = a.astype(np.float32)
+        return torch.tensor(a, device=device).to(dtype)
+    return put(tree)

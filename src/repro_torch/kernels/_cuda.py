@@ -146,8 +146,11 @@ def check_rows16(name: str, t: torch.Tensor) -> None:
 def all_libraries() -> tuple[CudaLibrary, ...]:
     """Every kernel library of the port, so that a caller can build them
     all at once (`chip_smoke.py` builds them in parallel)."""
+    from repro_torch.kernels.cin_fuse import kernel as cin
     from repro_torch.kernels.decode_attention import kernel as decode
+    from repro_torch.kernels.embedding_bag import kernel as bag
     from repro_torch.kernels.flash_attention import kernel as flash
     from repro_torch.kernels.jsq_route import kernel as jsq
     from repro_torch.kernels.maxplus_scan import kernel as scan
-    return (scan.SCAN_LIB, scan.SEGMENT_LIB, jsq.LIB, flash.LIB, decode.LIB)
+    return (scan.SCAN_LIB, scan.SEGMENT_LIB, jsq.LIB, flash.LIB, decode.LIB,
+            bag.LIB, cin.LIB)

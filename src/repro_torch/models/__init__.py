@@ -1,2 +1,2 @@
-"""The language model the serving path runs (`transformer`) and its
-building blocks (`layers`)."""
+"""The models the port serves: the language model (`transformer`) and its
+building blocks (`layers`), and the CTR recommenders (`recsys`)."""

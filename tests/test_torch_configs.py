@@ -1,4 +1,5 @@
-"""The port's LM configs and registry held against `repro.configs`."""
+"""The port's LM configs and registry held against `repro.configs`
+(the recsys configs: tests/test_torch_recsys.py)."""
 
 import dataclasses
 
@@ -10,6 +11,7 @@ from repro_torch.configs import base as t_base
 from repro_torch.configs import registry as t_registry
 
 PORTED = ("qwen3-1.7b", "qwen3-8b")
+RECSYS_PORTED = ("deepfm", "xdeepfm", "autoint")
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -68,9 +70,10 @@ def test_moe_padding_equal():
 
 
 def test_registry_lists_only_what_the_port_runs():
-    assert t_registry.list_archs() == sorted(PORTED)
+    ported = PORTED + RECSYS_PORTED
+    assert t_registry.list_archs() == sorted(ported)
     assert set(t_registry.list_archs()) <= set(j_registry.list_archs())
-    for arch in sorted(set(j_registry.list_archs()) - set(PORTED)):
+    for arch in sorted(set(j_registry.list_archs()) - set(ported)):
         with pytest.raises(KeyError, match="unknown arch"):
             t_registry.get_arch(arch)
     with pytest.raises(KeyError):

@@ -18,10 +18,16 @@ from repro_torch import interop
 from repro_torch.configs import qwen3_8b
 from repro_torch.core import capacity, simulator
 from repro_torch.core.cluster import ClusterSpec
+from repro_torch.configs import xdeepfm
+from repro_torch.data.recsys_data import ctr_batch
+from repro_torch.kernels.cin_fuse import ops as cin_ops
 from repro_torch.kernels.decode_attention import ops as dec_ops
+from repro_torch.kernels.embedding_bag import ops as bag_ops
+from repro_torch.kernels.embedding_bag import ref as bag_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.jsq_route import ops as jsq_ops
 from repro_torch.kernels.maxplus_scan import kernel, ops
+from repro_torch.models import recsys as RS
 from repro_torch.models import transformer as T
 from repro_torch.serving.engine import LMServer
 
@@ -349,3 +355,136 @@ def test_lm_server_on_the_card_goes_through_both_kernels(cuda):
     on_cpu, _ = T.prefill(model.cpu(), cfg, tokens.cpu(), chunk=8)
     # float32 on both sides: rounding only (normwise, logits cross zero)
     assert float((on_card.cpu() - on_cpu).norm() / on_cpu.norm()) <= 1e-5
+
+
+# ------------------------------------------------------------ CTR kernels
+def _rows_close(out, expect, rtol, row_dims=1, scale=None):
+    """Worst row's relative L2 against the plain float32 output (the last
+    ``row_dims`` axes a row, as chip_smoke.py phases 13-14), or against
+    ``scale``'s row where given; rows that should be zeros must be exactly
+    zero."""
+    diff = (out.float() - expect).flatten(expect.ndim - row_dims)
+    ref = (expect if scale is None else scale).flatten(expect.ndim - row_dims)
+    num, den = diff.norm(dim=-1), ref.norm(dim=-1)
+    zero = den == 0
+    assert not bool((num[zero] > 0).any())
+    err = float((num[~zero] / den[~zero]).max())
+    assert err <= rtol, err
+
+
+@pytest.mark.parametrize("d", [1, 10, 16])
+@pytest.mark.parametrize("dtype,rtol", [(torch.bfloat16, 1e-2),
+                                        (torch.float32, 1e-5)])
+@pytest.mark.parametrize("prefix", [True, False])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_bag_kernel_matches_plain_version(cuda, d, dtype, rtol, prefix,
+                                          id_dtype):
+    g = torch.Generator(device=cuda).manual_seed(d)
+    table = (0.01 * torch.randn((1 << 20, d), generator=g, device=cuda)
+             ).to(dtype)
+    ids = torch.randint(0, 1 << 20, (333, 39, 4), generator=g, device=cuda,
+                        dtype=id_dtype)
+    if prefix:
+        counts = torch.randint(0, 5, (333, 39, 1), generator=g, device=cuda)
+        mask = torch.arange(4, device=cuda) < counts
+    else:
+        mask = torch.rand((333, 39, 4), generator=g, device=cuda) < 0.5
+    mask[0, 0] = False                       # an empty bag: zeros
+    out = bag_ops.embedding_bag(table, ids, mask, impl="cuda")
+    assert out.shape == (333, 39, d) and out.dtype == dtype
+    # bfloat16: one rounding of the float32 sum, relative to the result.
+    # float32: the kernel and the plain version sum a bag in other orders,
+    # and a bag that cancels (D = 1: one value) magnifies that relative to
+    # the result, so the rounding is held relative to the mean of |rows|
+    scale = (None if dtype == torch.bfloat16 else
+             bag_ref.embedding_bag_masked(table.float().abs(), ids, mask))
+    _rows_close(out, bag_ref.embedding_bag_masked(table.float(), ids, mask),
+                rtol, scale=scale)
+
+
+def test_bag_kernel_never_reads_masked_rows_or_ids(cuda):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    table = torch.randn((1000, 10), generator=g, device=cuda).bfloat16()
+    ids, mask, _ = ctr_batch(xdeepfm.SMOKE, 64, seed=2)
+    ids = torch.as_tensor(ids, device=cuda)
+    mask = torch.as_tensor(mask, device=cuda)
+    mask[:, :, 3] = False
+    clean = bag_ops.embedding_bag(table, ids, mask, impl="cuda")
+    poisoned = table.clone()
+    poisoned[ids[:, :, 3]] = float("nan")     # rows only masked entries use
+    live = ids[mask]
+    poisoned[live] = table[live]
+    far = torch.where(mask, ids, 10 ** 12)    # past the table's end
+    out = bag_ops.embedding_bag(poisoned, far, mask, impl="cuda")
+    assert torch.equal(out, clean)
+
+
+@pytest.mark.parametrize("b", [512, 1000, 3])
+# O = 13: the W rows are not 16-byte aligned (element loads)
+@pytest.mark.parametrize("hk,o", [(39, 200), (200, 200), (12, 16), (12, 13)])
+@pytest.mark.parametrize("dtype,rtol", [(torch.bfloat16, 1e-2),
+                                        (torch.float32, 1e-4)])
+def test_cin_kernel_matches_plain_version(cuda, b, hk, o, dtype, rtol):
+    g = torch.Generator(device=cuda).manual_seed(b + hk)
+    xk = torch.randn((b, hk, 10), generator=g, device=cuda).to(dtype)
+    x0 = torch.randn((b, 39, 10), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((hk * 39, o), generator=g, device=cuda)
+         * (hk * 39) ** -0.5).to(dtype)
+    expect = cin_ops.cin_layer(xk.float(), x0.float(), w.float(),
+                               impl="torch")
+    out = cin_ops.cin_layer(xk, x0, w, impl="cuda")
+    assert out.shape == (b, o, 10) and out.dtype == dtype
+    _rows_close(out, expect, rtol, row_dims=2)
+
+
+def test_ctr_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    table = torch.zeros((10, 4), device=cuda)
+    ids = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
+    mask = torch.ones((2, 3), dtype=torch.bool, device=cuda)
+    with pytest.raises(TypeError):
+        bag_ops.embedding_bag(table.half(), ids, mask, impl="cuda")
+    with pytest.raises(TypeError):
+        bag_ops.embedding_bag(table, ids.float(), mask, impl="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        bag_ops.embedding_bag(table[:, ::2], ids, mask, impl="cuda")
+    xk = torch.zeros((2, 3, 4), device=cuda)
+    with pytest.raises(ValueError, match="agree"):
+        cin_ops.cin_layer(xk, xk, torch.zeros((8, 5), device=cuda),
+                          impl="cuda")
+    with pytest.raises(TypeError):
+        cin_ops.cin_layer(xk, xk.bfloat16(), torch.zeros((9, 5), device=cuda),
+                          impl="cuda")
+    x0 = torch.zeros((2, 65, 4), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="fields"):
+        cin_ops.cin_layer(xk.bfloat16(), x0,
+                          torch.zeros((195, 5), dtype=torch.bfloat16,
+                                      device=cuda), impl="cuda")
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.cpu()
+
+
+@pytest.mark.parametrize("arch", ["deepfm", "xdeepfm", "autoint"])
+def test_ctr_logits_on_the_card_go_through_the_kernels(cuda, arch):
+    """SMOKE models on the card: two bag launches a logits call, one CIN
+    launch a layer, no plain call; the logits agree with the same weights
+    on the CPU (float32: rounding only)."""
+    from repro_torch.configs import registry
+    cfg = registry.get_arch(arch).smoke_config
+    params = getattr(RS, f"init_{arch}")(4, cfg, device=cuda)
+    logits = getattr(RS, f"{arch}_logits")
+    ids, mask, _ = ctr_batch(cfg, 100, seed=4)
+    ids, mask = torch.as_tensor(ids), torch.as_tensor(mask)
+    bag_ops.reset_counts()
+    cin_ops.reset_counts()
+    on_card = logits(params, cfg, ids.to(cuda), mask.to(cuda))
+    assert bag_ops.launch_count() == 2
+    assert cin_ops.launch_count() == len(cfg.cin_layers)
+    assert bag_ops.plain_count() == cin_ops.plain_count() == 0
+    on_cpu = logits(_to_cpu(params), cfg, ids, mask)
+    assert float((on_card.cpu() - on_cpu).norm() / on_cpu.norm()) <= 1e-4
