@@ -25,6 +25,11 @@ card, and drives the port's paths:
     logits and each CIN layer on the served values held against the
     plain path (phase 15), and where the device time goes (phase 15b).
 
+Phases 8 and 14 also print the wgmma kernels' ptxas reports (registers,
+spills, serialisation warnings) and take one tile through the shared
+Hopper header (csrc/hopper.cuh: TMA, descriptors, wgmma) against a
+float32 matmul.
+
 It prints timings beside the card's name and power limit.  Any failed
 check raises (non-zero exit).  The last lines are the kernel report
 (JSON), the card, and the device line (JSON).  TF32 is off for matrix
@@ -54,6 +59,9 @@ BF16_OPS_PER_S = 989e12         # H100 SXM, dense bf16 tensor cores
 N_SCEN, P, CHUNK, N_CHUNKS = 64, 100, 4096, 25   # Table 6, full width
 TIMED_SHAPE = (N_SCEN * P, CHUNK)   # the server scan: 64 scenarios x p
 N_TIMED = 50
+# The tile check's products are exact in float32 (bf16 x bf16) and sum at
+# most 128 of them: float32 rounding, ~1e-7 of the largest |C|.
+TILE_RTOL = 1e-5
 R = 4                           # replicas of the replicated path
 RESULT_CACHE = (0.2, 2e-3)      # (hit_r, s_cache), as replicated_bench.py
 MAX_BUFFERS_PER_R = 10.0        # the reference's r-free memory allowance
@@ -176,10 +184,73 @@ def phase_device():
         list(pool.map(lambda lib: lib.load(), libs))   # raises on failure
     print(f"{len(libs)} libraries built+loaded in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
+    wgmma = {"flash_attention", "cin_fuse", "hopper_tile"}
     for lib in libs:
         print(f"-- {lib.name}: nvcc {lib.build_seconds} s")
-        print(lib.build_log.strip() or "(library found in the build cache)")
+        if lib.name not in wgmma:
+            _ptxas_report(lib)
+    print("(the wgmma libraries' ptxas reports: phases 8 and 14)")
     return card
+
+
+def _ptxas_report(lib) -> None:
+    """One line a kernel of ``lib`` from its nvcc -Xptxas -v output:
+    registers, spill stores and loads; then ptxas's performance warnings
+    (wgmma serialisation, C751x)."""
+    if not lib.build_log:
+        print(f"  {lib.name}: found in the build cache, no ptxas report")
+        return
+    name = None
+    for line in lib.build_log.splitlines():
+        if "Compiling entry function" in line:
+            name, spills = line.split("'")[1], ""
+        elif "spill stores" in line and name:
+            spills = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            regs = line.split("Used")[1].split(",")[0].strip()
+            print(f"  {lib.name} {_demangle(name)}: {regs}; {spills}")
+            name = None
+        elif "Potential Performance Loss" in line:
+            print(f"  {lib.name} ptxas: {line.split('info    :')[-1].strip()}")
+
+
+def _demangle(name: str) -> str:
+    """A kernel's C++ name (c++filt where the machine has it), without
+    its parameter list."""
+    try:
+        out = subprocess.run(["c++filt", name], capture_output=True,
+                             text=True, check=True, timeout=10).stdout
+    except (OSError, subprocess.SubprocessError):
+        return name[:90]
+    out = out.strip().replace("(anonymous namespace)::", "")
+    return out.split("(")[0].removeprefix("void ")
+
+
+def _tile_check(what: str) -> None:
+    """hopper.cuh alone on the card: one 64 x N x K bf16 tile through TMA
+    and wgmma, B K-major and MN-major, A from shared memory and from
+    registers, against a float32 matmul of the same bf16 values."""
+    import torch
+    from repro_torch.kernels import hopper
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    worst = 0.0
+    cases = list(itertools.product(hopper.TILE_N, hopper.TILE_K,
+                                   (False, True), (False, True)))
+    for n, k, mn, regs in cases:
+        a = torch.randn((64, k), generator=gen, device="cuda").bfloat16()
+        b = torch.randn((k, n) if mn else (n, k), generator=gen,
+                        device="cuda").bfloat16()
+        c = hopper.tile_product(a, b, b_mn_major=mn, a_in_regs=regs)
+        expect = a.float() @ (b.float() if mn else b.float().t())
+        err = float((c - expect).abs().max() / expect.abs().max())
+        worst = max(worst, err)
+        if not err <= TILE_RTOL:
+            raise AssertionError(f"hopper.cuh tile N={n} K={k} "
+                                 f"mn_major={mn} a_in_regs={regs}: {err}")
+    print(f"  {what}: hopper.cuh tile check, {len(cases)} cases (N "
+          f"{hopper.TILE_N} x K {hopper.TILE_K} x B K-/MN-major x A in "
+          f"shared memory / registers): worst max abs err / max |C| "
+          f"{worst:.2e} (limit {TILE_RTOL:g})")
 
 
 def phase_kernel(card: str) -> dict:
@@ -735,6 +806,8 @@ def phase_flash_kernel(card: str) -> dict:
     import torch
     from repro_torch.kernels.flash_attention import kernel, ops
     print("== phase 8: flash-attention kernel vs plain version on the card")
+    _ptxas_report(kernel.LIB)
+    _tile_check("phase 8")
     gen = torch.Generator(device="cuda").manual_seed(8)
     main = None
     for s, dtype in itertools.product((2048, 1000),
@@ -1072,7 +1145,8 @@ def phase_planner(card: str, lm: dict) -> None:
 
 # ------------------------------------------------------------ CTR serving
 REC_P99, REC_BULK, N_P99 = 512, 262_144, 4   # serve_p99, serve_bulk
-CIN_BATCHES = (512, 4096, 1000)   # p99, a larger batch, B D ragged
+CIN_BATCHES = (512, 4096, 1000, 3)   # p99, a larger batch, B D ragged,
+                                     # tiny (512 and 3 split K)
 CIN_BULK_SLICE = 4096   # serve_bulk samples the plain CIN can hold
 # Kernels against their plain version's float32 output on the same values,
 # the largest relative L2 error of one output row: a bag's D values, a
@@ -1239,9 +1313,20 @@ def phase_cin_kernel(card: str, cfg) -> dict:
     import torch
     from repro_torch.kernels.cin_fuse import kernel, ops
     print("== phase 14: CIN kernel vs plain version on the card")
+    _ptxas_report(kernel.LIB)
+    _tile_check("phase 14")
     gen = torch.Generator(device="cuda").manual_seed(14)
     m, d = cfg.n_sparse, cfg.embed_dim
     layers = list(zip((m,) + cfg.cin_layers[:-1], cfg.cin_layers))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for b in CIN_BATCHES:
+        plan = kernel.cin_plan(b, layers[-1][0], m, d, layers[-1][1],
+                               n_sm=n_sm)
+        if (plan.splits > 1) != (b <= REC_P99):
+            raise AssertionError(f"B={b}: {plan.splits} split(s) of K")
+        print(f"  B={b}: bf16 plan grid {plan.grid}, N {plan.n_tile}, "
+              f"{plan.k_steps} k16 steps an h, {plan.splits} split(s) of "
+              f"K, {plan.smem_bytes} B of shared memory")
     main_err = None
     for b, (hk, o), dtype in itertools.product(
             CIN_BATCHES, layers, (torch.bfloat16, torch.float32)):

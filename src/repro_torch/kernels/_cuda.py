@@ -29,6 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 IMPLS = ("auto", "torch", "cuda")
+ENCODE_ERROR = 100000   # hop::kEncodeError: + the CUresult of a failed
+                        # cuTensorMapEncodeTiled (csrc/hopper.cuh)
 
 
 def resolve_impl(impl: str = "auto",
@@ -57,8 +59,8 @@ class CudaLibrary:
 
     ``entries`` maps each exported C function to its ctypes argument
     types; every entry returns ``int`` (the ``cudaGetLastError()`` after
-    its launch).  ``headers`` are the local headers the source includes:
-    they enter the cache key.
+    its launch, or ENCODE_ERROR + a CUresult).  ``headers`` are the local
+    headers the source includes: they enter the cache key.
     """
 
     def __init__(self, source: pathlib.Path, entries: dict[str, Sequence],
@@ -117,6 +119,9 @@ class CudaLibrary:
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = fn(*args, stream)
+        if err >= ENCODE_ERROR:
+            raise RuntimeError(f"{fn_name}: a TMA tensor map could not be "
+                               f"encoded (CUresult {err - ENCODE_ERROR})")
         if err != 0:
             raise RuntimeError(f"{fn_name} launch failed: CUDA error {err}")
 
@@ -150,7 +155,8 @@ def all_libraries() -> tuple[CudaLibrary, ...]:
     from repro_torch.kernels.decode_attention import kernel as decode
     from repro_torch.kernels.embedding_bag import kernel as bag
     from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.hopper import TILE_LIB
     from repro_torch.kernels.jsq_route import kernel as jsq
     from repro_torch.kernels.maxplus_scan import kernel as scan
     return (scan.SCAN_LIB, scan.SEGMENT_LIB, jsq.LIB, flash.LIB, decode.LIB,
-            bag.LIB, cin.LIB)
+            bag.LIB, cin.LIB, TILE_LIB)

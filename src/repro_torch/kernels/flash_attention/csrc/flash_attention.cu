@@ -16,16 +16,35 @@
 // weighted sum are ~34 GFLOP per layer against ~40 MB moved.  Two kernels,
 // chosen by the inputs' type:
 //
-//   * bfloat16 (the served model): `flash_attention_mma_kernel` runs both
-//     products on the tensor cores with mma.sync.m16n8k16 (bf16 in, float32
-//     accumulate).  Each of 4 warps owns 16 query rows: its Q rows stay in
-//     registers as A fragments, the scores of a 64-position K tile come out
-//     as accumulator fragments, the online softmax runs on them in
-//     registers (4 lanes per row, shuffles for max and sum), and they are
-//     repacked in place as bf16 A fragments of P for the P V product (as
-//     the Pallas kernel casts p to v's type); V's B fragments come from
-//     shared memory by ldmatrix.trans.  A wgmma / TMA pipeline is later
-//     work;
+//   * bfloat16 (the served model): `flash_wgmma_kernel`, warp-specialised
+//     on Hopper's tensor-memory accelerator (TMA) and wgmma, for every D
+//     in 16, 32, 64, 128.  A block is three warpgroups (384 threads):
+//       - a producer (setmaxnreg down to 24 registers), one thread of
+//         which TMA-loads the block's Q tile once, then K and V tiles of
+//         kBlockN = 64 positions into a 4-stage ring in shared memory,
+//         each stage with a "full" and an "empty" mbarrier;
+//       - two consumer warpgroups (setmaxnreg up to 240), each owning 64
+//         query rows, so a block holds 128 rows and every K/V tile serves
+//         both.  Per tile, S = Q K^T is D / 16 wgmma m64n64k16 with both
+//         operands K-major in shared memory; the online softmax runs on
+//         S's float32 accumulator fragment in registers (4 lanes a row,
+//         shuffles for the max, the scale folded into exp2); P is cast to
+//         bf16 in place (as the Pallas kernel casts p to v's type) into
+//         A-operand registers, whose fragment layout is the accumulator's;
+//         O += P V is 4 wgmma m64n{D}k16 with A from registers and V, kept
+//         [position][D] as loaded, an MN-major B (no transpose pass); the
+//         consumer then releases the stage on its "empty" barrier;
+//       - within a consumer, tile t's softmax overlaps tile t - 1's P V:
+//         S(t) and PV(t - 1) are issued together, wgmma.wait_group(1)
+//         waits for S(t) only, and O is rescaled after PV(t - 1) retires;
+//         across consumers, the two take turns to issue their products
+//         (named barriers 1 and 2), so one's softmax runs while the
+//         other's products keep the tensor cores busy.
+//     Only tiles that straddle the diagonal or Sk run the mask.  What
+//     holds it back: S = Q K^T at N = 64 with both operands in shared
+//     memory needs ~32 FLOP a byte of shared memory, the SM's limit at
+//     the tensor cores' peak; 128-position tiles, or Q held in registers,
+//     would halve that but cost the registers that spilled (below);
 //   * float32: `flash_attention_kernel` uses float32 FMAs on the CUDA cores
 //     (no TF32, which would fail the float32 tolerance): 256 threads as
 //     16 x 16, thread (ty, tx) owns query rows 4 ty .. 4 ty + 3, scores in
@@ -34,17 +53,36 @@
 //
 // Both keep every intermediate on chip:
 //
-//   * one block per (q tile, kv head, batch).  Its kRows query rows are
-//     kRows / G positions x the G query heads of that kv head, so every
-//     K/V tile staged in shared memory serves all G heads: the Pallas index
-//     map's "no KV duplication", done on chip;
+//   * one block per (q tile, kv head, batch).  Its query rows are
+//     positions x the G query heads of that kv head (row r is position
+//     q0 + r / G, head kvh G + r % G), so every K/V tile staged in shared
+//     memory serves all G heads: the Pallas index map's "no KV
+//     duplication", done on chip.  The bf16 kernel's Q box is (64 / G
+//     positions, G heads, a 64-element band of D) of the strided
+//     (B, S, H, D) view: no copy;
 //   * the block loops over K tiles up to its causal limit (fully masked
 //     tiles are never loaded); the TPU's sequential "arbitrary" grid axis
 //     becomes this loop;
 //   * ragged edges (prompts are multiples of 8, not of the tile) load zeros
-//     and are masked in the kernel: no padding copy exists;
+//     (TMA fills a box's out-of-bounds part with zeros) and are masked in
+//     the kernel: no padding copy exists;
 //   * q tiles are scheduled heaviest (latest) first, so the long causal
 //     rows do not trail the grid.
+//
+// Where the bf16 kernel's correctness and speed hang (hopper.cuh's
+// conventions): the ring's phase parity (stage t % 4 is in its (t / 4)-th
+// use; the producer waits "empty" on the opposite parity, which a fresh
+// barrier passes); V's MN-major descriptor (SBO = 8 rows of the box's
+// row bytes, LBO = one 64-element band of D to the next); P's register
+// fragment (the n8 tiles 2 k and 2 k + 1 of S make the A fragment of k16
+// step k); registers: with 128-position tiles S, P and O (64 + 32 + 64
+// floats at D = 128) spilled and ptxas serialised every wgmma (C7512), so
+// tiles are 64 positions (S 32, P 16), with no spills and no
+// serialisation in the ptxas report; a 2-stage ring left the consumers
+// waiting for K/V (deeper rings of 5 and 6 stages gained nothing over 4);
+// and TMA's 16-byte rule on the strided views (every stride a multiple of
+// 16 B, checked by the wrapper; an encoding failure is returned as an
+// error code).
 //
 // The served path calls it causal with Sq == Sk only.  `causal = false`
 // and Sq != Sk stay because `flash_attention_pallas` takes them (its
@@ -53,11 +91,11 @@
 // version.
 //
 // Plain C interface (bound with ctypes): each entry point returns
-// cudaGetLastError() after the launch.
-
-#include <type_traits>
+// cudaGetLastError() after the launch, or hop::kEncodeError + the CUresult
+// when a tensor map cannot be encoded.
 
 #include "../../csrc/attention_io.cuh"
+#include "../../csrc/hopper.cuh"
 
 namespace {
 
@@ -278,264 +316,341 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------- bf16
-constexpr int kMmaThreads = 128;  // 4 warps x 16 query rows = kRows
-constexpr int kMmaBlockK = 64;    // key positions per tile
-constexpr int kHalfPad = 8;       // bf16 of padding per shared row
+namespace wg {
 
-using bf16 = __nv_bfloat16;
+using hop::bf16;
+
+constexpr int kConsumers = 2;                   // warpgroups of 64 rows
+constexpr int kThreads = 128 * (1 + kConsumers);
+constexpr int kBlockRows = 64 * kConsumers;     // query rows a block
+constexpr int kBlockN = 64;                     // key positions a tile
+constexpr int kStages = 4;                      // the K/V ring
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+
+// Shared memory of one block for head dimension D: the Q tile, then the
+// ring (K then V a stage), then the barriers.  A box row is kRowBytes (D
+// elements up to 64, which is also the swizzle); D = 128 is two boxes.
+template <int D>
+struct Geom {
+  static constexpr int kRowBytes = D * 2 < 128 ? D * 2 : 128;
+  static constexpr int kChunk = kRowBytes / 2;     // elements a box row
+  static constexpr int kChunks = D / kChunk;
+  static constexpr int kQBox = 64 * kRowBytes;     // one consumer's box
+  static constexpr int kQBand = kBlockRows * kRowBytes;
+  static constexpr int kQBytes = kBlockRows * D * 2;
+  static constexpr int kKvBox = kBlockN * kRowBytes;
+  static constexpr int kKvBytes = kBlockN * D * 2;  // one K (or V) tile
+  static constexpr int kStageBytes = 2 * kKvBytes;
+  static constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
+  static constexpr int kSmemBytes = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+};
 
 template <int D>
-constexpr int mma_smem_bytes() {
-  return (kRows + 2 * kMmaBlockK) * (D + kHalfPad) * 2;
-}
+__global__ void __launch_bounds__(kThreads, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map,
+                   bf16* __restrict__ out, int64_t o_sb, int64_t o_ss,
+                   int64_t o_sh, int sq, int sk, int groups, int causal,
+                   float scale_log2) {
+  using G = Geom<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = hop::align1024(smem_raw);
+  uint8_t* qs = smem;                    // [band][128 rows][kRowBytes]
+  uint8_t* ring = smem + G::kQBytes;     // [stage][K | V][band][128][.]
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + G::kBarOffset);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kStages;
 
-// c += a b: one m16n8k16 product, bf16 in, float32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two 8 x 8 bf16 matrices from shared memory, transposed: lanes 0-7 give
-// the row addresses of the first, lanes 8-15 of the second
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
-                                                  const bf16* row) {
-  const unsigned addr =
-      static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r0), "=r"(r1)
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ uint32_t lds32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Fragment layout of m16n8k16 (PTX ISA): lane = 4 gr + tq.  A (16 x 16):
-// registers (row gr | gr + 8) x (cols 2 tq, 2 tq + 1 | + 8), in the order
-// (gr, lo), (gr + 8, lo), (gr, hi), (gr + 8, hi).  B (16 x 8): rows
-// 2 tq, 2 tq + 1 (+ 8 in the second register) of column gr.  C (16 x 8):
-// c0, c1 at row gr, cols 2 tq, 2 tq + 1; c2, c3 at row gr + 8.
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads, 2)
-flash_attention_mma_kernel(const bf16* __restrict__ q,
-                           const bf16* __restrict__ k,
-                           const bf16* __restrict__ v, bf16* __restrict__ out,
-                           int64_t q_sb, int64_t q_ss, int64_t q_sh,
-                           int64_t k_sb, int64_t k_ss, int64_t k_sh,
-                           int64_t v_sb, int64_t v_ss, int64_t v_sh,
-                           int64_t o_sb, int64_t o_ss, int64_t o_sh, int sq,
-                           int sk, int groups, int causal, float scale) {
-  constexpr int kS = D + kHalfPad;          // shared row stride (bf16)
-  constexpr int kVecs = D / 8;              // 16 B vectors per row
-  constexpr int kDSteps = D / 16;           // k-steps of Q K^T
-  constexpr int kSTiles = kMmaBlockK / 8;   // n-tiles of a score tile
-  constexpr int kOTiles = D / 8;            // n-tiles of the output
-
-  extern __shared__ float4 smem4[];
-  bf16* qs = reinterpret_cast<bf16*>(smem4);   // [kRows][kS]
-  bf16* ks = qs + kRows * kS;                  // [kMmaBlockK][kS]
-  bf16* vs = ks + kMmaBlockK * kS;             // [kMmaBlockK][kS]
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int gr = lane >> 2;
-  const int tq = lane & 3;
-  const int bq = kRows / groups;
+  const int bq = kBlockRows / groups;    // positions a block
   const int q0 = (gridDim.x - 1 - blockIdx.x) * bq;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
+  const int q_last = min(q0 + bq, sq) - 1;
+  const int k_end = causal ? min(sk, q_last + 1) : sk;
+  const int n_tiles = (k_end + kBlockN - 1) / kBlockN;
+  const int wg_id = threadIdx.x / 128;
 
-  for (int i = tid; i < kRows * kVecs; i += kMmaThreads) {
-    const int r = i / kVecs;
-    const int c = (i % kVecs) * 8;
-    const int pos = q0 + r / groups;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (pos < sq) {
-      const int h = kvh * groups + r % groups;
-      val = *reinterpret_cast<const uint4*>(q + b * q_sb + pos * q_ss +
-                                            h * q_sh + c);
+  if (threadIdx.x == 0) {
+    hop::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      hop::mbar_init(&full[s], 1);
+      hop::mbar_init(&empty[s], 4 * kConsumers);   // one arrival a warp
     }
-    *reinterpret_cast<uint4*>(qs + r * kS + c) = val;
+    hop::mbar_fence_init();
   }
   __syncthreads();
 
-  const int row_a = warp * 16 + gr;   // this lane's two rows
-  const int row_b = row_a + 8;
-  uint32_t qa[kDSteps][4];
-#pragma unroll
-  for (int d = 0; d < kDSteps; ++d) {
-    const bf16* p = qs + row_a * kS + d * 16 + 2 * tq;
-    qa[d][0] = lds32(p);
-    qa[d][1] = lds32(p + 8 * kS);
-    qa[d][2] = lds32(p + 8);
-    qa[d][3] = lds32(p + 8 * kS + 8);
-  }
-
-  const int pos_a = q0 + row_a / groups;
-  const int pos_b = q0 + row_b / groups;
-  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.0f, l_b = 0.0f;
-  float o[kOTiles][4];
-#pragma unroll
-  for (int n = 0; n < kOTiles; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
-
-  const int q_last = min(q0 + bq, sq) - 1;
-  const int k_end = causal ? min(sk, q_last + 1) : sk;
-  const bf16* kb = k + b * k_sb + kvh * k_sh;
-  const bf16* vb = v + b * v_sb + kvh * v_sh;
-
-  for (int k0 = 0; k0 < k_end; k0 += kMmaBlockK) {
-    __syncthreads();  // the previous tile fully consumed
-    for (int i = tid; i < kMmaBlockK * kVecs; i += kMmaThreads) {
-      const int r = i / kVecs;
-      const int c = (i % kVecs) * 8;
-      const int pos = k0 + r;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (pos < sk) {
-        kv = *reinterpret_cast<const uint4*>(kb + pos * k_ss + c);
-        vv = *reinterpret_cast<const uint4*>(vb + pos * v_ss + c);
-      }
-      *reinterpret_cast<uint4*>(ks + r * kS + c) = kv;
-      *reinterpret_cast<uint4*>(vs + r * kS + c) = vv;
-    }
-    __syncthreads();
-
-    // scores of rows (row_a, row_b) x this tile
-    float sc[kSTiles][4];
-#pragma unroll
-    for (int n = 0; n < kSTiles; ++n) {
-      sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.0f;
-#pragma unroll
-      for (int d = 0; d < kDSteps; ++d) {
-        const bf16* p = ks + (n * 8 + gr) * kS + d * 16 + 2 * tq;
-        mma_bf16(sc[n], qa[d], lds32(p), lds32(p + 8));
+  if (wg_id == 0) {
+    // ------------------------------------------------------ producer
+    hop::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      hop::mbar_expect_tx(q_full, G::kQBytes);
+      for (int c = 0; c < kConsumers; ++c)
+        for (int ch = 0; ch < G::kChunks; ++ch)
+          hop::tma_load_4d(qs + ch * G::kQBand + c * G::kQBox, &q_map, q_full,
+                           ch * G::kChunk, kvh * groups,
+                           q0 + c * (64 / groups), b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        hop::mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+        hop::mbar_expect_tx(&full[s], G::kStageBytes);
+        uint8_t* kt = ring + s * G::kStageBytes;
+        for (int ch = 0; ch < G::kChunks; ++ch) {
+          hop::tma_load_4d(kt + ch * G::kKvBox, &k_map, &full[s],
+                           ch * G::kChunk, kvh, t * kBlockN, b);
+          hop::tma_load_4d(kt + G::kKvBytes + ch * G::kKvBox, &v_map,
+                           &full[s], ch * G::kChunk, kvh, t * kBlockN, b);
+        }
       }
     }
+  } else {
+    // ------------------------------------------------------ consumers
+    hop::reg_alloc<kConsumerRegs>();
+    const int c = wg_id - 1;
+    const int lane = threadIdx.x % 32;
+    const int gr = lane / 4;
+    const int tq = lane % 4;
+    const int row_a = (threadIdx.x / 32) % 4 * 16 + gr;   // and row_a + 8
+    const int p0 = q0 + c * (64 / groups);   // the consumer's first position
+    const int pos_a = p0 + row_a / groups;
+    const int pos_b = p0 + (row_a + 8) / groups;
+    const uint8_t* q_tile = qs + c * G::kQBox;
 
-    // mask, then the online softmax update of the two rows
-    float mx_a = -INFINITY, mx_b = -INFINITY;
+    float o[D / 2];
 #pragma unroll
-    for (int n = 0; n < kSTiles; ++n) {
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.0f, l_b = 0.0f;
+    float sc[kBlockN / 2];             // S of one tile, then its P
+    uint32_t pa[kBlockN / 16][4];      // P as bf16 A fragments
+
+    // S = Q K^T of tile t (both K-major), issued and committed
+    auto issue_s = [&](int t) {
+      const uint8_t* kt = ring + (t % kStages) * G::kStageBytes;
+      hop::fence_regs(sc);
+      hop::wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = k0 + n * 8 + 2 * tq + j;
-        const bool ok_a = col < sk && (!causal || col <= pos_a);
-        const bool ok_b = col < sk && (!causal || col <= pos_b);
-        sc[n][j] = ok_a ? sc[n][j] * scale : -INFINITY;
-        sc[n][2 + j] = ok_b ? sc[n][2 + j] * scale : -INFINITY;
-        mx_a = fmaxf(mx_a, sc[n][j]);
-        mx_b = fmaxf(mx_b, sc[n][2 + j]);
+      for (int st = 0; st < D / 16; ++st)
+        hop::Wgmma<kBlockN>::template ss<0>(
+            sc, hop::desc_k_major(q_tile, st, G::kRowBytes, G::kQBand),
+            hop::desc_k_major(kt, st, G::kRowBytes, G::kKvBox), st > 0);
+      hop::wgmma_commit();
+    };
+    // O += P V of tile t (V an MN-major B, P from registers), committed
+    auto issue_pv = [&](int t) {
+      const uint8_t* vt =
+          ring + (t % kStages) * G::kStageBytes + G::kKvBytes;
+#pragma unroll
+      for (int k = 0; k < kBlockN / 16; ++k) hop::fence_regs(pa[k]);
+      hop::fence_regs(o);
+      hop::wgmma_fence();
+#pragma unroll
+      for (int st = 0; st < kBlockN / 16; ++st)
+        hop::Wgmma<D>::template rs<1>(
+            o, pa[st], hop::desc_mn_major(vt, st, G::kRowBytes, G::kKvBox),
+            1);
+      hop::wgmma_commit();
+    };
+    // tile t's S (retired) -> its probabilities in sc, in place; returns
+    // the rescale factors of rows row_a and row_a + 8 through alpha_*
+    auto softmax = [&](int t, float& alpha_a, float& alpha_b) {
+      const int k0 = t * kBlockN;
+      // the mask, on tiles that straddle the diagonal or Sk only
+      if (k0 + kBlockN > sk || (causal && k0 + kBlockN - 1 > p0)) {
+#pragma unroll
+        for (int i = 0; i < kBlockN / 8; ++i) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int col = k0 + 8 * i + 2 * tq + (j & 1);
+            const int pos = j < 2 ? pos_a : pos_b;
+            if (col >= sk || (causal && col > pos)) sc[4 * i + j] = -INFINITY;
+          }
+        }
       }
+      float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < kBlockN / 8; ++i) {
+        mx_a = fmaxf(mx_a, fmaxf(sc[4 * i], sc[4 * i + 1]));
+        mx_b = fmaxf(mx_b, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        mx_a = fmaxf(mx_a, __shfl_xor_sync(attn::kFull, mx_a, off));
+        mx_b = fmaxf(mx_b, __shfl_xor_sync(attn::kFull, mx_b, off));
+      }
+      const float mn_a = fmaxf(m_a, mx_a);
+      const float mn_b = fmaxf(m_b, mx_b);
+      // exp((x - m) scale) = exp2(x scale log2(e) - m scale log2(e)); a
+      // max of -inf (nothing seen) contributes nothing
+      const float base_a = mn_a == -INFINITY ? 0.0f : mn_a * scale_log2;
+      const float base_b = mn_b == -INFINITY ? 0.0f : mn_b * scale_log2;
+      alpha_a = exp2f(fmaf(m_a, scale_log2, -base_a));
+      alpha_b = exp2f(fmaf(m_b, scale_log2, -base_b));
+      m_a = mn_a;
+      m_b = mn_b;
+      float sum_a = 0.0f, sum_b = 0.0f;
+#pragma unroll
+      for (int i = 0; i < kBlockN / 8; ++i) {
+        sc[4 * i] = exp2f(fmaf(sc[4 * i], scale_log2, -base_a));
+        sc[4 * i + 1] = exp2f(fmaf(sc[4 * i + 1], scale_log2, -base_a));
+        sc[4 * i + 2] = exp2f(fmaf(sc[4 * i + 2], scale_log2, -base_b));
+        sc[4 * i + 3] = exp2f(fmaf(sc[4 * i + 3], scale_log2, -base_b));
+        sum_a += sc[4 * i] + sc[4 * i + 1];
+        sum_b += sc[4 * i + 2] + sc[4 * i + 3];
+      }
+      // l stays a per-lane partial sum (alpha is the row's): the 4 lanes
+      // of a row are summed once, at the end
+      l_a = l_a * alpha_a + sum_a;
+      l_b = l_b * alpha_b + sum_b;
+    };
+    // P as bf16 A fragments: S's n8 tiles 2 k and 2 k + 1 are step k's
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int k = 0; k < kBlockN / 16; ++k) {
+        pa[k][0] = hop::pack_bf16(sc[8 * k], sc[8 * k + 1]);
+        pa[k][1] = hop::pack_bf16(sc[8 * k + 2], sc[8 * k + 3]);
+        pa[k][2] = hop::pack_bf16(sc[8 * k + 4], sc[8 * k + 5]);
+        pa[k][3] = hop::pack_bf16(sc[8 * k + 6], sc[8 * k + 7]);
+      }
+    };
+
+    // Tile t's softmax runs while tile t - 1's P V is on the tensor
+    // cores: per tile, issue S(t) and PV(t - 1), wait for S(t) only, run
+    // the softmax, then wait for PV(t - 1), release its stage, rescale O
+    // and pack P(t).
+    float alpha_a, alpha_b;
+    // Ping-pong: the consumers take turns to issue their products (named
+    // barriers 1 and 2), so one's softmax runs while the other's products
+    // keep the tensor cores busy.  A consumer issues n_tiles + 1 times;
+    // consumer 1 opens consumer 0's first turn and skips its own last
+    // hand-over, so every bar.sync meets one bar.arrive.
+    const int phases = n_tiles + 1;
+    int phase = 0;
+    auto turn = [&]() { hop::named_bar_sync(1 + c, 256); };
+    auto hand_over = [&]() {
+      if (!(c == 1 && phase == phases - 1)) hop::named_bar_arrive(2 - c, 256);
+      ++phase;
+    };
+    if (c == 1) hop::named_bar_arrive(1, 256);
+    hop::mbar_wait(q_full, 0);
+    hop::mbar_wait(&full[0], 0);
+    turn();
+    issue_s(0);
+    hand_over();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(sc);
+    softmax(0, alpha_a, alpha_b);
+    pack_p();
+    for (int t = 1; t < n_tiles; ++t) {
+      hop::mbar_wait(&full[t % kStages], (t / kStages) & 1);
+      turn();
+      issue_s(t);
+      issue_pv(t - 1);
+      hand_over();
+      hop::wgmma_wait<1>();
+      hop::fence_regs(sc);
+      softmax(t, alpha_a, alpha_b);
+      hop::wgmma_wait<0>();
+      hop::fence_regs(o);
+#pragma unroll
+      for (int k = 0; k < kBlockN / 16; ++k) hop::fence_regs(pa[k]);
+      if (lane == 0) hop::mbar_arrive(&empty[(t - 1) % kStages]);
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        o[4 * i] *= alpha_a;
+        o[4 * i + 1] *= alpha_a;
+        o[4 * i + 2] *= alpha_b;
+        o[4 * i + 3] *= alpha_b;
+      }
+      pack_p();
     }
+    turn();
+    issue_pv(n_tiles - 1);
+    hand_over();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(o);
+#pragma unroll
+    for (int k = 0; k < kBlockN / 16; ++k) hop::fence_regs(pa[k]);
+
 #pragma unroll
     for (int off = 1; off <= 2; off <<= 1) {
-      mx_a = fmaxf(mx_a, __shfl_xor_sync(kFull, mx_a, off));
-      mx_b = fmaxf(mx_b, __shfl_xor_sync(kFull, mx_b, off));
+      l_a += __shfl_xor_sync(attn::kFull, l_a, off);
+      l_b += __shfl_xor_sync(attn::kFull, l_b, off);
     }
-    const float mn_a = fmaxf(m_a, mx_a);
-    const float mn_b = fmaxf(m_b, mx_b);
-    const float alpha_a = attn::exp_sub(m_a, mn_a);
-    const float alpha_b = attn::exp_sub(m_b, mn_b);
-    float sum_a = 0.0f, sum_b = 0.0f;
+    const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
+    const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
+    if (pos_a < sq) {
+      bf16* orow = out + b * o_sb + pos_a * o_ss +
+                   (kvh * groups + row_a % groups) * o_sh + 2 * tq;
 #pragma unroll
-    for (int n = 0; n < kSTiles; ++n) {
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        sc[n][j] = attn::exp_sub(sc[n][j], mn_a);
-        sc[n][2 + j] = attn::exp_sub(sc[n][2 + j], mn_b);
-        sum_a += sc[n][j];
-        sum_b += sc[n][2 + j];
-      }
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<uint32_t*>(orow + 8 * i) =
+            hop::pack_bf16(o[4 * i] * inv_a, o[4 * i + 1] * inv_a);
     }
+    if (pos_b < sq) {
+      bf16* orow = out + b * o_sb + pos_b * o_ss +
+                   (kvh * groups + (row_a + 8) % groups) * o_sh + 2 * tq;
 #pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      sum_a += __shfl_xor_sync(kFull, sum_a, off);
-      sum_b += __shfl_xor_sync(kFull, sum_b, off);
+      for (int i = 0; i < D / 8; ++i)
+        *reinterpret_cast<uint32_t*>(orow + 8 * i) =
+            hop::pack_bf16(o[4 * i + 2] * inv_b, o[4 * i + 3] * inv_b);
     }
-    l_a = l_a * alpha_a + sum_a;
-    l_b = l_b * alpha_b + sum_b;
-    m_a = mn_a;
-    m_b = mn_b;
-#pragma unroll
-    for (int n = 0; n < kOTiles; ++n) {
-      o[n][0] *= alpha_a;
-      o[n][1] *= alpha_a;
-      o[n][2] *= alpha_b;
-      o[n][3] *= alpha_b;
-    }
-
-    // o += P V, 16 positions a step: two score n-tiles make one A fragment
-#pragma unroll
-    for (int kk = 0; kk < kSTiles / 2; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(sc[2 * kk][0], sc[2 * kk][1]),
-          pack_bf16(sc[2 * kk][2], sc[2 * kk][3]),
-          pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]),
-          pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3])};
-      const bf16* vrow = vs + (kk * 16 + (lane & 15)) * kS;
-#pragma unroll
-      for (int n = 0; n < kOTiles; ++n) {
-        uint32_t b0, b1;
-        ldmatrix_x2_trans(b0, b1, vrow + n * 8);
-        mma_bf16(o[n], pa, b0, b1);
-      }
-    }
-  }
-
-  const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
-  const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
-  if (pos_a < sq) {
-    bf16* orow = out + b * o_sb + pos_a * o_ss +
-                 (kvh * groups + row_a % groups) * o_sh + 2 * tq;
-#pragma unroll
-    for (int n = 0; n < kOTiles; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8) =
-          pack_bf16(o[n][0] * inv_a, o[n][1] * inv_a);
-  }
-  if (pos_b < sq) {
-    bf16* orow = out + b * o_sb + pos_b * o_ss +
-                 (kvh * groups + row_b % groups) * o_sh + 2 * tq;
-#pragma unroll
-    for (int n = 0; n < kOTiles; ++n)
-      *reinterpret_cast<uint32_t*>(orow + n * 8) =
-          pack_bf16(o[n][2] * inv_b, o[n][3] * inv_b);
   }
 }
 
+// The launch plan (kernels/flash_attention/kernel.py `FlashPlan.args`):
+// grid (3), threads, shared bytes, sq, sk, G, D, causal, out's strides
+// (3, elements), then the Q, K and V maps (hop::kMapSpecLen values each).
+constexpr int kPlanHead = 13;
+constexpr int kPlanLen = kPlanHead + 3 * hop::kMapSpecLen;
+
+bool box_is(const int64_t* spec, int64_t b0, int64_t b1, int64_t b2,
+            int64_t b3, int64_t swizzle) {
+  return spec[0] == 4 && spec[8] == b0 && spec[9] == b1 && spec[10] == b2 &&
+         spec[11] == b3 && spec[12] == swizzle;
+}
+
+// Launch D's kernel after holding the plan to what the kernel was
+// compiled for (boxes, swizzle, threads, shared bytes, grid).
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* out,
-               const int64_t* st, int64_t batch, int64_t sq, int64_t sk,
-               int64_t kv, int64_t groups, int64_t causal, void* stream) {
-  constexpr size_t smem = mma_smem_bytes<D>();
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_mma_kernel<D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int64_t bq = kRows / groups;
-  const dim3 grid(static_cast<unsigned>((sq + bq - 1) / bq),
-                  static_cast<unsigned>(kv), static_cast<unsigned>(batch));
-  flash_attention_mma_kernel<D><<<grid, kMmaThreads, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), st[0], st[1],
-      st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11],
-      static_cast<int>(sq), static_cast<int>(sk), static_cast<int>(groups),
-      static_cast<int>(causal),
-      static_cast<float>(1.0 / sqrt(static_cast<double>(D))));
+int launch(const void* q, const void* k, const void* v, void* out,
+           const int64_t* plan, void* stream) {
+  using G = Geom<D>;
+  const int64_t sq = plan[5], sk = plan[6], groups = plan[7];
+  const int64_t* q_spec = plan + kPlanHead;
+  const int64_t* k_spec = q_spec + hop::kMapSpecLen;
+  const int64_t* v_spec = k_spec + hop::kMapSpecLen;
+  const int64_t bq = kBlockRows / groups;
+  if (plan[3] != kThreads || plan[4] != G::kSmemBytes ||
+      plan[0] != (sq + bq - 1) / bq ||
+      !box_is(q_spec, G::kChunk, groups, 64 / groups, 1, G::kRowBytes) ||
+      !box_is(k_spec, G::kChunk, 1, kBlockN, 1, G::kRowBytes) ||
+      !box_is(v_spec, G::kChunk, 1, kBlockN, 1, G::kRowBytes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap q_map, k_map, v_map;
+  int err = hop::encode_map(&q_map, q, q_spec);
+  if (err == 0) err = hop::encode_map(&k_map, k, k_spec);
+  if (err == 0) err = hop::encode_map(&v_map, v, v_spec);
+  if (err != 0) return err;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      G::kSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const dim3 grid(static_cast<unsigned>(plan[0]),
+                  static_cast<unsigned>(plan[1]),
+                  static_cast<unsigned>(plan[2]));
+  const float scale_log2 =
+      static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(D)));
+  flash_wgmma_kernel<D><<<grid, kThreads, G::kSmemBytes,
+                          static_cast<cudaStream_t>(stream)>>>(
+      q_map, k_map, v_map, static_cast<bf16*>(out), plan[10], plan[11],
+      plan[12], static_cast<int>(sq), static_cast<int>(sk),
+      static_cast<int>(groups), static_cast<int>(plan[9]), scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace wg
 
 template <typename T, int D>
 int launch_d(const void* q, const void* k, const void* v, void* out,
@@ -561,32 +676,26 @@ int launch_d(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// D -> the kernel instantiated for it: the tensor-core kernel for
-// bfloat16, the FMA kernel for float32
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out,
-           const int64_t* strides, int64_t batch, int64_t sq, int64_t sk,
-           int64_t kv, int64_t groups, int64_t d, int64_t causal,
-           void* stream) {
+// D -> the float32 kernel instantiated for it
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               const int64_t* strides, int64_t batch, int64_t sq, int64_t sk,
+               int64_t kv, int64_t groups, int64_t d, int64_t causal,
+               void* stream) {
   if (groups < 1 || groups > kRows || kRows % groups != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  switch (d) {
 #define REPRO_FLASH_CASE(DIM)                                                 \
   case DIM:                                                                   \
-    if constexpr (std::is_same_v<T, bf16>)                                    \
-      return launch_mma<DIM>(q, k, v, out, strides, batch, sq, sk, kv,        \
-                             groups, causal, stream);                         \
-    else                                                                      \
-      return launch_d<T, DIM>(q, k, v, out, strides, batch, sq, sk, kv,       \
-                              groups, causal, stream);
-  switch (d) {
+    return launch_d<float, DIM>(q, k, v, out, strides, batch, sq, sk, kv,     \
+                                groups, causal, stream);
     REPRO_FLASH_CASE(16)
     REPRO_FLASH_CASE(32)
     REPRO_FLASH_CASE(64)
     REPRO_FLASH_CASE(128)
+#undef REPRO_FLASH_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef REPRO_FLASH_CASE
 }
 
 }  // namespace
@@ -599,16 +708,24 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                                    int64_t sq, int64_t sk, int64_t kv,
                                    int64_t groups, int64_t d, int64_t causal,
                                    void* stream) {
-  return launch<float>(q, k, v, out, strides, batch, sq, sk, kv, groups, d,
-                       causal, stream);
+  return launch_f32(q, k, v, out, strides, batch, sq, sk, kv, groups, d,
+                    causal, stream);
 }
 
+// plan: wg::kPlanLen int64 (host memory), as `FlashPlan.args` lays it out.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* out,
-                                    const int64_t* strides, int64_t batch,
-                                    int64_t sq, int64_t sk, int64_t kv,
-                                    int64_t groups, int64_t d, int64_t causal,
+                                    const int64_t* plan, int64_t plan_len,
                                     void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, out, strides, batch, sq, sk, kv,
-                               groups, d, causal, stream);
+  if (plan_len != wg::kPlanLen) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t groups = plan[7];
+  if (groups < 1 || groups > 64 || 64 % groups != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (plan[8]) {
+    case 16: return wg::launch<16>(q, k, v, out, plan, stream);
+    case 32: return wg::launch<32>(q, k, v, out, plan, stream);
+    case 64: return wg::launch<64>(q, k, v, out, plan, stream);
+    case 128: return wg::launch<128>(q, k, v, out, plan, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -4,9 +4,13 @@ Here the wrapper runs its plain version (the tensors are on the CPU); it
 is held against the reference's jnp oracle and, at a few small shapes,
 against the reference's Pallas kernel in interpret mode.  The CUDA kernel
 itself is compared with the plain version on the card
-(tests/test_torch_gpu.py, chip_smoke.py phase 8).  Tolerances are
-tests/test_kernels.py's: 2e-3 in float32, 2e-2 in bfloat16.
+(tests/test_torch_gpu.py, chip_smoke.py phase 8); its launch plan (grid,
+TMA boxes and strides, shared memory) and the wrapper's refusals are
+pure Python and are checked here.  Tolerances are tests/test_kernels.py's:
+2e-3 in float32, 2e-2 in bfloat16.
 """
+
+import collections
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,6 +19,7 @@ import torch
 
 from repro.kernels.flash_attention import ops as j_ops
 from repro.kernels.flash_attention import ref as j_ref
+from repro_torch.kernels import hopper
 from repro_torch.kernels.flash_attention import kernel as t_kernel
 from repro_torch.kernels.flash_attention import ops as t_ops
 from repro_torch.kernels.flash_attention import ref as t_ref
@@ -117,3 +122,143 @@ def test_cuda_impl_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="unknown attention impl"):
         t_ops.flash_attention(q, k, v, impl="xla")
     assert t_kernel.launches == 0
+
+
+# ------------------------------------------------------- the bf16 launch plan
+# The wgmma kernel's host-side plan (grid, rows a block, TMA boxes and
+# byte strides, shared memory) is pure Python: the CPU reaches it here.
+
+PLAN_SHAPES = [  # (B, Sq, Sk, H, KV, D, causal)
+    (1, 2048, 2048, 32, 8, 128, True), (1, 1000, 1000, 8, 2, 128, True),
+    (1, 1025, 1025, 16, 2, 64, True), (2, 8, 8, 8, 1, 16, True),
+    (2, 77, 77, 4, 4, 32, True), (1, 40, 100, 8, 8, 64, False),
+    (1, 100, 40, 8, 4, 128, True), (1, 300, 300, 64, 1, 128, True)]
+
+
+def _contiguous_strides(shape):
+    return torch.empty(shape).stride()
+
+
+def _plan(b, sq, sk, h, kv, d, causal):
+    qs, ks = (b, sq, h, d), (b, sk, kv, d)
+    return t_kernel.flash_plan(qs, _contiguous_strides(qs), ks,
+                               _contiguous_strides(ks),
+                               _contiguous_strides(ks), causal=causal)
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_flash_plan_covers_every_query_row_once(shape):
+    b, sq, sk, h, kv, d, causal = shape
+    plan = _plan(*shape)
+    gx, gy, gz = plan.grid
+    assert (gy, gz) == (kv, b)
+    seen = collections.Counter()
+    for bx in range(gx):
+        for by in range(gy):
+            seen.update(row for row in plan.block_rows(bx, by)
+                        if row[0] < sq)
+    assert set(seen) == {(p, hh) for p in range(sq) for hh in range(h)}
+    assert max(seen.values()) == 1
+    assert plan.rows_per_block == 2 * t_kernel.ROWS == 128
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_flash_plan_loads_each_needed_key_position_once(shape):
+    """A block's K/V tiles cover, once each, the positions its rows attend
+    to (all of Sk, or up to its last valid row when causal), and no tile
+    lies wholly past them."""
+    b, sq, sk, h, kv, d, causal = shape
+    plan = _plan(*shape)
+    for bx in range(plan.grid[0]):
+        last = max(p for p, _ in plan.block_rows(bx, 0) if p < sq)
+        need = min(sk, last + 1) if causal else sk
+        covered = [k0 + i for k0 in plan.kv_tiles(bx)
+                   for i in range(plan.block_n)]
+        assert sorted(covered) == list(range(len(covered)))
+        assert need <= len(covered) < need + plan.block_n
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+def test_flash_plan_boxes_strides_and_shared_memory(shape):
+    b, sq, sk, h, kv, d, causal = shape
+    plan = _plan(*shape)
+    g = h // kv
+    for tmap in (plan.q_map, plan.k_map, plan.v_map):
+        assert all(1 <= x <= hopper.BOX_LIMIT for x in tmap.box)
+        assert all(s % 16 == 0 for s in tmap.strides)
+        assert tmap.swizzle == tmap.box[0] * 2 <= 128
+        assert tmap.dims[0] == d and d % tmap.box[0] == 0
+    # Q: (64 / G positions, G heads, a band of D) per consumer; K, V: one
+    # kv head, BLOCK_N positions
+    assert plan.q_map.box == (min(d, 64), g, 64 // g, 1)
+    assert plan.k_map.box == plan.v_map.box == (min(d, 64), 1, plan.block_n,
+                                                1)
+    # the bytes each barrier expects fill the tiles exactly
+    bands = d // plan.q_map.box[0]
+    assert 2 * bands * plan.q_map.box_bytes == plan.rows_per_block * d * 2
+    assert bands * plan.k_map.box_bytes == plan.block_n * d * 2
+    assert plan.smem_bytes <= hopper.SMEM_LIMIT
+    assert plan.threads == 384
+
+
+def test_flash_plan_reads_strided_views_without_a_copy():
+    """q, k, v sliced out of one fused projection: the maps carry the
+    views' strides (multiples of 16 bytes) and their extents."""
+    qkv = torch.zeros(2, 300, 6, 64, dtype=torch.bfloat16)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:5], qkv[:, :, 5:6]
+    plan = t_kernel.flash_plan(q.shape, q.stride(), k.shape, k.stride(),
+                               v.stride())
+    assert plan.q_map.dims == (64, 4, 300, 2)
+    assert plan.q_map.strides == (128, 6 * 64 * 2, 300 * 6 * 64 * 2)
+    assert plan.k_map.strides == plan.v_map.strides == plan.q_map.strides
+    assert plan.q_map.spec() == [4, 64, 4, 300, 2, 128, 768, 230400,
+                                 64, 4, 16, 1, 128]
+    assert len(plan.args) == 13 + 3 * hopper.MAP_SPEC_LEN
+
+
+def test_flash_plan_smem_fits_for_every_head_dim():
+    for d in t_kernel.HEAD_DIMS:
+        assert _plan(1, 64, 64, 8, 2, d, True).smem_bytes <= \
+            hopper.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("case", ["head_dim", "groups", "dtype", "rows16",
+                                  "shapes"])
+def test_wrapper_refusals_are_unchanged(case):
+    """What the kernel does not take is refused before any launch: D not
+    in HEAD_DIMS, H / KV not dividing 64, a dtype other than float32 or
+    bfloat16, rows not on 16 bytes, mismatched shapes."""
+    bf = torch.bfloat16
+    q, k = torch.zeros(1, 8, 8, 64, dtype=bf), torch.zeros(1, 8, 2, 64,
+                                                           dtype=bf)
+    if case == "head_dim":
+        q, k = q[..., :48], k[..., :48]
+        err, match = ValueError, "D in"
+    elif case == "groups":
+        q = torch.zeros(1, 8, 6, 64, dtype=bf)
+        err, match = ValueError, "H / KV dividing"
+    elif case == "dtype":
+        q, k = q.half(), k.half()
+        err, match = TypeError, "float32 or bfloat16"
+    elif case == "rows16":
+        q = torch.zeros(1, 8, 8, 68, dtype=bf)[..., 2:66]
+        err, match = ValueError, "16-byte"
+    else:
+        k = torch.zeros(1, 8, 2, 32, dtype=bf)
+        err, match = ValueError, "share B and D"
+    with pytest.raises(err, match=match):
+        t_kernel.check_inputs(q, k, k)
+    assert t_kernel.check_inputs(*(torch.zeros(1, 8, 8, 64, dtype=bf),
+                                   torch.zeros(1, 8, 2, 64, dtype=bf),
+                                   torch.zeros(1, 8, 2, 64, dtype=bf))) == 4
+
+
+def test_tma_map_spec_layout():
+    """hop::encode_map's layout: rank, extents, byte strides and box
+    innermost first, padded to 4 dims, then the swizzle."""
+    a, b = hopper.tile_maps(200, 64, b_mn_major=True)
+    assert a.spec() == [2, 64, 64, 1, 1, 128, 0, 0, 64, 64, 1, 1, 128]
+    assert b.spec() == [2, 200, 64, 1, 1, 400, 0, 0, 64, 64, 1, 1, 128]
+    assert b.box_bytes == 64 * 64 * 2
+    with pytest.raises(ValueError, match="32, 64 or 128"):
+        hopper.tma_map((8, 24), (24, 1), (8, 24))

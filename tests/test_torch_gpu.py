@@ -20,10 +20,13 @@ from repro_torch.core import capacity, simulator
 from repro_torch.core.cluster import ClusterSpec
 from repro_torch.configs import xdeepfm
 from repro_torch.data.recsys_data import ctr_batch
+from repro_torch.kernels import hopper
+from repro_torch.kernels.cin_fuse import kernel as cin_kernel
 from repro_torch.kernels.cin_fuse import ops as cin_ops
 from repro_torch.kernels.decode_attention import ops as dec_ops
 from repro_torch.kernels.embedding_bag import ops as bag_ops
 from repro_torch.kernels.embedding_bag import ref as bag_ref
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.jsq_route import ops as jsq_ops
 from repro_torch.kernels.maxplus_scan import kernel, ops
@@ -242,12 +245,15 @@ def _randn(shape, dtype, device, gen):
     return torch.randn(shape, generator=gen, device=device).to(dtype)
 
 
-@pytest.mark.parametrize("d", [16, 64, 128])
+# S not a multiple of the tiles (1000, 1025, 77, 8), G in 1, 2, 4, 8, Sq !=
+# Sk both ways, causal and not, every D of HEAD_DIMS
+@pytest.mark.parametrize("d", fa_kernel.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,sq,sk,h,kv,causal", [
     (1, 1000, 1000, 8, 2, True), (2, 77, 77, 4, 2, True),
     (1, 256, 256, 32, 8, True), (2, 8, 8, 8, 1, True),
-    (1, 40, 100, 8, 8, False)])
+    (1, 40, 100, 8, 8, False), (1, 1025, 1025, 16, 2, True),
+    (1, 100, 40, 8, 4, True)])
 def test_flash_kernel_matches_plain_version(cuda, d, dtype, b, sq, sk, h,
                                             kv, causal):
     g = torch.Generator(device=cuda).manual_seed(d + sq)
@@ -264,10 +270,11 @@ def test_flash_kernel_matches_plain_version(cuda, d, dtype, b, sq, sk, h,
     _attn_close(out, expect, dtype)
 
 
-def test_flash_kernel_reads_strided_views(cuda):
+@pytest.mark.parametrize("d", fa_kernel.HEAD_DIMS)
+def test_flash_kernel_reads_strided_views(cuda, d):
     """q, k, v as views of one fused projection, as a model may hold them."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    qkv = _randn((2, 300, 6, 64), torch.bfloat16, cuda, g)
+    qkv = _randn((2, 300, 6, d), torch.bfloat16, cuda, g)
     q, k, v = qkv[:, :, :4], qkv[:, :, 4:5], qkv[:, :, 5:6]
     out = fa_ops.flash_attention(q, k, v, impl="cuda")
     expect = fa_ops.flash_attention(q.contiguous(), k.contiguous(),
@@ -419,8 +426,10 @@ def test_bag_kernel_never_reads_masked_rows_or_ids(cuda):
     assert torch.equal(out, clean)
 
 
-@pytest.mark.parametrize("b", [512, 1000, 3])
-# O = 13: the W rows are not 16-byte aligned (element loads)
+# B = 3 and 512 split K over h (float32 partials, then a fixed-order sum),
+# 1000 and 4096 do not; O = 13: W's rows are not on 16 bytes (the wrapper
+# pads a copy for TMA)
+@pytest.mark.parametrize("b", [512, 1000, 3, 4096])
 @pytest.mark.parametrize("hk,o", [(39, 200), (200, 200), (12, 16), (12, 13)])
 @pytest.mark.parametrize("dtype,rtol", [(torch.bfloat16, 1e-2),
                                         (torch.float32, 1e-4)])
@@ -433,8 +442,31 @@ def test_cin_kernel_matches_plain_version(cuda, b, hk, o, dtype, rtol):
     expect = cin_ops.cin_layer(xk.float(), x0.float(), w.float(),
                                impl="torch")
     out = cin_ops.cin_layer(xk, x0, w, impl="cuda")
+    if dtype == torch.bfloat16:
+        splits = cin_kernel.cin_plan(
+            b, hk, 39, 10, o, n_sm=torch.cuda.get_device_properties(
+                cuda).multi_processor_count).splits
+        assert (splits > 1) == (b in (3, 512))
     assert out.shape == (b, o, 10) and out.dtype == dtype
     _rows_close(out, expect, rtol, row_dims=2)
+
+
+@pytest.mark.parametrize("n", hopper.TILE_N)
+@pytest.mark.parametrize("k", hopper.TILE_K)
+@pytest.mark.parametrize("b_mn_major", [False, True])
+@pytest.mark.parametrize("a_in_regs", [False, True])
+def test_hopper_tile_matches_matmul(cuda, n, k, b_mn_major, a_in_regs):
+    """hopper.cuh alone: one 64 x N x K bf16 tile through the TMA load,
+    the K-major or MN-major B descriptor and wgmma (A from shared memory
+    or from registers) against a float32 matmul of the same bf16 values:
+    float32 sums of at most 128 exact products, so ~1e-6."""
+    g = torch.Generator(device=cuda).manual_seed(n + k)
+    a = torch.randn((64, k), generator=g, device=cuda).bfloat16()
+    b = torch.randn((k, n) if b_mn_major else (n, k), generator=g,
+                    device=cuda).bfloat16()
+    c = hopper.tile_product(a, b, b_mn_major=b_mn_major, a_in_regs=a_in_regs)
+    expect = a.float() @ (b.float() if b_mn_major else b.float().t())
+    assert float((c - expect).abs().max() / expect.abs().max()) <= 1e-5
 
 
 def test_ctr_wrappers_refuse_what_the_kernels_do_not_take(cuda):
