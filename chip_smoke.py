@@ -403,9 +403,9 @@ def phase_main_path(card: str) -> tuple[int, float]:
     return launches, exp_wall
 
 
-def phase_profile(card: str, wall: float, run, title: str) -> list:
-    """Where a path's device time goes (one run of ``run()``); returns the
-    names of the kernels the trace lists.
+def phase_profile(card: str, wall: float, run, title: str) -> dict:
+    """Where a path's device time goes (one run of ``run()``); returns
+    {kernel name: (device ms, launches)} of the kernels the trace lists.
 
     Only device-side events are summed: `key_averages` also lists each
     aten op with the time of the kernels it launched, which would count
@@ -434,7 +434,7 @@ def phase_profile(card: str, wall: float, run, title: str) -> list:
                and not e.key.startswith("ProfilerStep")]
     if not kernels:
         print("  the profiler recorded no device-side events")
-        return []
+        return {}
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"  device busy {busy_ms:.2f} ms in {len(kernels)} kernels; "
           f"unprofiled wall {wall * 1e3:.2f} ms, so the card idles "
@@ -451,7 +451,8 @@ def phase_profile(card: str, wall: float, run, title: str) -> list:
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
         print(f"    {e.self_cpu_time_total / 1e3:8.3f} ms "
               f"{e.count:5d}x  {e.key[:80]}")
-    return [e.key for e in kernels]
+    return {e.key: (e.self_device_time_total / 1e3, e.count)
+            for e in kernels}
 
 
 def _route_flags(rows, length, gen):
@@ -531,7 +532,8 @@ def phase_segment_kernel(card: str) -> dict:
 
 def phase_jsq_kernel(card: str) -> dict:
     """The JSQ router against its plain loop at the replicated path's
-    width (N_SCEN scenarios, r = R, p = P, one CHUNK-query chunk)."""
+    width (N_SCEN scenarios, r = R, p = P, one CHUNK-query chunk), in
+    float32 and float64."""
     import torch
     from repro_torch.kernels.jsq_route import kernel, ops
     print("== phase 5b: JSQ router vs plain loop on the card")
@@ -546,7 +548,13 @@ def phase_jsq_kernel(card: str) -> dict:
                           ).exponential_(generator=gen) * s_mean
         live = (torch.rand((N_SCEN, CHUNK), device="cuda", generator=gen)
                 >= RESULT_CACHE[0]).to(dtype)
+        # start from the tracker a chunk leaves, so that every replica is
+        # busy and the choices are not ties
+        w = ops.jsq_route(w, gaps, svc, live, impl="cuda")[1]
+        before = ops.launch_count()
         kc, kw = ops.jsq_route(w, gaps, svc, live, impl="cuda")
+        if ops.launch_count() != before + 1:
+            raise AssertionError("the JSQ call did not launch the kernel once")
         pc, pw = ops.jsq_route(w, gaps, svc, live, impl="torch")
         torch.cuda.synchronize()
         same = bool(torch.equal(kc, pc))
@@ -558,37 +566,45 @@ def phase_jsq_kernel(card: str) -> dict:
             raise AssertionError(f"JSQ kernel disagrees with the plain loop "
                                  f"({dtype}): choices equal {same}, "
                                  f"tracker err {abs_err}")
-        if dtype == torch.float32:
-            ms = _time_ms(lambda: kernel.jsq_route_cuda(w, gaps, svc, live),
-                          n=20)
-            plain_ms = _time_ms(lambda: ops.jsq_route(w, gaps, svc, live,
-                                                      impl="torch"),
-                                n=2, warm=0)
-            moved = ((w.numel() * 2 + gaps.numel() + svc.numel()
-                      + live.numel()) * w.element_size() + kc.numel() * 8)
-            # per query and scenario: drain (sub, max) and reduce over
-            # r x p, argmin over r, deposit (mul, add) over p
-            n_ops = N_SCEN * CHUNK * (3 * R * P + R + 2 * P)
-            bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-            ops_ms = n_ops / FP32_OPS_PER_S * 1e3
-            bound_ms = max(bytes_ms, ops_ms)
-            print(f"  at ({N_SCEN}, r={R}, p={P}, {CHUNK}) float32 "
-                  f"[{card}]: "
-                  f"kernel {ms:.4f} ms (mean of 20)  plain loop "
-                  f"{plain_ms:.1f} ms  library: none  bound "
-                  f"{bound_ms:.4f} ms ({moved / 1e6:.1f} MB at 3.35 TB/s; "
-                  f"the chain is {CHUNK} dependent steps, "
-                  f"{ms * 1e6 / CHUNK:.0f} ns each)")
-            report = {"name": "jsq_route", "route": "cuda",
-                      "source": "src/repro_torch/kernels/jsq_route/csrc/"
-                                "jsq_route.cu",
-                      "replaces": "src/repro/core/simulator.py:541 "
-                                  "(lax.scan, no Pallas kernel)",
-                      "launches": None, "max_abs_err": abs_err, "ms": ms,
-                      "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": ("bytes" if bytes_ms >= ops_ms
-                                   else "operations"),
-                      "library_ms": None}
+        plan = kernel.jsq_plan(R, P, w.element_size())
+        ms = _time_ms(lambda: kernel.jsq_route_cuda(w, gaps, svc, live),
+                      n=20)
+        print(f"    {dtype} [{card}]: {ms:.4f} ms a chunk (mean of 20), "
+              f"{ms * 1e6 / CHUNK:.1f} ns a step; plan: tracker in "
+              f"{'registers' if plan.registers else 'shared memory'}, "
+              f"32 lanes x {plan.per} servers, "
+              f"{'redux.sync' if dtype == torch.float32 else 'shuffle'} "
+              f"warp max, "
+              f"{plan.tile}-query tiles")
+        if dtype != torch.float32:
+            continue
+        plain_ms = _time_ms(lambda: ops.jsq_route(w, gaps, svc, live,
+                                                  impl="torch"),
+                            n=2, warm=0)
+        moved = ((w.numel() * 2 + gaps.numel() + svc.numel()
+                  + live.numel()) * w.element_size() + kc.numel() * 8)
+        # per query and scenario: drain (sub, max) and reduce over r x p,
+        # argmin over r, deposit (mul, add) over p
+        n_ops = N_SCEN * CHUNK * (3 * R * P + R + 2 * P)
+        bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = n_ops / FP32_OPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        print(f"  at ({N_SCEN}, r={R}, p={P}, {CHUNK}) float32 [{card}]: "
+              f"kernel {ms:.4f} ms (mean of 20)  plain loop "
+              f"{plain_ms:.1f} ms  library: none  bound "
+              f"{bound_ms:.4f} ms ({moved / 1e6:.1f} MB at 3.35 TB/s; "
+              f"the chain is {CHUNK} dependent steps, "
+              f"{ms * 1e6 / CHUNK:.1f} ns each)")
+        report = {"name": "jsq_route", "route": "cuda",
+                  "source": "src/repro_torch/kernels/jsq_route/csrc/"
+                            "jsq_route.cu",
+                  "replaces": "src/repro/core/simulator.py:541 "
+                              "(lax.scan, no Pallas kernel)",
+                  "launches": None, "max_abs_err": abs_err, "ms": ms,
+                  "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "bound_by": ("bytes" if bytes_ms >= ops_ms
+                               else "operations"),
+                  "library_ms": None}
     return report
 
 
@@ -824,6 +840,21 @@ def phase_flash_kernel(card: str) -> dict:
                           f"(1, {s}, {HEADS}, {KV_HEADS}, {D_HEAD}) {dtype}")
         if s == 2048 and dtype == torch.bfloat16:
             main = (q, k, v, err)
+    # the reference's other heads: granite-moe-3b-a800m (G 3, D 64),
+    # command-r-plus-104b (G 12, D 128), their SMOKE sizes' D 8
+    for s, h, kv, d in ((1000, 24, 8, 64), (1000, 96, 8, 128),
+                        (300, 6, 2, 8), (300, 8, 2, 8)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((1, s, h, d), generator=gen,
+                            device="cuda").to(dtype)
+            k, v = (torch.randn((1, s, kv, d), generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            out = ops.flash_attention(q, k, v, impl="cuda")
+            expect = ops.flash_attention(q.float(), k.float(), v.float(),
+                                         impl="torch")
+            torch.cuda.synchronize()
+            _attn_check(out, expect, dtype,
+                        f"(1, {s}, {h}, {kv}, {d}) G={h // kv} {dtype}")
     q, k, v, main_err = main
     b, s, h, d = q.shape
     ms = _device_ms(lambda: kernel.flash_attention_cuda(q, k, v), n=20)
@@ -860,6 +891,26 @@ def phase_decode_kernel(card: str) -> dict:
     from repro_torch.kernels.decode_attention import kernel, ops
     print("== phase 9: decode-attention kernel vs plain version on the card")
     gen = torch.Generator(device="cuda").manual_seed(9)
+    # the reference's other heads: granite-moe-3b-a800m (G 3, D 64),
+    # command-r-plus-104b (G 12, D 128), their SMOKE sizes' D 8 (G 3, 4)
+    for b, s, length, h, kv, d in ((8, 4096, 2100, 24, 8, 64),
+                                   (8, 4096, 2100, 96, 8, 128),
+                                   (4, 1000, 777, 6, 2, 8),
+                                   (4, 1000, 999, 8, 2, 8)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((b, 1, h, d), generator=gen,
+                            device="cuda").to(dtype)
+            k, v = (torch.randn((b, s, kv, d), generator=gen,
+                                device="cuda").to(dtype) for _ in range(2))
+            before = ops.launch_count()
+            out = ops.decode_attention(q, k, v, length, impl="cuda")
+            if ops.launch_count() != before + 1:
+                raise AssertionError("a decode call did not launch once")
+            expect = ops.decode_attention(q.float(), k.float(), v.float(),
+                                          length, impl="torch")
+            torch.cuda.synchronize()
+            _attn_check(out, expect, dtype, f"B={b} S={s} length={length} "
+                        f"G={h // kv} D={d} {dtype}")
     report = None
     for b, s, length, dtype in ((8, 4096, 2100, torch.bfloat16),
                                 (8, 4096, 2100, torch.float32),
@@ -868,7 +919,10 @@ def phase_decode_kernel(card: str) -> dict:
                         device="cuda").to(dtype)
         k, v = (torch.randn((b, s, KV_HEADS, D_HEAD), generator=gen,
                             device="cuda").to(dtype) for _ in range(2))
+        before = ops.launch_count()
         out = ops.decode_attention(q, k, v, length, impl="cuda")
+        if ops.launch_count() != before + 1:
+            raise AssertionError("a decode call did not launch once")
         expect = ops.decode_attention(q.float(), k.float(), v.float(),
                                       length, impl="torch")
         torch.cuda.synchronize()
@@ -895,14 +949,19 @@ def phase_decode_kernel(card: str) -> dict:
         chunk, splits = kernel.split_plan(
             n, b * KV_HEADS, torch.cuda.get_device_properties(0)
             .multi_processor_count)
+        before = ops.launch_count()
+        call()
+        if ops.launch_count() != before + 1:
+            raise AssertionError("a decode call did not launch once")
         print(f"    one layer, device time [{card}]: kernel {ms:.4f} ms "
               f"({host_ms:.4f} ms a call back to back, its host cost "
               f"included)  plain "
               f"{plain_ms:.4f} ms  SDPA with a boolean mask ({note}) "
               f"{library_ms:.4f} ms  bound {bound_ms:.4f} ms "
               f"({moved / 1e6:.1f} MB of K/V at 3.35 TB/s); kernel at "
-              f"{moved / (ms * 1e-3) / 1e9:.0f} GB/s; {splits} splits of "
-              f"{chunk} positions")
+              f"{moved / (ms * 1e-3) / 1e9:.0f} GB/s "
+              f"({100 * bound_ms / ms:.0f} % of the bound); one launch a "
+              f"call, {splits} splits of {chunk} positions")
         if report is None:
             report = {"name": "decode_attention", "route": "cuda",
                       "source": "src/repro_torch/kernels/decode_attention/"
@@ -1037,10 +1096,22 @@ def phase_lm_profile(card: str, lm: dict) -> None:
         for _ in range(4):
             srv.step()
     wall = _wall(four)
-    phase_profile(card, wall, four,
-                  "phase 10b: device time by kernel, 4 decode steps "
-                  f"({cfg.name}, {SLOTS} slots, cache length "
-                  f"~{PROFILE_PROMPT + 4})")
+    traced = phase_profile(card, wall, four,
+                           "phase 10b: device time by kernel, 4 decode steps "
+                           f"({cfg.name}, {SLOTS} slots, cache length "
+                           f"~{PROFILE_PROMPT + 4})")
+    attn = {k: v for k, v in traced.items() if "decode_mma_kernel" in k}
+    if not attn or any("combine" in k for k in traced):
+        raise AssertionError("the decode steps' trace lists no decode "
+                             "attention kernel, or a combine kernel: "
+                             f"{sorted(traced)[:20]}")
+    busy = sum(ms for ms, _ in traced.values())
+    attn_ms = sum(ms for ms, _ in attn.values())
+    launches = sum(n for _, n in attn.values())
+    print(f"  decode attention: {attn_ms:.3f} ms in {launches} launches "
+          f"(one a layer a step, no combine kernel), "
+          f"{100 * attn_ms / busy:.1f} % of the steps' device time, "
+          f"{attn_ms / 4:.3f} ms a step [{card}]")
 
 
 def _logits_through_cache(model, cfg, prompts, steps: int = 3):

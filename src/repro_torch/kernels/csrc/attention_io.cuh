@@ -1,8 +1,8 @@
-// 16-byte loads and element stores shared by the attention kernels
-// (flash_attention.cu, decode_attention.cu).
+// 16-byte loads and element stores of the flash-attention kernels
+// (flash_attention.cu).
 //
-// Both kernels read rows of D contiguous elements of float32 or bfloat16
-// and compute in float32.  `Io<T>` moves 16 B at a time: 4 floats or 8
+// They read rows of D contiguous elements of float32 or bfloat16 and
+// computes in float32.  `Io<T>` moves 16 B at a time: 4 floats or 8
 // bfloat16, which the caller converts to floats in registers.
 
 #pragma once

@@ -8,7 +8,11 @@
 //     `__grid_constant__ const CUtensorMap` into shared memory, completing
 //     on an mbarrier, and the host side that encodes those maps
 //     (cuTensorMapEncodeTiled, reached through the runtime's driver entry
-//     point so that no library links against libcuda);
+//     point so that no library links against libcuda), in bf16 or
+//     float32, and a cache of encoded maps (`encode_map_cached`) for
+//     callers that launch on the same tensors many times;
+//   * the byte swizzle of a TMA tile (`swizzle`), for kernels that read
+//     tiles with ldmatrix or plain loads instead of wgmma descriptors;
 //   * wgmma: shared-memory matrix descriptors for swizzled tiles in
 //     K-major and MN-major form, fence / commit / wait, the
 //     m64nNk16.f32.bf16.bf16 products with A from shared memory (ss) or
@@ -40,6 +44,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
+#include <mutex>
 
 namespace hop {
 
@@ -70,11 +76,13 @@ inline PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
   return fn;
 }
 
-// Encode a bf16 map from its spec; 0 on success, else kEncodeError + the
-// CUresult (a stride that is not a multiple of 16 B, an address that is
-// not 16 B aligned, a box over 256, ...).
-inline int encode_map(CUtensorMap* map, const void* base,
-                      const int64_t* spec) {
+// Encode a map (bf16 unless `dtype` says otherwise) from its spec; 0 on
+// success, else kEncodeError + the CUresult (a stride that is not a
+// multiple of 16 B, an address that is not 16 B aligned, a box over 256,
+// ...).
+inline int encode_map(CUtensorMap* map, const void* base, const int64_t* spec,
+                      CUtensorMapDataType dtype =
+                          CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   PFN_cuTensorMapEncodeTiled_v12000 fn = encode_tiled();
   if (fn == nullptr) return kEncodeError + CUDA_ERROR_NOT_FOUND;
   const int rank = static_cast<int>(spec[0]);
@@ -94,11 +102,50 @@ inline int encode_map(CUtensorMap* map, const void* base,
     default: return kEncodeError + CUDA_ERROR_INVALID_VALUE;
   }
   const CUresult res = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
+      map, dtype, static_cast<cuuint32_t>(rank),
       const_cast<void*>(base), dims, strides, box, elem,
       CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(res);
+}
+
+// encode_map through a direct-mapped cache keyed by (base, spec, dtype):
+// a map is a pure function of those, so an entry never goes stale, and a
+// caller that launches on the same tensors (a decode step, layer after
+// layer) encodes each map once.  Thread-safe.
+constexpr int kMapCacheSlots = 512;
+
+inline int encode_map_cached(CUtensorMap* map, const void* base,
+                             const int64_t* spec, CUtensorMapDataType dtype) {
+  struct Entry {
+    const void* base;
+    int64_t spec[kMapSpecLen];
+    int dtype;
+    CUtensorMap map;
+  };
+  static Entry cache[kMapCacheSlots];
+  static bool used[kMapCacheSlots];
+  static std::mutex mu;
+  uint64_t h = reinterpret_cast<uint64_t>(base) * 0x9E3779B97F4A7C15ull ^
+               static_cast<uint64_t>(dtype);
+  for (int i = 0; i < kMapSpecLen; ++i)
+    h = (h ^ static_cast<uint64_t>(spec[i])) * 0x100000001B3ull;
+  const int slot = static_cast<int>(h % kMapCacheSlots);
+  std::lock_guard<std::mutex> lock(mu);
+  Entry& e = cache[slot];
+  if (used[slot] && e.base == base && e.dtype == static_cast<int>(dtype) &&
+      std::memcmp(e.spec, spec, sizeof(e.spec)) == 0) {
+    *map = e.map;
+    return 0;
+  }
+  const int err = encode_map(map, base, spec, dtype);
+  if (err != 0) return err;
+  e.base = base;
+  std::memcpy(e.spec, spec, sizeof(e.spec));
+  e.dtype = static_cast<int>(dtype);
+  e.map = *map;
+  used[slot] = true;
+  return 0;
 }
 
 // Box bytes of a spec (what one TMA load of it delivers, out-of-bounds
@@ -112,6 +159,17 @@ inline int64_t box_bytes(const int64_t* spec) {
 // ---------------------------------------------------------------- device
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The physical byte offset of logical offset `off` in a TMA tile loaded
+// with the R-byte swizzle (R = 32, 64 or 128, the box's row bytes), the
+// tile on 1024 B: the 16-byte chunk bits (4 .. 4 + log2(R / 16)) are
+// XORed with the row bits 7 .. of the offset.
+template <int R>
+__device__ __forceinline__ uint32_t swizzle(uint32_t off) {
+  static_assert(R == 32 || R == 64 || R == 128, "a TMA swizzle is 32, 64 "
+                "or 128 bytes");
+  return off ^ ((off >> 3) & static_cast<uint32_t>((R / 16 - 1) << 4));
 }
 
 // dynamic shared memory rounded up to 1024 B (the 128-byte swizzle's atom)
@@ -289,6 +347,18 @@ __device__ __forceinline__ void reg_dealloc() {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// What pack_bf16 rounds away: x - bf16(x) of each, packed (x = the bf16
+// pair of pack_bf16 plus this pair, to ~2^-16 relative).  At D = 8 both
+// attention kernels multiply V by this remainder of P too.  The reference
+// rounds P to bf16 once; an output row of only 8 values carries that
+// rounding into its worst rows: on a card test's inputs, the reference's
+// arithmetic reaches a worst row of 1.004e-2 relative L2, past the bf16
+// check's 1e-2, and 3.3e-3 with the remainder (PERF.md).
+__device__ __forceinline__ uint32_t pack_bf16_rest(float lo, float hi) {
+  return pack_bf16(lo - __bfloat162float(__float2bfloat16_rn(lo)),
+                   hi - __bfloat162float(__float2bfloat16_rn(hi)));
 }
 
 // The products.  D (64 x N, float32) is N / 2 registers a thread: for the

@@ -3,16 +3,21 @@
 ``csrc/decode_attention.cu`` replaces the Pallas TPU kernel
 `repro.kernels.decode_attention.kernel.decode_attention_pallas`.  It takes
 the model's layout with strides: q (B, 1, H, D) and one layer's cache
-k, v (B, S, KV, D).  Positions split across blocks (flash-decoding): the
-entry point launches the split kernel into a float32 scratch allocated
-here, then the combine kernel, on PyTorch's current stream.  Built by
+k, v (B, S, KV, D).  One launch a call: blocks split the positions
+(flash-decoding), K and V arrive by TMA, and the last block of each
+(batch, kv head) row merges the splits (an atomic ticket on a counter
+array allocated here once for each device and stream: calls on one
+stream run in order, so they never share tickets in flight).  The launch plan (TMA maps of the
+cache's full S, shared memory) is `decode_plan`, memoised on shapes and
+strides; the split of a call's positions is `split_plan`.  Built by
 `repro_torch.kernels._cuda.CudaLibrary` at first use; ``launches`` counts
-the calls this process made (one per call: the split and combine pair).
+the launches this process made.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import pathlib
 
@@ -20,6 +25,7 @@ import torch
 
 from repro_torch.kernels._cuda import (CudaLibrary, check_rows16,
                                        int64_array, ptr)
+from repro_torch.kernels.hopper import HEADER, TmaMap, tma_map
 
 Tensor = torch.Tensor
 
@@ -29,21 +35,96 @@ _I = ctypes.c_int64
 
 LIB = CudaLibrary(
     _HERE / "csrc" / "decode_attention.cu",
-    {name: [_P] * 5 + [ctypes.POINTER(_I)] + [_I] * 7 + [_P]
+    {name: [_P] * 6 + [ctypes.POINTER(_I)] + [_I] * 4 + [_P]
      for name in ("decode_attention_f32", "decode_attention_bf16")},
-    headers=(_HERE.parent / "csrc" / "attention_io.cuh",))
-HEAD_DIMS = (16, 32, 64, 128)      # the D instantiated in the source
-GROUPS = (1, 2, 4, 8)              # the H / KV instantiated in the source
-BLOCKS_PER_SM = 4                  # split target: blocks per SM in flight
-MAX_CHUNK = 1024                   # positions a block walks at most
-MIN_CHUNK = 64                     # ... and at least
+    headers=(HEADER,))
+HEAD_DIMS = (8, 16, 32, 64, 128)   # the D the kernels take
+MAX_GROUPS = 16                    # H / KV: 1 .. kMaxG
+BLOCK_N = 32                       # kBlockN: positions a K/V tile
+STAGES = 4                         # kStages: the ring
+CONSUMERS = 4                      # kConsumers: consumer warps a block
+THREADS = 32 * (1 + CONSUMERS)     # and one producer warp
+MIN_SPLIT_TILES = 32               # tiles a split walks at least
 
-__all__ = ["LIB", "HEAD_DIMS", "GROUPS", "decode_attention_cuda",
-           "split_plan"]
+__all__ = ["LIB", "HEAD_DIMS", "MAX_GROUPS", "BLOCK_N", "DecodePlan",
+           "decode_plan", "split_plan", "decode_attention_cuda"]
 
-launches = 0          # calls (split + combine launches) in this process
+launches = 0          # kernel launches in this process
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# per (device, stream): the merge tickets
+_COUNTERS: dict[tuple[int, int], Tensor] = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """What the kernel holds fixed for one cache layout: tiles of BLOCK_N
+    positions x ``dp`` elements (D, or 16 for a bf16 D of 8, the upper
+    half zeros from TMA), loaded as bands of one box row (``k_map``,
+    ``v_map``, over the cache's full S); a block of THREADS threads and
+    ``smem_bytes`` of shared memory."""
+    groups: int
+    d: int
+    dp: int
+    smem_bytes: int
+    k_map: TmaMap
+    v_map: TmaMap
+    head: tuple[int, ...]
+
+    @functools.cached_property
+    def args(self) -> ctypes.Array:
+        """The plan as the C entry point reads it (kPlanLen int64)."""
+        return int64_array([*self.head, *self.k_map.spec(),
+                            *self.v_map.spec()])
+
+    @staticmethod
+    def tile_rows(t: int, n: int) -> tuple[int, int]:
+        """(first position loaded, first position counted) of tile t of
+        a call over n positions: the tile that would cross n is loaded
+        from n - BLOCK_N (negative positions come as TMA's zeros), so no
+        position >= n is read, and its rows below t BLOCK_N are masked."""
+        return min(t * BLOCK_N, n - BLOCK_N), t * BLOCK_N
+
+
+@functools.lru_cache(maxsize=256)
+def decode_plan(q_shape, q_strides, k_shape, k_strides, v_strides,
+                elem_bytes: int) -> DecodePlan:
+    """The plan for q (B, 1, H, D) and k, v (B, S, KV, D) of the given
+    strides (elements) in a type of ``elem_bytes``; the output is the
+    wrapper's contiguous (B, 1, H, D).  Memoised: a decode step asks for
+    one shape a layer, the same from step to step."""
+    b, _, h, d = (int(x) for x in q_shape)
+    _, s, kv, _ = (int(x) for x in k_shape)
+    groups = h // kv
+    dp = 16 if (d == 8 and elem_bytes == 2) else d
+    row_bytes = min(dp * elem_bytes, 128)
+    band = row_bytes // elem_bytes
+    ring = STAGES * 2 * BLOCK_N * dp * elem_bytes
+    smem = 1024 + ring + 16 * STAGES + 16
+    box = (1, BLOCK_N, 1, band)
+    head = (THREADS, smem, dp, groups, d, kv, b, int(q_strides[0]),
+            int(q_strides[2]), h * d, d)
+    return DecodePlan(
+        groups=groups, d=d, dp=dp, smem_bytes=smem,
+        k_map=tma_map((b, s, kv, d), k_strides, box, elem_bytes),
+        v_map=tma_map((b, s, kv, d), v_strides, box, elem_bytes),
+        head=head)
+
+
+@functools.lru_cache(maxsize=4096)
+def split_plan(n: int, rows: int, sms: int) -> tuple[int, int]:
+    """(chunk, splits): ``n`` positions of each of ``rows`` = B x KV rows
+    cut into ``splits`` runs of ``chunk`` positions (a multiple of
+    BLOCK_N), one block each: as many splits as put one block on each of
+    the card's ``sms`` SMs, but none shorter than MIN_SPLIT_TILES tiles.
+    A block's fixed cost (its ring, its first loads, a split's partial
+    and merge) outweighs more blocks in flight: on the card, B x KV = 64
+    rows ran fastest with 1 split at 517 positions, 1-2 at 2,101 and 2
+    at 32,768 (PERF.md)."""
+    tiles = -(-n // BLOCK_N)
+    splits = max(1, min(sms // max(rows, 1), tiles // MIN_SPLIT_TILES))
+    per = -(-tiles // splits)
+    return per * BLOCK_N, -(-tiles // per)
 
 
 @functools.lru_cache(maxsize=None)
@@ -51,13 +132,19 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_plan(n: int, rows: int, sms: int) -> tuple[int, int]:
-    """(chunk, splits) for ``n`` positions over ``rows`` = B x KV: enough
-    blocks to give every SM ``BLOCKS_PER_SM``, a block walking between
-    ``MIN_CHUNK`` and ``MAX_CHUNK`` positions (fewer only if n is)."""
-    splits = max(-(-BLOCKS_PER_SM * sms // rows), -(-n // MAX_CHUNK))
-    chunk = max(MIN_CHUNK, -(-n // splits))
-    return chunk, -(-n // chunk)
+def _counter(index: int, rows: int) -> Tensor:
+    """The merge tickets of device ``index``'s current stream (int32, zero
+    between calls: the block that merges a row resets it), grown to
+    ``rows``.  One array a stream: two calls in flight at once on two
+    streams would otherwise take each other's tickets, and a row could
+    merge before its splits have landed."""
+    key = (index, torch.cuda.current_stream(index).cuda_stream)
+    have = _COUNTERS.get(key)
+    if have is None or have.numel() < rows:
+        have = torch.zeros(max(rows, 1024), dtype=torch.int32,
+                           device=torch.device("cuda", index))
+        _COUNTERS[key] = have
+    return have
 
 
 def decode_attention_cuda(q: Tensor, k_cache: Tensor, v_cache: Tensor,
@@ -92,9 +179,9 @@ def decode_attention_cuda(q: Tensor, k_cache: Tensor, v_cache: Tensor,
                          f"{tuple(k_cache.shape)} do not share B and D, or H "
                          "is not a multiple of KV")
     groups = h // kv
-    if d not in HEAD_DIMS or groups not in GROUPS:
+    if d not in HEAD_DIMS or not 1 <= groups <= MAX_GROUPS:
         raise ValueError(f"the CUDA decode attention takes D in {HEAD_DIMS} "
-                         f"and H / KV in {GROUPS}; got D={d}, "
+                         f"and H / KV in 1..{MAX_GROUPS}; got D={d}, "
                          f"H / KV={groups}")
     length = int(length)
     if not 0 <= length < s or s >= 2 ** 31 or b > 65535 or kv > 65535:
@@ -106,16 +193,16 @@ def decode_attention_cuda(q: Tensor, k_cache: Tensor, v_cache: Tensor,
     if out.numel() == 0:
         return out
     n = length + 1
+    plan = decode_plan(q.shape, q.stride(), k_cache.shape, k_cache.stride(),
+                       v_cache.stride(), q.element_size())
     index = (q.device.index if q.device.index is not None
              else torch.cuda.current_device())
     chunk, splits = split_plan(n, b * kv, _sm_count(index))
-    part = torch.empty(b * kv * splits * groups * (d + 2),
-                       dtype=torch.float32, device=q.device)
-    strides = int64_array([q.stride(0), q.stride(2), *k_cache.stride()[:3],
-                           *v_cache.stride()[:3], out.stride(0),
-                           out.stride(2)])
+    part = torch.empty(b * kv * splits * groups * (d + 2) if splits > 1
+                       else 1, dtype=torch.float32, device=q.device)
     LIB.call(f"decode_attention_{_SUFFIX[q.dtype]}", q.device, ptr(q),
-             ptr(k_cache), ptr(v_cache), ptr(out), ptr(part), strides, b, kv,
-             groups, d, n, chunk, splits)
+             ptr(k_cache), ptr(v_cache), ptr(out), ptr(part),
+             ptr(_counter(index, b * kv)), plan.args, len(plan.args), n,
+             splits, chunk // BLOCK_N)
     launches += 1
     return out

@@ -18,7 +18,12 @@
 //
 //   * bfloat16 (the served model): `flash_wgmma_kernel`, warp-specialised
 //     on Hopper's tensor-memory accelerator (TMA) and wgmma, for every D
-//     in 16, 32, 64, 128.  A block is three warpgroups (384 threads):
+//     in 16, 32, 64, 128, and D = 8 through D = 16's kernel: its boxes are
+//     16 wide, and TMA fills the columns past the tensor's 8 with zeros, so
+//     the k16 products see zeros there and the extra output columns are
+//     never stored.  At D = 8, P V also takes what rounding P to bf16
+//     drops, a second product of the bf16 remainder (hop::pack_bf16_rest
+//     says why).  A block is three warpgroups (384 threads):
 //       - a producer (setmaxnreg down to 24 registers), one thread of
 //         which TMA-loads the block's Q tile once, then K and V tiles of
 //         kBlockN = 64 positions into a 4-stage ring in shared memory,
@@ -54,12 +59,16 @@
 // Both keep every intermediate on chip:
 //
 //   * one block per (q tile, kv head, batch).  Its query rows are
-//     positions x the G query heads of that kv head (row r is position
-//     q0 + r / G, head kvh G + r % G), so every K/V tile staged in shared
-//     memory serves all G heads: the Pallas index map's "no KV
-//     duplication", done on chip.  The bf16 kernel's Q box is (64 / G
-//     positions, G heads, a 64-element band of D) of the strided
-//     (B, S, H, D) view: no copy;
+//     positions x the G query heads of that kv head (row r of a 64-row
+//     tile is position q0 + r / G, head kvh G + r % G), so every K/V tile
+//     staged in shared memory serves all G heads: the Pallas index map's
+//     "no KV duplication", done on chip.  A 64-row tile holds 64 / G
+//     (rounded down) positions: where G does not divide 64 (G = 3: 63
+//     rows; G = 12: 60) the rows past (64 / G) G are idle and never
+//     stored.  G = 1..64 (at G > 32, one position a tile).  The bf16
+//     kernel's Q box is
+//     (64 / G positions, G heads, a band of up to 64 elements of D) of the
+//     strided (B, S, H, D) view: no copy;
 //   * the block loops over K tiles up to its causal limit (fully masked
 //     tiles are never loaded); the TPU's sequential "arbitrary" grid axis
 //     becomes this loop;
@@ -106,6 +115,7 @@ constexpr int kThreads = 256;
 constexpr int kRows = 64;         // query rows per block (positions x G)
 constexpr int kBlockK = 32;       // key positions per tile
 constexpr int kPad = 4;           // floats of padding per shared row
+constexpr int kMaxGroups = 64;    // H / KV: 1 .. 64
 
 template <int D>
 constexpr int smem_floats() {
@@ -126,7 +136,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int kPStride = kBlockK + kPad;   // ps row stride
   constexpr int kVec = Io<T>::kVec;
   constexpr int kVecPerRow = D / kVec;
-  constexpr int kCols = D / 16;              // output columns per thread
+  // output columns per thread (D = 8: one, on the threads tx < 8)
+  constexpr int kCols = D < 16 ? 1 : D / 16;
   constexpr int kW = kCols < 4 ? kCols : 4;  // contiguous columns per group
   constexpr int kColGroups = kCols / kW;
 
@@ -140,6 +151,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = tid >> 4;
   const int tx = tid & 15;
   const int bq = kRows / groups;                 // positions per block
+  const int rows_used = bq * groups;             // rows past it are idle
   const int q0 = (gridDim.x - 1 - blockIdx.x) * bq;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
@@ -150,7 +162,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int c = (i % kVecPerRow) * kVec;
     const int pos = q0 + r / groups;
     float vals[kVec];
-    if (pos < sq) {
+    if (r < rows_used && pos < sq) {
       const int h = kvh * groups + r % groups;
       Io<T>::unpack(Io<T>::load(q + b * q_sb + pos * q_ss + h * q_sh + c),
                     vals);
@@ -162,9 +174,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < kVec; ++e) qs[r * kStride + c + e] = vals[e];
   }
 
-  int pos_row[4];
+  int pos_row[4];   // sq (never stored) for an idle row
 #pragma unroll
-  for (int i = 0; i < 4; ++i) pos_row[i] = q0 + (ty * 4 + i) / groups;
+  for (int i = 0; i < 4; ++i)
+    pos_row[i] = ty * 4 + i < rows_used ? q0 + (ty * 4 + i) / groups : sq;
 
   float m[4], l[4], acc[4][kCols];
 #pragma unroll
@@ -273,7 +286,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int g = 0; g < kColGroups; ++g) {
           const int col = (g * 16 + tx) * kW;
-          if constexpr (kW == 4) {
+          if constexpr (D < 16) {
+            vv[g] = col < D ? vrow[col] : 0.0f;
+          } else if constexpr (kW == 4) {
             const float4 x = *reinterpret_cast<const float4*>(vrow + col);
             vv[g * 4] = x.x;
             vv[g * 4 + 1] = x.y;
@@ -309,7 +324,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int g = 0; g < kColGroups; ++g) {
 #pragma unroll
       for (int e = 0; e < kW; ++e) {
-        orow[(g * 16 + tx) * kW + e] = Io<T>::store(acc[i][g * kW + e] / denom);
+        if (D >= 16 || tx < D)
+          orow[(g * 16 + tx) * kW + e] = Io<T>::store(acc[i][g * kW + e] / denom);
       }
     }
   }
@@ -346,14 +362,20 @@ struct Geom {
   static constexpr int kSmemBytes = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
 };
 
-template <int D>
+// kEven: G divides 64, so every row of a consumer's tile is used and a
+// block holds 128 / G positions.  Computed so (at compile time), it keeps
+// the kernel's time at Qwen3-8B's heads: the general form (rows past
+// (64 / G) G idle, 2 (64 / G) positions a block), run for G = 4, was
+// slower beyond the noise in a same-call A/B on the card (ptxas
+// scheduled the loop differently; PERF.md).
+template <int D, bool kEven>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                    const __grid_constant__ CUtensorMap k_map,
                    const __grid_constant__ CUtensorMap v_map,
                    bf16* __restrict__ out, int64_t o_sb, int64_t o_ss,
-                   int64_t o_sh, int sq, int sk, int groups, int causal,
-                   float scale_log2) {
+                   int64_t o_sh, int sq, int sk, int groups, int d,
+                   int causal, float scale_log2) {
   using G = Geom<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = hop::align1024(smem_raw);
@@ -363,7 +385,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + kStages;
 
-  const int bq = kBlockRows / groups;    // positions a block
+  const int per_c = 64 / groups;         // positions a consumer
+  // of its 64 rows; the rest idle
+  const int rows_used = kEven ? 64 : per_c * groups;
+  // positions a block
+  const int bq = kEven ? kBlockRows / groups : kConsumers * per_c;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * bq;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
@@ -386,12 +412,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     // ------------------------------------------------------ producer
     hop::reg_dealloc<kProducerRegs>();
     if (threadIdx.x == 0) {
-      hop::mbar_expect_tx(q_full, G::kQBytes);
+      hop::mbar_expect_tx(q_full, kConsumers * G::kChunks * rows_used *
+                                      G::kRowBytes);
       for (int c = 0; c < kConsumers; ++c)
         for (int ch = 0; ch < G::kChunks; ++ch)
           hop::tma_load_4d(qs + ch * G::kQBand + c * G::kQBox, &q_map, q_full,
-                           ch * G::kChunk, kvh * groups,
-                           q0 + c * (64 / groups), b);
+                           ch * G::kChunk, kvh * groups, q0 + c * per_c, b);
       for (int t = 0; t < n_tiles; ++t) {
         const int s = t % kStages;
         hop::mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
@@ -413,7 +439,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     const int gr = lane / 4;
     const int tq = lane % 4;
     const int row_a = (threadIdx.x / 32) % 4 * 16 + gr;   // and row_a + 8
-    const int p0 = q0 + c * (64 / groups);   // the consumer's first position
+    const int p0 = q0 + c * per_c;   // the consumer's first position
+    // (an idle row's position is the next consumer's first: masked as
+    // such, and never stored)
     const int pos_a = p0 + row_a / groups;
     const int pos_b = p0 + (row_a + 8) / groups;
     const uint8_t* q_tile = qs + c * G::kQBox;
@@ -424,6 +452,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.0f, l_b = 0.0f;
     float sc[kBlockN / 2];             // S of one tile, then its P
     uint32_t pa[kBlockN / 16][4];      // P as bf16 A fragments
+    uint32_t pr[kBlockN / 16][4];      // D = 8: P - bf16(P), as fragments
+    const bool p_rest = D == 16 && d < 16;
 
     // S = Q K^T of tile t (both K-major), issued and committed
     auto issue_s = [&](int t) {
@@ -443,6 +473,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
           ring + (t % kStages) * G::kStageBytes + G::kKvBytes;
 #pragma unroll
       for (int k = 0; k < kBlockN / 16; ++k) hop::fence_regs(pa[k]);
+      if constexpr (D == 16) {
+#pragma unroll
+        for (int k = 0; k < kBlockN / 16; ++k) hop::fence_regs(pr[k]);
+      }
       hop::fence_regs(o);
       hop::wgmma_fence();
 #pragma unroll
@@ -450,6 +484,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         hop::Wgmma<D>::template rs<1>(
             o, pa[st], hop::desc_mn_major(vt, st, G::kRowBytes, G::kKvBox),
             1);
+      if constexpr (D == 16) {
+        if (p_rest) {
+#pragma unroll
+          for (int st = 0; st < kBlockN / 16; ++st)
+            hop::Wgmma<D>::template rs<1>(
+                o, pr[st],
+                hop::desc_mn_major(vt, st, G::kRowBytes, G::kKvBox), 1);
+        }
+      }
       hop::wgmma_commit();
     };
     // tile t's S (retired) -> its probabilities in sc, in place; returns
@@ -512,6 +555,14 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         pa[k][1] = hop::pack_bf16(sc[8 * k + 2], sc[8 * k + 3]);
         pa[k][2] = hop::pack_bf16(sc[8 * k + 4], sc[8 * k + 5]);
         pa[k][3] = hop::pack_bf16(sc[8 * k + 6], sc[8 * k + 7]);
+        if constexpr (D == 16) {
+          if (p_rest) {
+            pr[k][0] = hop::pack_bf16_rest(sc[8 * k], sc[8 * k + 1]);
+            pr[k][1] = hop::pack_bf16_rest(sc[8 * k + 2], sc[8 * k + 3]);
+            pr[k][2] = hop::pack_bf16_rest(sc[8 * k + 4], sc[8 * k + 5]);
+            pr[k][3] = hop::pack_bf16_rest(sc[8 * k + 6], sc[8 * k + 7]);
+          }
+        }
       }
     };
 
@@ -555,6 +606,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       hop::fence_regs(o);
 #pragma unroll
       for (int k = 0; k < kBlockN / 16; ++k) hop::fence_regs(pa[k]);
+      if constexpr (D == 16) {
+#pragma unroll
+        for (int k = 0; k < kBlockN / 16; ++k) hop::fence_regs(pr[k]);
+      }
       if (lane == 0) hop::mbar_arrive(&empty[(t - 1) % kStages]);
 #pragma unroll
       for (int i = 0; i < D / 8; ++i) {
@@ -572,6 +627,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     hop::fence_regs(o);
 #pragma unroll
     for (int k = 0; k < kBlockN / 16; ++k) hop::fence_regs(pa[k]);
+    if constexpr (D == 16) {
+#pragma unroll
+      for (int k = 0; k < kBlockN / 16; ++k) hop::fence_regs(pr[k]);
+    }
 
 #pragma unroll
     for (int off = 1; off <= 2; off <<= 1) {
@@ -580,21 +639,23 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     const float inv_a = 1.0f / fmaxf(l_a, 1e-30f);
     const float inv_b = 1.0f / fmaxf(l_b, 1e-30f);
-    if (pos_a < sq) {
+    if (pos_a < sq && row_a < rows_used) {
       bf16* orow = out + b * o_sb + pos_a * o_ss +
                    (kvh * groups + row_a % groups) * o_sh + 2 * tq;
 #pragma unroll
       for (int i = 0; i < D / 8; ++i)
-        *reinterpret_cast<uint32_t*>(orow + 8 * i) =
-            hop::pack_bf16(o[4 * i] * inv_a, o[4 * i + 1] * inv_a);
+        if (D != 16 || 8 * i < d)
+          *reinterpret_cast<uint32_t*>(orow + 8 * i) =
+              hop::pack_bf16(o[4 * i] * inv_a, o[4 * i + 1] * inv_a);
     }
-    if (pos_b < sq) {
+    if (pos_b < sq && row_a + 8 < rows_used) {
       bf16* orow = out + b * o_sb + pos_b * o_ss +
                    (kvh * groups + (row_a + 8) % groups) * o_sh + 2 * tq;
 #pragma unroll
       for (int i = 0; i < D / 8; ++i)
-        *reinterpret_cast<uint32_t*>(orow + 8 * i) =
-            hop::pack_bf16(o[4 * i + 2] * inv_b, o[4 * i + 3] * inv_b);
+        if (D != 16 || 8 * i < d)
+          *reinterpret_cast<uint32_t*>(orow + 8 * i) =
+              hop::pack_bf16(o[4 * i + 2] * inv_b, o[4 * i + 3] * inv_b);
     }
   }
 }
@@ -602,6 +663,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 // The launch plan (kernels/flash_attention/kernel.py `FlashPlan.args`):
 // grid (3), threads, shared bytes, sq, sk, G, D, causal, out's strides
 // (3, elements), then the Q, K and V maps (hop::kMapSpecLen values each).
+// D is the tensors' (8 runs D = 16's kernel); the template D the tiles'.
 constexpr int kPlanHead = 13;
 constexpr int kPlanLen = kPlanHead + 3 * hop::kMapSpecLen;
 
@@ -613,15 +675,15 @@ bool box_is(const int64_t* spec, int64_t b0, int64_t b1, int64_t b2,
 
 // Launch D's kernel after holding the plan to what the kernel was
 // compiled for (boxes, swizzle, threads, shared bytes, grid).
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* out,
-           const int64_t* plan, void* stream) {
+template <int D, bool kEven>
+int launch_g(const void* q, const void* k, const void* v, void* out,
+             const int64_t* plan, void* stream) {
   using G = Geom<D>;
   const int64_t sq = plan[5], sk = plan[6], groups = plan[7];
   const int64_t* q_spec = plan + kPlanHead;
   const int64_t* k_spec = q_spec + hop::kMapSpecLen;
   const int64_t* v_spec = k_spec + hop::kMapSpecLen;
-  const int64_t bq = kBlockRows / groups;
+  const int64_t bq = kConsumers * (64 / groups);
   if (plan[3] != kThreads || plan[4] != G::kSmemBytes ||
       plan[0] != (sq + bq - 1) / bq ||
       !box_is(q_spec, G::kChunk, groups, 64 / groups, 1, G::kRowBytes) ||
@@ -634,20 +696,28 @@ int launch(const void* q, const void* k, const void* v, void* out,
   if (err == 0) err = hop::encode_map(&v_map, v, v_spec);
   if (err != 0) return err;
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      G::kSmemBytes);
+      flash_wgmma_kernel<D, kEven>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmemBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(static_cast<unsigned>(plan[0]),
                   static_cast<unsigned>(plan[1]),
                   static_cast<unsigned>(plan[2]));
-  const float scale_log2 =
-      static_cast<float>(1.4426950408889634 / sqrt(static_cast<double>(D)));
-  flash_wgmma_kernel<D><<<grid, kThreads, G::kSmemBytes,
-                          static_cast<cudaStream_t>(stream)>>>(
+  const float scale_log2 = static_cast<float>(
+      1.4426950408889634 / sqrt(static_cast<double>(plan[8])));
+  flash_wgmma_kernel<D, kEven><<<grid, kThreads, G::kSmemBytes,
+                                 static_cast<cudaStream_t>(stream)>>>(
       q_map, k_map, v_map, static_cast<bf16*>(out), plan[10], plan[11],
       plan[12], static_cast<int>(sq), static_cast<int>(sk),
-      static_cast<int>(groups), static_cast<int>(plan[9]), scale_log2);
+      static_cast<int>(groups), static_cast<int>(plan[8]),
+      static_cast<int>(plan[9]), scale_log2);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out,
+           const int64_t* plan, void* stream) {
+  return 64 % plan[7] == 0 ? launch_g<D, true>(q, k, v, out, plan, stream)
+                           : launch_g<D, false>(q, k, v, out, plan, stream);
 }
 
 }  // namespace wg
@@ -681,13 +751,14 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
                const int64_t* strides, int64_t batch, int64_t sq, int64_t sk,
                int64_t kv, int64_t groups, int64_t d, int64_t causal,
                void* stream) {
-  if (groups < 1 || groups > kRows || kRows % groups != 0)
+  if (groups < 1 || groups > kMaxGroups)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (d) {
 #define REPRO_FLASH_CASE(DIM)                                                 \
   case DIM:                                                                   \
     return launch_d<float, DIM>(q, k, v, out, strides, batch, sq, sk, kv,     \
                                 groups, causal, stream);
+    REPRO_FLASH_CASE(8)
     REPRO_FLASH_CASE(16)
     REPRO_FLASH_CASE(32)
     REPRO_FLASH_CASE(64)
@@ -719,9 +790,10 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     void* stream) {
   if (plan_len != wg::kPlanLen) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t groups = plan[7];
-  if (groups < 1 || groups > 64 || 64 % groups != 0)
+  if (groups < 1 || groups > kMaxGroups)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (plan[8]) {
+    case 8:   // a 16-wide band, zero past the tensor's 8 columns
     case 16: return wg::launch<16>(q, k, v, out, plan, stream);
     case 32: return wg::launch<32>(q, k, v, out, plan, stream);
     case 64: return wg::launch<64>(q, k, v, out, plan, stream);

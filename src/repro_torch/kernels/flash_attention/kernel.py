@@ -34,16 +34,21 @@ LIB = CudaLibrary(
     {"flash_attention_f32": [_P] * 4 + [ctypes.POINTER(_I)] + [_I] * 7 + [_P],
      "flash_attention_bf16": [_P] * 4 + [ctypes.POINTER(_I), _I, _P]},
     headers=(_HERE.parent / "csrc" / "attention_io.cuh", HEADER))
-HEAD_DIMS = (16, 32, 64, 128)      # the D instantiated in the source
+HEAD_DIMS = (8, 16, 32, 64, 128)   # the D the kernels take (8 through
+                                   # D = 16's tiles, zero-filled by TMA)
+MAX_GROUPS = 64                    # H / KV: 1 .. 64
 ROWS = 64                          # query rows (positions x G) of one
-                                   # consumer warpgroup (bf16) or block (f32)
+                                   # consumer warpgroup (bf16) or block (f32);
+                                   # 64 // G positions, the rows past
+                                   # (64 // G) G idle
 CONSUMERS = 2                      # wg::kConsumers
 BLOCK_ROWS = ROWS * CONSUMERS      # query rows a bf16 block
 BLOCK_N = 64                       # wg::kBlockN: key positions a K/V tile
 STAGES = 4                         # wg::kStages: the K/V ring
 THREADS = 128 * (1 + CONSUMERS)    # a producer and the consumers
 
-__all__ = ["LIB", "HEAD_DIMS", "ROWS", "FlashPlan", "flash_plan",
+__all__ = ["LIB", "HEAD_DIMS", "MAX_GROUPS", "ROWS", "FlashPlan",
+           "flash_plan",
            "check_inputs", "flash_attention_cuda"]
 
 launches = 0          # kernel launches in this process
@@ -53,11 +58,12 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 @dataclasses.dataclass(frozen=True)
 class FlashPlan:
-    """How the bf16 kernel covers one call.  Block (x, y, z) holds the
-    query rows r < BLOCK_ROWS of kv head y, batch z: position
-    q0 + r // G, head y G + r % G, q0 = (grid x - 1 - x) positions_per_block
-    (heaviest first); it walks K/V tiles of BLOCK_N positions up to its
-    causal limit."""
+    """How the bf16 kernel covers one call.  Block (x, y, z) holds
+    CONSUMERS tiles of ROWS query rows of kv head y, batch z: row r of
+    consumer c is position q0 + c (ROWS // G) + r // G, head y G + r % G,
+    for r < (ROWS // G) G (the rest idle), q0 = (grid x - 1 - x)
+    positions_per_block (heaviest first); it walks K/V tiles of BLOCK_N
+    positions up to its causal limit."""
     grid: tuple[int, int, int]
     threads: int
     rows_per_block: int
@@ -76,12 +82,19 @@ class FlashPlan:
     def q0(self, bx: int) -> int:
         return (self.grid[0] - 1 - bx) * self.positions_per_block
 
-    def block_rows(self, bx: int, by: int) -> list[tuple[int, int]]:
+    def block_rows(self, bx: int, by: int) -> list[tuple[int, int] | None]:
         """(position, head) of each row of block (bx, by, .), past-Sq
-        rows included (the kernel neither reads nor stores them)."""
+        rows included (the kernel neither reads nor stores them); None
+        for an idle row."""
         q0 = self.q0(bx)
-        return [(q0 + r // self.groups, by * self.groups + r % self.groups)
-                for r in range(self.rows_per_block)]
+        per_c = ROWS // self.groups
+        rows = []
+        for r in range(self.rows_per_block):
+            c, rr = divmod(r, ROWS)
+            rows.append(None if rr >= per_c * self.groups else
+                        (q0 + c * per_c + rr // self.groups,
+                         by * self.groups + rr % self.groups))
+        return rows
 
     def kv_tiles(self, bx: int) -> list[int]:
         """First positions of the K/V tiles block bx loads."""
@@ -105,16 +118,18 @@ class FlashPlan:
 def flash_plan(q_shape, q_strides, k_shape, k_strides, v_strides, *,
                causal: bool = True) -> FlashPlan:
     """The bf16 kernel's plan for q (B, Sq, H, D) and k, v (B, Sk, KV, D)
-    of the given strides (elements): TMA boxes of a band of at most 64
-    elements of D (its bytes the swizzle): (1, ROWS / G positions, G
-    heads, band) for Q, (1, BLOCK_N positions, 1 head, band) for K and V.
-    Memoised: a served model asks for a handful of shapes."""
+    of the given strides (elements): TMA boxes of a band of 16 to 64
+    elements of D (its bytes the swizzle; D = 8 takes a 16-wide band,
+    zero past the tensor's 8): (1, ROWS // G positions, G heads, band)
+    for Q, (1, BLOCK_N positions, 1 head, band) for K and V.  Memoised: a
+    served model asks for a handful of shapes."""
     b, sq, h, d = (int(x) for x in q_shape)
     _, sk, kv, _ = (int(x) for x in k_shape)
     groups = h // kv
-    band = min(d, 64)
-    positions = BLOCK_ROWS // groups
-    smem = (1024 + BLOCK_ROWS * d * 2 + STAGES * 2 * BLOCK_N * d * 2
+    dp = max(d, 16)                  # the tiles' width
+    band = min(dp, 64)
+    positions = CONSUMERS * (ROWS // groups)
+    smem = (1024 + BLOCK_ROWS * dp * 2 + STAGES * 2 * BLOCK_N * dp * 2
             + 8 * (1 + 2 * STAGES))
     return FlashPlan(
         grid=(-(-sq // positions), kv, b), threads=THREADS,
@@ -129,7 +144,7 @@ def flash_plan(q_shape, q_strides, k_shape, k_strides, v_strides, *,
 
 def check_inputs(q: Tensor, k: Tensor, v: Tensor) -> int:
     """Raise on anything the kernel does not take, the device aside:
-    dtype, shapes, D in HEAD_DIMS, H / KV dividing ROWS, the grid's
+    dtype, shapes, D in HEAD_DIMS, H / KV in 1..MAX_GROUPS, the grid's
     limits, 16-byte rows.  Returns G = H / KV."""
     tensors = {"q": q, "k": k, "v": v}
     if q.dtype not in _SUFFIX or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -146,9 +161,9 @@ def check_inputs(q: Tensor, k: Tensor, v: Tensor) -> int:
         raise ValueError(f"q {tuple(q.shape)} and k/v {tuple(k.shape)} do not "
                          "share B and D, or H is not a multiple of KV")
     groups = h // kv
-    if d not in HEAD_DIMS or ROWS % groups:
+    if d not in HEAD_DIMS or not 1 <= groups <= MAX_GROUPS:
         raise ValueError(f"the CUDA flash attention takes D in {HEAD_DIMS} "
-                         f"and H / KV dividing {ROWS}; got D={d}, "
+                         f"and H / KV in 1..{MAX_GROUPS}; got D={d}, "
                          f"H / KV={groups}")
     if max(sq, sk) >= 2 ** 31 or b > 65535 or kv > 65535:
         raise ValueError(f"shape {tuple(q.shape)} / {tuple(k.shape)} is past "

@@ -10,27 +10,41 @@
 //   choice = argmin_k max_j w[k][j]          (first index on ties)
 //   w[choice][j] += live_i * services[j][i]
 //
-// What bounds it: the serial chain of n dependent steps, not bytes.  The
-// bytes (services (S, p, n) read once, the rest small) take ~0.03 ms at
-// full width; each step is a drain, r warp reductions and an argmin.  The
-// design keeps the chain short:
+// What bounds it: the serial chain of n dependent steps, not bytes (the
+// bytes take ~0.03 ms at full width).  The design shortens the step:
 //
-//   * one block of one warp per scenario, so a step needs no barrier;
-//   * r is a template parameter (1..kMaxR, dispatched at launch), so the
-//     per-replica loops unroll with no branch, and the server loop has
-//     the same trip count on every lane (a predicated body), so no step
-//     diverges;
-//   * the (r, p) tracker lives in shared memory, lane l owning servers
-//     j = l, l + 32, ...; per server the r replicas' loads are issued
-//     together, the r per-replica maxima reduce together (5 butterfly
-//     rounds of r independent shuffles), and every lane then holds the
-//     argmin;
-//   * services are staged kTile queries at a time into shared memory by
-//     cp.async, double-buffered: the next tile's copies are in flight
-//     while this tile's kTile steps run, so no step waits on device
-//     memory.  Tiles are padded to kTile + 1 columns so a step's reads of
-//     one column hit distinct banks.  Gaps and live ride in registers
-//     (the next tile's prefetched likewise) and are broadcast by shuffle.
+//   * one carried maximum per replica.  Rounding is monotone, so
+//     max_j max(fl(w_kj - g), 0) = max(fl(M_k - g), 0) bit for bit, where
+//     M_k = max_j w_kj.  Every lane drains the r scalars M_k with no
+//     communication and takes the argmin over them; the deposit changes
+//     only the chosen replica, so the step needs one cross-lane max (its
+//     new M) instead of r.  Each lane's maxima of every replica after a
+//     deposit (L_k) are computed before the choice is known, off the
+//     chain, so the chain is: drain M, argmin, select L_best, one warp
+//     max;
+//   * the tracker in registers (`jsq_reg_kernel`): a warp holds one
+//     scenario, lane l the servers j = l, l + 32, ... of every replica
+//     (PER of them, a template bucket, as is KC >= r); replicas past r
+//     carry M = +inf, so they are never chosen.  Where KC x PER passes
+//     the register budget (float64 doubles it), `jsq_smem_kernel` runs
+//     the same algorithm with the tracker in shared memory.  32 lanes a
+//     scenario beat 16 and 8 on the card (PERF.md): fewer lanes hold
+//     more servers each, and the step's instructions, not the chain's
+//     latency alone, decide;
+//   * the warp max is `redux.sync` (signed) on a float32's bits with the
+//     magnitude bits of a negative value flipped, which orders them as
+//     the floats (two integer instructions each way); float64 takes five
+//     xor shuffles;
+//   * the step is short in instructions: a server past p deposits -inf,
+//     so each replica's local max is a tree of maxima with no predicate;
+//     the argmin and the select of L_best are trees; the choices wait in
+//     shared memory, stored to device memory once a tile; the
+//     step loop is unrolled by two;
+//   * services, gaps and live are staged `tile` queries at a time into
+//     shared memory by cp.async, double-buffered: the next tile's copies
+//     are in flight while this tile's steps run, so no step waits on
+//     device memory.  Tiles are padded to tile + 1 columns so a step's
+//     reads of one column hit distinct banks.
 //
 // The deposit is rounded as the plain version rounds it (a product, then
 // a sum; no fused multiply-add), so kernel and loop choose alike.
@@ -44,10 +58,8 @@
 
 namespace {
 
-constexpr int kTile = 32;
-constexpr int kStride = kTile + 1;
-constexpr int kMaxR = 16;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRegBudget = 64;   // 32-bit registers a lane gives the tracker
 
 __device__ __forceinline__ float mul_rn(float x, float y) {
   return __fmul_rn(x, y);
@@ -62,166 +74,423 @@ __device__ __forceinline__ double add_rn(double x, double y) {
   return __dadd_rn(x, y);
 }
 
-// Queue this lane's copies of one services tile (cols queries from
-// column `base`) into `buf`, as one cp.async group.
 template <typename T>
-__device__ __forceinline__ void stage(T* buf, const T* s_rows, int p,
-                                      int64_t n, int64_t base, int lane) {
-  if (base < n && lane < n - base) {
-    for (int j = 0; j < p; ++j) {
-      __pipeline_memcpy_async(&buf[j * kStride + lane],
-                              &s_rows[j * n + base + lane], sizeof(T));
-    }
+__device__ __forceinline__ T max0(T x) {
+  return x > T(0) ? x : T(0);
+}
+
+template <typename T>
+__device__ __forceinline__ T tmax(T a, T b) {
+  return a > b ? a : b;
+}
+
+// A float32's bits as a signed key in the floats' order (and back: the
+// map is its own inverse): a negative value's magnitude bits flipped
+__device__ __forceinline__ int order_key(int b) {
+  return b ^ ((b >> 31) & 0x7fffffff);
+}
+
+// The max over the warp, which must be converged (see jsq_smem_kernel).
+// float32: one redux.sync over the order keys; float64: xor shuffles.
+__device__ __forceinline__ float warp_max(float x) {
+  return __int_as_float(
+      order_key(__reduce_max_sync(kFull, order_key(__float_as_int(x)))));
+}
+
+__device__ __forceinline__ double warp_max(double x) {
+  for (int off = 16; off > 0; off >>= 1)
+    x = tmax(x, __shfl_xor_sync(kFull, x, off));
+  return x;
+}
+
+// Queue the warp's copies of a tile (up to `tile` queries from column
+// `base`): services rows 0..p-1, then the gaps and live rows, each row
+// `tile + 1` wide; one cp.async group.
+template <typename T>
+__device__ __forceinline__ void stage(T* buf, const T* s_rows, const T* g_row,
+                                      const T* l_row, int p, int64_t n,
+                                      int64_t base, int tile, int lane) {
+  const int stride = tile + 1;
+  const int64_t left = n - base;
+  const int cols = left < tile ? static_cast<int>(left) : tile;
+  for (int c = lane; c < cols; c += 32) {
+    for (int j = 0; j < p; ++j)
+      __pipeline_memcpy_async(&buf[j * stride + c], &s_rows[j * n + base + c],
+                              sizeof(T));
+    __pipeline_memcpy_async(&buf[p * stride + c], &g_row[base + c],
+                            sizeof(T));
+    __pipeline_memcpy_async(&buf[(p + 1) * stride + c], &l_row[base + c],
+                            sizeof(T));
   }
   __pipeline_commit();
 }
 
-template <typename T, int R>
-__global__ void __launch_bounds__(32)
-jsq_route_kernel(const T* __restrict__ w_in, const T* __restrict__ gaps,
-                 const T* __restrict__ services, const T* __restrict__ live,
-                 int64_t* __restrict__ choice, T* __restrict__ w_out, int p,
-                 int64_t n) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* w = reinterpret_cast<T*>(smem);  // (R, p)
-  T* svc = w + R * p;                 // 2 x (p, kStride)
+// The argmin over KC (a power of two) carried maxima, first index on
+// ties: a tree whose right branch wins only when strictly less
+template <typename T, int KC>
+__device__ __forceinline__ int argmin_first(const T (&d)[KC]) {
+  T v[KC];
+  int idx[KC];
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    v[k] = d[k];
+    idx[k] = k;
+  }
+#pragma unroll
+  for (int half = KC / 2; half >= 1; half /= 2) {
+#pragma unroll
+    for (int k = 0; k < half; ++k) {
+      const bool right = v[2 * k + 1] < v[2 * k];
+      idx[k] = right ? idx[2 * k + 1] : idx[2 * k];
+      v[k] = right ? v[2 * k + 1] : v[2 * k];
+    }
+  }
+  return idx[0];
+}
 
+// x[k] for a runtime k < KC (a power of two): a tree of selects on its bits
+template <typename T, int KC>
+__device__ __forceinline__ T select_at(const T (&x)[KC], int k) {
+  T v[KC];
+#pragma unroll
+  for (int i = 0; i < KC; ++i) v[i] = x[i];
+#pragma unroll
+  for (int half = KC / 2, bit = 1; half >= 1; half /= 2, bit *= 2) {
+#pragma unroll
+    for (int i = 0; i < half; ++i)
+      v[i] = (k & bit) ? v[2 * i + 1] : v[2 * i];
+  }
+  return v[0];
+}
+
+// The max of PER values, as a tree
+template <typename T, int PER>
+__device__ __forceinline__ T tree_max(const T (&x)[PER]) {
+  T v[PER];
+#pragma unroll
+  for (int i = 0; i < PER; ++i) v[i] = x[i];
+#pragma unroll
+  for (int half = PER / 2; half >= 1; half /= 2) {
+#pragma unroll
+    for (int i = 0; i < half; ++i) v[i] = tmax(v[2 * i], v[2 * i + 1]);
+  }
+  return v[0];
+}
+
+template <typename T, int KC, int PER>
+__global__ void __launch_bounds__(32)
+jsq_reg_kernel(const T* __restrict__ w_in, const T* __restrict__ gaps,
+               const T* __restrict__ services, const T* __restrict__ live,
+               int64_t* __restrict__ choice, T* __restrict__ w_out, int r,
+               int p, int64_t n, int tile) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x;
+  const int64_t s = blockIdx.x;
+  const int stride = tile + 1;
+  const int buf_len = (p + 2) * stride;
+  T* bufs = reinterpret_cast<T*>(smem);
+  // the tile's choices, stored once a tile
+  int* cbuf = reinterpret_cast<int*>(bufs + 2 * buf_len);
+  const T* g_row = gaps + s * n;
+  const T* l_row = live + s * n;
+  const T* s_rows = services + s * static_cast<int64_t>(p) * n;
+  int64_t* c_row = choice + s * n;
+  const int64_t rp = static_cast<int64_t>(r) * p;
+
+  bool valid[PER];
+  int off[PER];
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    const int j = lane + 32 * q;
+    valid[q] = j < p;
+    off[q] = (valid[q] ? j : 0) * stride;
+  }
+  T w[KC][PER];
+  T m[KC];
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    T loc = -INFINITY;
+#pragma unroll
+    for (int q = 0; q < PER; ++q) {
+      w[k][q] = (k < r && valid[q]) ? w_in[s * rp + k * p + lane + 32 * q]
+                                    : T(0);
+      if (valid[q]) loc = tmax(loc, w[k][q]);
+    }
+    m[k] = warp_max(loc);
+    if (k >= r) m[k] = INFINITY;
+  }
+
+  stage(bufs, s_rows, g_row, l_row, p, n, 0, tile, lane);
+  for (int64_t base = 0, it = 0; base < n; base += tile, ++it) {
+    const int cols = static_cast<int>(n - base < tile ? n - base : tile);
+    const T* cur = bufs + (it & 1) * buf_len;
+    // the next tile: copies in flight while this one runs
+    stage(bufs + ((it + 1) & 1) * buf_len, s_rows, g_row, l_row, p, n,
+          base + tile, tile, lane);
+    __pipeline_wait_prior(1);   // this tile's group has landed
+    __syncwarp();
+    const T* cg = cur + p * stride;
+    const T* cl = cg + stride;
+#pragma unroll 2
+    for (int t = 0; t < cols; ++t) {
+      const T gap = cg[t];
+      const T lv = cl[t];
+      // off the chain: drain every server, and each replica's local max
+      // as it would be after a deposit of this query (a server past p
+      // deposits -inf: it never counts, and its next drain resets it)
+      T dep[PER];
+#pragma unroll
+      for (int q = 0; q < PER; ++q)
+        dep[q] = valid[q] ? mul_rn(lv, cur[off[q] + t]) : T(-INFINITY);
+      T cand[KC][PER];
+      T lmax[KC];
+#pragma unroll
+      for (int k = 0; k < KC; ++k) {
+#pragma unroll
+        for (int q = 0; q < PER; ++q) {
+          w[k][q] = max0(w[k][q] - gap);
+          cand[k][q] = add_rn(w[k][q], dep[q]);
+        }
+        lmax[k] = tree_max(cand[k]);
+      }
+      // the chain: drain the carried maxima, choose, one warp max
+      T d[KC];
+#pragma unroll
+      for (int k = 0; k < KC; ++k) d[k] = max0(m[k] - gap);
+      const int best = argmin_first(d);
+      const T mx = warp_max(select_at(lmax, best));
+#pragma unroll
+      for (int k = 0; k < KC; ++k) {
+#pragma unroll
+        for (int q = 0; q < PER; ++q)
+          if (k == best) w[k][q] = cand[k][q];
+        m[k] = k == best ? mx : d[k];
+      }
+      if (lane == 0) cbuf[t] = best;
+    }
+    __syncwarp();   // every lane is done with `cur` before it is restaged
+    for (int t = lane; t < cols; t += 32) c_row[base + t] = cbuf[t];
+  }
+  __pipeline_wait_prior(0);
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+#pragma unroll
+    for (int q = 0; q < PER; ++q)
+      if (k < r && valid[q]) w_out[s * rp + k * p + lane + 32 * q] = w[k][q];
+  }
+}
+
+// The same algorithm with the tracker (r, p) in shared memory, for
+// shapes whose tracker passes the register budget: lane l the servers
+// l, l + 32, ... (`per` of them).  Its server loops diverge where p is
+// not a multiple of 32; the warp max needs the whole warp, so a
+// __syncwarp() closes them (ptxas already reconverges there with a
+// BSYNC, and the sync compiles to nothing; PERF.md).
+template <typename T, int KC>
+__global__ void __launch_bounds__(32)
+jsq_smem_kernel(const T* __restrict__ w_in, const T* __restrict__ gaps,
+                const T* __restrict__ services, const T* __restrict__ live,
+                int64_t* __restrict__ choice, T* __restrict__ w_out, int r,
+                int p, int64_t n, int per, int tile) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int64_t s = blockIdx.x;
   const int lane = threadIdx.x;
-  const int rp = R * p;
-  const int buf_len = p * kStride;
-  const int per_lane = (p + 31) / 32;  // the same on every lane
+  const int stride = tile + 1;
+  const int buf_len = (p + 2) * stride;
+  const int rp = r * p;
+  T* ws = reinterpret_cast<T*>(smem);   // (r, p)
+  T* bufs = ws + rp;                    // 2 x (p + 2, tile + 1)
   const T* g_row = gaps + s * n;
   const T* l_row = live + s * n;
   const T* s_rows = services + s * static_cast<int64_t>(p) * n;
   int64_t* c_row = choice + s * n;
 
-  for (int i = lane; i < rp; i += 32) w[i] = w_in[s * rp + i];
-  stage(svc, s_rows, p, n, 0, lane);
-  T next_gap = lane < n ? g_row[lane] : T(0);
-  T next_live = lane < n ? l_row[lane] : T(0);
-
-  for (int64_t base = 0, it = 0; base < n; base += kTile, ++it) {
-    const int cols = static_cast<int>(n - base < kTile ? n - base : kTile);
-    const T* cur = svc + (it & 1) * buf_len;
-    const T my_gap = next_gap;
-    const T my_live = next_live;
-    // the next tile: copies in flight while this one runs
-    stage(svc + ((it + 1) & 1) * buf_len, s_rows, p, n, base + kTile, lane);
-    const int64_t ahead = base + kTile + lane;
-    next_gap = ahead < n ? g_row[ahead] : T(0);
-    next_live = ahead < n ? l_row[ahead] : T(0);
-    __pipeline_wait_prior(1);  // this tile's group has landed
+  T m[KC];
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    T loc = -INFINITY;
+    if (k < r) {
+      for (int j = lane; j < p; j += 32) {
+        ws[k * p + j] = w_in[s * rp + k * p + j];
+        loc = tmax(loc, ws[k * p + j]);
+      }
+    }
     __syncwarp();
+    m[k] = warp_max(loc);
+    if (k >= r) m[k] = INFINITY;
+  }
 
+  stage(bufs, s_rows, g_row, l_row, p, n, 0, tile, lane);
+  for (int64_t base = 0, it = 0; base < n; base += tile, ++it) {
+    const int cols = static_cast<int>(n - base < tile ? n - base : tile);
+    const T* cur = bufs + (it & 1) * buf_len;
+    stage(bufs + ((it + 1) & 1) * buf_len, s_rows, g_row, l_row, p, n,
+          base + tile, tile, lane);
+    __pipeline_wait_prior(1);
+    __syncwarp();
+    const T* cg = cur + p * stride;
+    const T* cl = cg + stride;
     for (int t = 0; t < cols; ++t) {
-      const T gap = __shfl_sync(kFull, my_gap, t);
-      const T lv = __shfl_sync(kFull, my_live, t);
-
-      // drain; each lane's partial max of every replica
-      T m[R];
+      const T gap = cg[t];
+      const T lv = cl[t];
+      T lmax[KC];
 #pragma unroll
-      for (int k = 0; k < R; ++k) m[k] = T(0);
-      for (int q = 0; q < per_lane; ++q) {
-        const int j = q * 32 + lane;
+      for (int k = 0; k < KC; ++k) lmax[k] = -INFINITY;
+      for (int q = 0; q < per; ++q) {
+        const int j = lane + 32 * q;
         if (j < p) {
-          T v[R];
+          const T dep = mul_rn(lv, cur[j * stride + t]);
 #pragma unroll
-          for (int k = 0; k < R; ++k) v[k] = w[k * p + j];
-#pragma unroll
-          for (int k = 0; k < R; ++k) {
-            v[k] = v[k] - gap;
-            v[k] = v[k] > T(0) ? v[k] : T(0);
-            w[k * p + j] = v[k];
-            m[k] = m[k] > v[k] ? m[k] : v[k];
+          for (int k = 0; k < KC; ++k) {
+            if (k < r) {
+              const T v = max0(ws[k * p + j] - gap);
+              ws[k * p + j] = v;
+              lmax[k] = tmax(lmax[k], add_rn(v, dep));
+            }
           }
         }
       }
-      // the R maxima over p, reduced together
+      T d[KC];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
+      for (int k = 0; k < KC; ++k) d[k] = max0(m[k] - gap);
+      const int best = argmin_first(d);
+      T loc = lmax[0];
 #pragma unroll
-        for (int k = 0; k < R; ++k) {
-          const T o = __shfl_xor_sync(kFull, m[k], off);
-          m[k] = m[k] > o ? m[k] : o;
-        }
-      }
-      // argmin over replicas, first index on ties
-      int best = 0;
-      T best_m = m[0];
+      for (int k = 1; k < KC; ++k)
+        if (k == best) loc = lmax[k];
+      __syncwarp();
+      const T mx = warp_max(loc);
 #pragma unroll
-      for (int k = 1; k < R; ++k) {
-        if (m[k] < best_m) {
-          best = k;
-          best_m = m[k];
-        }
-      }
+      for (int k = 0; k < KC; ++k) m[k] = k == best ? mx : d[k];
       if (lane == 0) c_row[base + t] = best;
-      T* wb = w + best * p;
-#pragma unroll 4
-      for (int q = 0; q < per_lane; ++q) {
-        const int j = q * 32 + lane;
-        if (j < p) wb[j] = add_rn(wb[j], mul_rn(lv, cur[j * kStride + t]));
+      T* wb = ws + best * p;
+      for (int q = 0; q < per; ++q) {
+        const int j = lane + 32 * q;
+        if (j < p) wb[j] = add_rn(wb[j], mul_rn(lv, cur[j * stride + t]));
       }
     }
-    __syncwarp();  // every lane is done with `cur` before it is restaged
+    __syncwarp();
   }
   __pipeline_wait_prior(0);
-  for (int i = lane; i < rp; i += 32) w_out[s * rp + i] = w[i];
+  for (int i = lane; i < rp; i += 32) w_out[s * rp + i] = ws[i];
 }
 
-template <typename T, int R>
-int launch_r(const void* w_in, const void* gaps, const void* services,
-             const void* live, void* choice, void* w_out, int64_t scenarios,
-             int64_t p, int64_t n, void* stream) {
-  const size_t smem =
-      static_cast<size_t>(R * p + 2 * p * kStride) * sizeof(T);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        jsq_route_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+// The launch plan (kernels/jsq_route/kernel.py `JsqPlan.args`): variant
+// (0 registers, 1 shared), KC, PER, tile, shared bytes.  A block is one
+// warp, one scenario.
+constexpr int kPlanLen = 5;
+
+template <typename Kernel>
+int set_smem(Kernel kernel, int64_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
+template <typename T, int KC, int PER>
+int launch_reg(const void* w_in, const void* gaps, const void* services,
+               const void* live, void* choice, void* w_out, int64_t scenarios,
+               int64_t r, int64_t p, int64_t n, const int64_t* plan,
+               void* stream) {
+  if constexpr (KC * PER * static_cast<int>(sizeof(T) / 4) > kRegBudget) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    const int err = set_smem(jsq_reg_kernel<T, KC, PER>, plan[4]);
+    if (err != 0) return err;
+    jsq_reg_kernel<T, KC, PER><<<dim3(static_cast<unsigned>(scenarios)), 32,
+                                 plan[4], static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(w_in), static_cast<const T*>(gaps),
+        static_cast<const T*>(services), static_cast<const T*>(live),
+        static_cast<int64_t*>(choice), static_cast<T*>(w_out),
+        static_cast<int>(r), static_cast<int>(p), n,
+        static_cast<int>(plan[3]));
+    return static_cast<int>(cudaGetLastError());
   }
-  jsq_route_kernel<T, R><<<dim3(static_cast<unsigned>(scenarios)), 32, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
+}
+
+template <typename T, int KC>
+int launch_smem(const void* w_in, const void* gaps, const void* services,
+                const void* live, void* choice, void* w_out,
+                int64_t scenarios, int64_t r, int64_t p, int64_t n,
+                const int64_t* plan, void* stream) {
+  const int err = set_smem(jsq_smem_kernel<T, KC>, plan[4]);
+  if (err != 0) return err;
+  jsq_smem_kernel<T, KC><<<dim3(static_cast<unsigned>(scenarios)), 32,
+                           plan[4], static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(w_in), static_cast<const T*>(gaps),
       static_cast<const T*>(services), static_cast<const T*>(live),
       static_cast<int64_t*>(choice), static_cast<T*>(w_out),
-      static_cast<int>(p), n);
+      static_cast<int>(r), static_cast<int>(p), n, static_cast<int>(plan[2]),
+      static_cast<int>(plan[3]));
   return static_cast<int>(cudaGetLastError());
 }
+template <typename T, int KC>
+int launch_kc(const void* w_in, const void* gaps, const void* services,
+              const void* live, void* choice, void* w_out, int64_t scenarios,
+              int64_t r, int64_t p, int64_t n, const int64_t* plan,
+              void* stream) {
+  if (plan[0] == 1)
+    return launch_smem<T, KC>(w_in, gaps, services, live, choice, w_out,
+                              scenarios, r, p, n, plan, stream);
+  switch (plan[2]) {
+#define REPRO_JSQ_PER(PER)                                                    \
+  case PER:                                                                   \
+    return launch_reg<T, KC, PER>(w_in, gaps, services, live, choice, w_out, \
+                                  scenarios, r, p, n, plan, stream);
+    REPRO_JSQ_PER(1)
+    REPRO_JSQ_PER(2)
+    REPRO_JSQ_PER(4)
+    REPRO_JSQ_PER(8)
+    REPRO_JSQ_PER(16)
+#undef REPRO_JSQ_PER
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
-// r -> the kernel instantiated for it
-template <typename T, int R = 1>
+template <typename T>
 int launch(const void* w_in, const void* gaps, const void* services,
            const void* live, void* choice, void* w_out, int64_t scenarios,
-           int64_t r, int64_t p, int64_t n, void* stream) {
-  if constexpr (R > kMaxR) {
+           int64_t r, int64_t p, int64_t n, const int64_t* plan,
+           int64_t plan_len, void* stream) {
+  if (plan_len != kPlanLen || r < 1 || r > plan[1] || plan[3] < 1 ||
+      32 * plan[2] < p || scenarios > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    if (r == R) {
-      return launch_r<T, R>(w_in, gaps, services, live, choice, w_out,
-                            scenarios, p, n, stream);
-    }
-    return launch<T, R + 1>(w_in, gaps, services, live, choice, w_out,
-                            scenarios, r, p, n, stream);
+  switch (plan[1]) {
+#define REPRO_JSQ_KC(KC)                                                     \
+  case KC:                                                                   \
+    return launch_kc<T, KC>(w_in, gaps, services, live, choice, w_out,      \
+                            scenarios, r, p, n, plan, stream);
+    REPRO_JSQ_KC(2)
+    REPRO_JSQ_KC(4)
+    REPRO_JSQ_KC(8)
+    REPRO_JSQ_KC(16)
+#undef REPRO_JSQ_KC
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
+// plan: kPlanLen int64 (host memory), as `JsqPlan.args` lays it out.
 extern "C" int jsq_route_f32(const void* w_in, const void* gaps,
                              const void* services, const void* live,
                              void* choice, void* w_out, int64_t scenarios,
-                             int64_t r, int64_t p, int64_t n, void* stream) {
+                             int64_t r, int64_t p, int64_t n,
+                             const int64_t* plan, int64_t plan_len,
+                             void* stream) {
   return launch<float>(w_in, gaps, services, live, choice, w_out, scenarios,
-                       r, p, n, stream);
+                       r, p, n, plan, plan_len, stream);
 }
 
 extern "C" int jsq_route_f64(const void* w_in, const void* gaps,
                              const void* services, const void* live,
                              void* choice, void* w_out, int64_t scenarios,
-                             int64_t r, int64_t p, int64_t n, void* stream) {
-  return launch<double>(w_in, gaps, services, live, choice, w_out,
-                        scenarios, r, p, n, stream);
+                             int64_t r, int64_t p, int64_t n,
+                             const int64_t* plan, int64_t plan_len,
+                             void* stream) {
+  return launch<double>(w_in, gaps, services, live, choice, w_out, scenarios,
+                        r, p, n, plan, plan_len, stream);
 }

@@ -2,18 +2,24 @@
 
 ``csrc/jsq_route.cu`` runs the reference's per-query JSQ recurrence
 (`repro.core.simulator._jsq_route`, a `lax.scan`; no Pallas kernel) as one
-launch per chunk.  It is built by `repro_torch.kernels._cuda.CudaLibrary`
-at first use.  ``launches`` counts the launches this process made.
+launch per chunk, on one carried maximum per replica.  Its launch plan
+(tracker in registers or in shared memory, tile width, shared bytes) is
+`jsq_plan`, pure Python so that the CPU tests reach it.  It is built by
+`repro_torch.kernels._cuda.CudaLibrary` at first use.  ``launches``
+counts the launches this process made.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import pathlib
 
 import torch
 
-from repro_torch.kernels._cuda import CudaLibrary, ptr
+from repro_torch.kernels._cuda import CudaLibrary, int64_array, ptr
+from repro_torch.kernels.hopper import SMEM_LIMIT
 
 Tensor = torch.Tensor
 
@@ -22,17 +28,75 @@ _I = ctypes.c_int64
 
 LIB = CudaLibrary(
     pathlib.Path(__file__).resolve().parent / "csrc" / "jsq_route.cu",
-    {name: [_P] * 6 + [_I] * 4 + [_P]
+    {name: [_P] * 6 + [_I] * 4 + [ctypes.POINTER(_I), _I, _P]
      for name in ("jsq_route_f32", "jsq_route_f64")})
-MAX_REPLICAS = 16                  # kMaxR in the source
-_TILE_STRIDE = 33                  # kStride in the source
-_MAX_SHARED = 232_448              # bytes a block may use on Hopper
+MAX_REPLICAS = 16                  # the largest KC bucket in the source
+KC_BUCKETS = (2, 4, 8, 16)         # replicas a lane carries (>= r)
+PER_BUCKETS = (1, 2, 4, 8, 16)     # servers of each replica a lane holds
+REG_BUDGET = 64                    # kRegBudget: 32-bit registers a lane
+                                   # gives the tracker
+TILES = (32, 16, 8, 4, 2, 1)       # queries a staged tile, widest first
 
-__all__ = ["LIB", "MAX_REPLICAS", "jsq_route_cuda"]
+__all__ = ["LIB", "MAX_REPLICAS", "JsqPlan", "jsq_plan", "jsq_route_cuda"]
 
 launches = 0          # kernel launches in this process
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+@dataclasses.dataclass(frozen=True)
+class JsqPlan:
+    """How the kernel covers one chunk: a one-warp block a scenario, lane
+    l the servers l, l + 32, ... (``per`` of each replica).
+    ``registers``: the tracker lies in registers (``kc`` >= r carried
+    replicas), else in shared memory.  Services, gaps and live are staged
+    ``tile`` queries at a time, double-buffered, in rows of tile + 1
+    (and, with the tracker in registers, the choices of a tile as
+    int32)."""
+    registers: bool
+    kc: int
+    per: int
+    tile: int
+    smem_bytes: int
+
+    def servers(self, lane: int, p: int) -> list[int]:
+        """The servers (of every replica) lane ``lane`` holds."""
+        return [j for j in range(lane, 32 * self.per, 32) if j < p]
+
+    @functools.cached_property
+    def args(self) -> ctypes.Array:
+        """The plan as the C entry point reads it (kPlanLen int64)."""
+        return int64_array([0 if self.registers else 1, self.kc, self.per,
+                            self.tile, self.smem_bytes])
+
+
+def _bucket(x: int, buckets: tuple[int, ...]) -> int | None:
+    return next((b for b in buckets if b >= x), None)
+
+
+@functools.lru_cache(maxsize=256)
+def jsq_plan(r: int, p: int, itemsize: int) -> JsqPlan:
+    """The plan for (r, p) in a float of ``itemsize`` bytes: the tracker
+    in registers where KC x PER fits REG_BUDGET, else in shared memory;
+    the widest tile whose buffers fit a block's shared memory."""
+    kc = _bucket(r, KC_BUCKETS)
+    if kc is None or r < 1:
+        raise ValueError(f"the CUDA JSQ router takes 1..{MAX_REPLICAS} "
+                         f"replicas; got r={r}")
+    per = _bucket(-(-p // 32), PER_BUCKETS)
+    if per is not None and kc * per * (itemsize // 4) <= REG_BUDGET:
+        for tile in TILES:
+            smem = 2 * (p + 2) * (tile + 1) * itemsize + 4 * tile
+            if smem <= SMEM_LIMIT:
+                return JsqPlan(True, kc, per, tile, smem)
+    per = -(-p // 32)
+    for tile in TILES:
+        smem = (r * p + 2 * (p + 2) * (tile + 1)) * itemsize
+        if smem <= SMEM_LIMIT:
+            return JsqPlan(False, kc, per, tile, smem)
+    raise ValueError(f"r={r}, p={p} needs {r * p * itemsize} B of shared "
+                     f"memory for the tracker alone; a block has "
+                     f"{SMEM_LIMIT}")
 
 
 def jsq_route_cuda(w: Tensor, gaps: Tensor, services: Tensor, live: Tensor
@@ -65,19 +129,13 @@ def jsq_route_cuda(w: Tensor, gaps: Tensor, services: Tensor, live: Tensor
                          f"{tuple(live.shape)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("w, gaps, services and live must be contiguous")
-    if not 1 <= r <= MAX_REPLICAS:
-        raise ValueError(f"the CUDA JSQ router takes 1..{MAX_REPLICAS} "
-                         f"replicas; got r={r}")
-    smem = (r * p + 2 * p * _TILE_STRIDE) * w.element_size()
-    if smem > _MAX_SHARED:
-        raise ValueError(f"r={r}, p={p} needs {smem} B of shared memory; "
-                         f"a block has {_MAX_SHARED}")
+    plan = jsq_plan(r, p, w.element_size())
     choice = torch.empty((n_scen, n), dtype=torch.int64, device=w.device)
     w_new = torch.empty_like(w)
     if n_scen == 0 or p == 0:
         return choice.zero_(), w_new.copy_(w)
     LIB.call(f"jsq_route_{_SUFFIX[w.dtype]}", w.device, ptr(w), ptr(gaps),
              ptr(services), ptr(live), ptr(choice), ptr(w_new), n_scen, r, p,
-             n)
+             n, plan.args, len(plan.args))
     launches += 1
     return choice, w_new

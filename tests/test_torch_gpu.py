@@ -175,8 +175,12 @@ def test_segment_kernel_matches_plain_scan(cuda, shape, fshape, dtype, rtol):
     _assert_rel(kb, pb, rtol)
 
 
+# p off a multiple of 32 at r = 16 and 13 in registers (16, 40; 13, 70
+# in float32); past the register budget, the shared-memory variant, whose
+# server loops diverge before its warp max (16, 200; 13, 70 in float64)
 @pytest.mark.parametrize("r,p,n", [(4, 100, 300), (3, 5, 1000), (1, 7, 33),
-                                   (16, 40, 65)])
+                                   (16, 40, 65), (16, 200, 70),
+                                   (13, 70, 129)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_jsq_kernel_matches_plain_loop(cuda, r, p, n, dtype):
     g = torch.Generator(device=cuda).manual_seed(r * 1000 + p)
@@ -245,15 +249,20 @@ def _randn(shape, dtype, device, gen):
     return torch.randn(shape, generator=gen, device=device).to(dtype)
 
 
-# S not a multiple of the tiles (1000, 1025, 77, 8), G in 1, 2, 4, 8, Sq !=
-# Sk both ways, causal and not, every D of HEAD_DIMS
+# S not a multiple of the tiles (1000, 1025, 77, 8), G in 1, 2, 3, 4, 6,
+# 8, 12, 20, 64 (3, 6, 12, 20 leave rows of a 64-row tile idle; 64 is one
+# position a tile), Sq != Sk both ways, causal and not, every D of
+# HEAD_DIMS (8 a zero-filled 16-wide band)
 @pytest.mark.parametrize("d", fa_kernel.HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,sq,sk,h,kv,causal", [
     (1, 1000, 1000, 8, 2, True), (2, 77, 77, 4, 2, True),
     (1, 256, 256, 32, 8, True), (2, 8, 8, 8, 1, True),
     (1, 40, 100, 8, 8, False), (1, 1025, 1025, 16, 2, True),
-    (1, 100, 40, 8, 4, True)])
+    (1, 100, 40, 8, 4, True), (2, 300, 300, 12, 4, True),
+    (1, 333, 333, 12, 2, True), (1, 200, 200, 24, 2, True),
+    (1, 50, 90, 12, 1, False), (1, 90, 90, 40, 2, True),
+    (1, 130, 130, 64, 1, True)])
 def test_flash_kernel_matches_plain_version(cuda, d, dtype, b, sq, sk, h,
                                             kv, causal):
     g = torch.Generator(device=cuda).manual_seed(d + sq)
@@ -282,11 +291,13 @@ def test_flash_kernel_reads_strided_views(cuda, d):
     assert torch.equal(out, expect)
 
 
-@pytest.mark.parametrize("d", [16, 64, 128])
+# G in 1, 2, 3, 4, 6, 8, 12, 16; D = 8 through a zero-filled band (bf16)
+@pytest.mark.parametrize("d", [8, 16, 64, 128])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,kv,length", [
     (8, 4096, 32, 8, 2100), (2, 1024, 8, 2, 0), (2, 512, 16, 8, 511),
-    (1, 3000, 4, 4, 2999), (3, 100, 8, 1, 57)])
+    (1, 3000, 4, 4, 2999), (3, 100, 8, 1, 57), (2, 700, 12, 4, 333),
+    (1, 300, 12, 2, 299), (2, 1000, 24, 2, 999), (1, 40, 16, 1, 5)])
 def test_decode_kernel_matches_plain_version(cuda, d, dtype, b, s, h, kv,
                                              length):
     g = torch.Generator(device=cuda).manual_seed(d + s + length)
@@ -300,6 +311,27 @@ def test_decode_kernel_matches_plain_version(cuda, d, dtype, b, s, h, kv,
     assert dec_ops.launch_count() == before + 1
     assert out.dtype == dtype and out.shape == q.shape
     _attn_close(out, expect, dtype)
+
+
+def test_decode_kernel_on_two_streams_at_once(cuda):
+    """Calls in flight on two streams take their own merge tickets: each
+    gives what it gives alone (several splits a row, so rows merge)."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    args = [(_randn((8, 1, 32, 128), torch.bfloat16, cuda, g),
+             _randn((8, 4096, 8, 128), torch.bfloat16, cuda, g),
+             _randn((8, 4096, 8, 128), torch.bfloat16, cuda, g))
+            for _ in range(2)]
+    alone = [dec_ops.decode_attention(*a, 4000, impl="cuda") for a in args]
+    streams = [torch.cuda.Stream(cuda) for _ in args]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(20):
+        for stream, a in zip(streams, args):
+            with torch.cuda.stream(stream):
+                outs.append(dec_ops.decode_attention(*a, 4000, impl="cuda"))
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        assert torch.equal(out, alone[i % 2])
 
 
 def test_decode_kernel_never_reads_past_length(cuda):
@@ -319,10 +351,17 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     k = torch.zeros((1, 8, 2, 48), device=cuda)
     with pytest.raises(ValueError, match="D in"):
         fa_ops.flash_attention(q, k, k, impl="cuda")
-    q = torch.zeros((1, 1, 6, 64), device=cuda)
-    k = torch.zeros((1, 8, 2, 64), device=cuda)
+    q = torch.zeros((1, 1, 17, 64), device=cuda)
+    k = torch.zeros((1, 8, 1, 64), device=cuda)
     with pytest.raises(ValueError, match="H / KV in"):
         dec_ops.decode_attention(q, k, k, 3, impl="cuda")
+    q = torch.zeros((1, 1, 6, 48), device=cuda)
+    k = torch.zeros((1, 8, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="D in"):
+        dec_ops.decode_attention(q, k, k, 3, impl="cuda")
+    q = torch.zeros((1, 1, 6, 64), device=cuda)   # G = 3 is taken
+    k = torch.zeros((1, 8, 2, 64), device=cuda)
+    assert dec_ops.decode_attention(q, k, k, 3, impl="cuda").shape == q.shape
     k = torch.zeros((1, 8, 3, 64), device=cuda)
     with pytest.raises(ValueError, match="length"):
         dec_ops.decode_attention(q[:, :, :3], k, k, 8, impl="cuda")
