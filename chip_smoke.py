@@ -455,6 +455,20 @@ def phase_profile(card: str, wall: float, run, title: str) -> dict:
             for e in kernels}
 
 
+def _kernel_share(traced: dict, key: str, what: str) -> None:
+    """Print the device time of the kernels whose name holds ``key`` in a
+    `phase_profile` trace; fail if the trace has none (every traced path
+    launches the kernels it is asked about)."""
+    hits = [v for k, v in traced.items() if key in k]
+    if not hits:
+        raise AssertionError(f"the trace lists no {key} kernel, though the "
+                             "path launched it")
+    ms = sum(t for t, _ in hits)
+    busy = sum(t for t, _ in traced.values())
+    print(f"  {what}: {ms:.3f} ms in {sum(n for _, n in hits)} launches, "
+          f"{100 * ms / busy:.1f} % of {busy:.2f} ms busy")
+
+
 def _route_flags(rows, length, gen):
     """Segment heads of a random r = 4 routing, compacted as the engine
     compacts it: (rows, length) bool."""
@@ -487,8 +501,13 @@ def phase_segment_kernel(card: str) -> dict:
         f = _route_flags(math.prod(fshape[:-1]), fshape[-1],
                          gen).reshape(fshape)
         ka, kb = ops.maxplus_segment_scan(a, b, f, impl="cuda")
+        oa, none = ops.maxplus_segment_scan(a, b, f, impl="cuda",
+                                            with_b=False)
         pa, pb = ops.maxplus_segment_scan(a, b, f, impl="torch")
         torch.cuda.synchronize()
+        if none is not None or not torch.equal(oa, ka):
+            raise AssertionError(f"the out_a-only scan differs from the "
+                                 f"two-output out_a at {shape} {dtype}")
         err = max(_rel_err(ka, pa), _rel_err(kb, pb))
         abs_err = float(max((ka - pa).abs().max(), (kb - pb).abs().max()))
         print(f"  {str(shape):14s} flags {str(fshape):14s} "
@@ -504,22 +523,30 @@ def phase_segment_kernel(card: str) -> dict:
     a, b, _ = _inputs(TIMED_SHAPE, torch.float32, gen)
     f = _route_flags(N_SCEN, CHUNK, gen)
     f8 = f.to(torch.uint8)
-    ms = _time_ms(lambda: kernel.maxplus_segment_scan_cuda(a, b, f8))
     plain_ms = _time_ms(lambda: ops.maxplus_segment_scan(
         a, b, f[:, None, :].expand(N_SCEN, P, CHUNK).reshape(TIMED_SHAPE),
         impl="torch"), n=10)
     rows, length = TIMED_SHAPE
-    moved = rows * length * 4 * a.element_size() + f8.numel()
     ops_ms = rows * length * 3 / FP32_OPS_PER_S * 1e3   # add, add, max
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
     print(f"  at {TIMED_SHAPE} float32, {tuple(f8.shape)} uint8 flags, "
-          f"mean of "
-          f"{N_TIMED} launches [{card}]:")
-    print(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library: none "
-          f"(no PyTorch call computes a segmented (max,+) scan)  bound "
-          f"{bound_ms:.4f} ms ({moved / 1e6:.1f} MB at 3.35 TB/s); kernel "
-          f"at {moved / (ms * 1e-3) / 1e9:.0f} GB/s")
+          f"mean of {N_TIMED} launches [{card}]; plain {plain_ms:.4f} ms, "
+          "library: none (no PyTorch call computes a segmented (max,+) "
+          "scan):")
+    # out_a only is what the simulator calls: a, b read, out_a written
+    for with_b, what in ((False, "out_a only (the main path)"),
+                         (True, "out_a and out_b")):
+        t = _time_ms(lambda: kernel.maxplus_segment_scan_cuda(
+            a, b, f8, with_b=with_b))
+        moved = rows * length * (4 if with_b else 3) * a.element_size() \
+            + f8.numel()
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        t_bound = max(t_bytes, ops_ms)
+        print(f"    {what}: kernel {t:.4f} ms  bound {t_bound:.4f} ms "
+              f"({moved / 1e6:.1f} MB at 3.35 TB/s; "
+              f"{100 * t_bound / t:.1f} %); kernel at "
+              f"{moved / (t * 1e-3) / 1e9:.0f} GB/s")
+        if not with_b:
+            ms, bytes_ms, bound_ms = t, t_bytes, t_bound
     return {"name": "maxplus_segment_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/maxplus_scan/csrc/"
                       "maxplus_segment_scan.cu",
@@ -1292,9 +1319,10 @@ def _bag_bytes(table, ids, mask):
 
 def phase_bag_kernel(card: str, table, wide, batches) -> dict:
     """The embedding-bag kernel against its plain version: the model's
-    33.8 M-row tables (D = 10 and the wide D = 1) with ctr_batch ids, D =
-    16, float32, a non-prefix mask with an all-masked bag and ids past the
-    table's end under the mask; then timings at both serving batches."""
+    33.8 M-row tables (D = 10 and the wide D = 1) with ctr_batch ids (int32
+    and int64), D = 16, float32, a non-prefix mask with an all-masked bag
+    and ids past the table's end under the mask; then timings of both
+    tables' calls at both serving batches."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.embedding_bag import kernel, ops, ref
@@ -1311,6 +1339,10 @@ def phase_bag_kernel(card: str, table, wide, batches) -> dict:
              ("D=10 bf16, serve_bulk", table, t32, b_ids, b_mask),
              ("D=1 bf16 (wide), serve_p99", wide, wide.float(), p_ids,
               p_mask),
+             ("D=1 bf16 (wide), serve_bulk", wide, wide.float(), b_ids,
+              b_mask),
+             ("D=10 bf16, serve_bulk, int64 ids", table, t32, b_ids.long(),
+              b_mask),
              ("D=10 float32, serve_p99", t32, t32, p_ids, p_mask),
              ("D=10 bf16, non-prefix mask, an empty bag, past-the-end ids "
               "masked", table, t32, odd_ids, odd_mask)]
@@ -1324,40 +1356,45 @@ def phase_bag_kernel(card: str, table, wide, batches) -> dict:
         expect = ref.embedding_bag_masked(tab32, ids, mask)
         torch.cuda.synchronize()
         err = _row_check(out, expect, BAG_ROW_RTOL[str(tab.dtype)], what)
-        if what.startswith("D=10 bf16, serve_bulk"):
+        if what == "D=10 bf16, serve_bulk":
             main_err = err
     del t32, t16
     report = None
-    for what, (ids, mask) in (("serve_p99", batches[0]),
-                              ("serve_bulk", batches[-1])):
-        ms = _device_ms(lambda: kernel.embedding_bag_cuda(table, ids, mask))
-        plain_ms = _device_ms(lambda: ops.embedding_bag(table, ids, mask,
+    for (what, (ids, mask)), (d_what, tab) in itertools.product(
+            (("serve_p99", batches[0]), ("serve_bulk", batches[-1])),
+            (("D = 10 bf16", table), ("D = 1 bf16 (wide)", wide))):
+        ms = _device_ms(lambda: kernel.embedding_bag_cuda(tab, ids, mask))
+        plain_ms = _device_ms(lambda: ops.embedding_bag(tab, ids, mask,
                                                         impl="torch"), n=5)
         flat = ids[mask]
         counts = mask.sum(-1).flatten()
         offsets = torch.cumsum(counts, 0) - counts
         library_ms = _device_ms(lambda: F.embedding_bag(
-            flat, table, offsets, mode="mean"))
-        distinct, other, gathered, sectors = _bag_bytes(table, ids, mask)
+            flat, tab, offsets, mode="mean"))
+        distinct, other, gathered, sectors = _bag_bytes(tab, ids, mask)
         least = distinct + other
         bound_ms = least / HBM_BYTES_PER_S * 1e3
         print(f"  {what} (B = {ids.shape[0]}, {flat.numel()} valid ids), "
-              f"D = 10 bf16, device time [{card}]:")
+              f"{d_what}, {kernel.bag_plan(tab, ids, mask)}, device time "
+              f"[{card}]:")
         print(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
               f"F.embedding_bag(mode='mean') {library_ms:.4f} ms  bound "
               f"{bound_ms:.4f} ms ({least / 1e6:.2f} MB: distinct rows, "
               f"valid ids, mask, output at 3.35 TB/s; DRAM traffic, as hot "
-              f"rows stay in L2); gathered rows {gathered / 1e6:.2f} MB "
+              f"rows stay in L2; {100 * bound_ms / ms:.1f} %); gathered "
+              f"rows {gathered / 1e6:.2f} MB "
               f"({(gathered + other) / HBM_BYTES_PER_S * 1e3:.4f} ms with "
               f"the rest), at 32-byte sectors {sectors / 1e6:.2f} MB "
               f"({(sectors + other) / HBM_BYTES_PER_S * 1e3:.4f} ms)")
-        report = {"name": "embedding_bag", "route": "cuda",
-                  "source": "src/repro_torch/kernels/embedding_bag/csrc/"
-                            "embedding_bag.cu",
-                  "replaces": "src/repro/kernels/embedding_bag/kernel.py:47",
-                  "launches": None, "max_abs_err": main_err, "ms": ms,
-                  "plain_ms": plain_ms, "bound_ms": bound_ms,
-                  "bound_by": "bytes", "library_ms": library_ms}
+        if what == "serve_bulk" and tab is table:
+            report = {"name": "embedding_bag", "route": "cuda",
+                      "source": "src/repro_torch/kernels/embedding_bag/"
+                                "csrc/embedding_bag.cu",
+                      "replaces": "src/repro/kernels/embedding_bag/"
+                                  "kernel.py:47",
+                      "launches": None, "max_abs_err": main_err, "ms": ms,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": "bytes", "library_ms": library_ms}
     return report
 
 
@@ -1619,12 +1656,14 @@ def main() -> int:
     segment["launches"] = launches["random"]["maxplus_segment_scan"]
     jsq["launches"] = launches["jsq"]["jsq_route"]
     from repro_torch.core.cluster import ClusterSpec
-    phase_profile(card, wall, lambda: simulator.simulate_fork_join_batch(
-        11, R * lam, params, N_CHUNKS * CHUNK, p=P,
-        cluster=ClusterSpec(r=R, routing="random",
-                            result_cache=RESULT_CACHE)),
+    traced = phase_profile(
+        card, wall, lambda: simulator.simulate_fork_join_batch(
+            11, R * lam, params, N_CHUNKS * CHUNK, p=P,
+            cluster=ClusterSpec(r=R, routing="random",
+                                result_cache=RESULT_CACHE)),
         f"phase 6b: device time by kernel, replicated path (random, r = {R},"
         " result cache)")
+    _kernel_share(traced, "maxplus_segment_scan_kernel", "segmented scan")
     phase_memory_law(card)
     flash = phase_flash_kernel(card)
     decode = phase_decode_kernel(card)
@@ -1652,10 +1691,9 @@ def main() -> int:
         traced = phase_profile(
             card, wall, lambda: RS.xdeepfm_logits(params, cfg, ids, mask),
             f"phase 15b: device time by kernel, {cfg.name} logits at B = {b}")
-        for kernel in ("embedding_bag_kernel", "cin_"):
-            if not any(kernel in key for key in traced):
-                raise AssertionError(f"the B = {b} trace lists no {kernel} "
-                                     "kernel, though the path launched it")
+        for kernel, what in (("embedding_bag_kernel", "embedding bag"),
+                             ("cin_", "CIN")):
+            _kernel_share(traced, kernel, what)
     print(json.dumps({"kernels": [scan, segment, jsq, flash, decode, bag,
                                   cin]}))
     print(card)

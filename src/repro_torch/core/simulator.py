@@ -187,7 +187,8 @@ def _fcfs_segmented(arrivals: Tensor, services: Tensor, flags: Tensor,
     # distinct non-empty queues have distinct heads; an empty queue's
     # -inf cannot raise the value it may share a slot with
     a.scatter_reduce_(-1, idx, seeded, reduce="amax", include_self=True)
-    out_a, _ = mp_ops.maxplus_segment_scan(a, b, flags, impl=impl)
+    out_a, _ = mp_ops.maxplus_segment_scan(a, b, flags, impl=impl,
+                                           with_b=False)
     return out_a
 
 

@@ -2,15 +2,19 @@
 
 ``csrc/embedding_bag.cu`` replaces the Pallas TPU kernel
 `repro.kernels.embedding_bag.kernel.embedding_bag_pallas`.  It takes the
-model op's arguments (a mask, not counts) and skips masked entries without
-reading their ids.  Built by `repro_torch.kernels._cuda.CudaLibrary` at
-first use; ``launches`` counts the launches this process made.
+model op's arguments (a mask, not counts), never uses a masked entry's id
+and never gathers its row.  Built by `repro_torch.kernels._cuda
+.CudaLibrary` at first use; ``launches`` counts the launches this process
+made.  `bag_plan` picks, in Python, what the launch depends on: the width
+of the unit a lane loads from a row, and whether a bag's mask and ids come
+in vector loads.
 """
 
 from __future__ import annotations
 
 import ctypes
 import pathlib
+from typing import NamedTuple
 
 import torch
 
@@ -24,15 +28,34 @@ _I = ctypes.c_int64
 
 LIB = CudaLibrary(
     _HERE / "csrc" / "embedding_bag.cu",
-    {name: [_P] * 4 + [_I] * 5 + [_P]
+    {name: [_P] * 4 + [_I] * 7 + [_P]
      for name in ("embedding_bag_f32", "embedding_bag_bf16")})
 
-__all__ = ["LIB", "embedding_bag_cuda"]
+__all__ = ["LIB", "BagPlan", "bag_plan", "embedding_bag_cuda"]
 
 launches = 0          # kernel launches in this process
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _ID_BYTES = {torch.int32: 4, torch.int64: 8}
+
+
+class BagPlan(NamedTuple):
+    unit_bytes: int   # a lane's load from a row: 16, 8, 4 or 2 bytes
+    vec4: bool        # M = 4: the mask in one 4-byte load, ids in 16-byte
+
+
+def bag_plan(table: Tensor, ids: Tensor, mask: Tensor) -> BagPlan:
+    """The widest unit, up to 16 bytes, that divides a row of ``table``
+    and its start (so every row and output row is aligned to it), and
+    whether a bag's M = 4 mask bytes and ids can be read as vectors."""
+    el = table.element_size()
+    row_bytes = table.shape[-1] * el
+    unit = 16
+    while unit > el and (row_bytes % unit or table.data_ptr() % unit):
+        unit //= 2
+    vec4 = (ids.shape[-1] == 4 and mask.data_ptr() % 4 == 0
+            and ids.data_ptr() % 16 == 0)
+    return BagPlan(unit, vec4)
 
 
 def embedding_bag_cuda(table: Tensor, ids: Tensor, mask: Tensor) -> Tensor:
@@ -70,8 +93,9 @@ def embedding_bag_cuda(table: Tensor, ids: Tensor, mask: Tensor) -> Tensor:
     if out.numel() == 0:
         return out
     n_bags = out.numel() // dim
+    plan = bag_plan(table, ids, mask)
     LIB.call(f"embedding_bag_{_SUFFIX[table.dtype]}", table.device,
              ptr(table), ptr(ids), ptr(mask), ptr(out), n_bags, bag, dim,
-             rows, _ID_BYTES[ids.dtype])
+             rows, _ID_BYTES[ids.dtype], plan.unit_bytes, int(plan.vec4))
     launches += 1
     return out

@@ -1,6 +1,7 @@
 // Shared pieces of the (max,+) scan kernels: the affine map, its
-// composition, and the launch shape.  Included by maxplus_scan.cu and
-// maxplus_segment_scan.cu, each built into its own library.
+// composition, and the plain scan's launch shape.  Included by
+// maxplus_scan.cu and maxplus_segment_scan.cu, each built into its own
+// library.
 
 #pragma once
 

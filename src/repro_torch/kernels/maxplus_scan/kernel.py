@@ -103,14 +103,16 @@ def maxplus_scan_cuda(a: Tensor, b: Tensor,
     return out_a, out_b
 
 
-def maxplus_segment_scan_cuda(a: Tensor, b: Tensor, f: Tensor
-                              ) -> tuple[Tensor, Tensor]:
+def maxplus_segment_scan_cuda(a: Tensor, b: Tensor, f: Tensor, *,
+                              with_b: bool = True
+                              ) -> tuple[Tensor, Optional[Tensor]]:
     """Launch the segmented scan; returns (out_a, out_b).
 
     ``a`` and ``b`` are (rows, len); ``f`` is (flag_rows, len) ``uint8``
     reset flags with ``rows`` a multiple of ``flag_rows``: row ``i`` reads
-    flag row ``i // (rows // flag_rows)``.  Raises on anything the kernel
-    does not take.
+    flag row ``i // (rows // flag_rows)``.  With ``with_b=False`` the
+    kernel writes out_a only and out_b is None (the simulator reads
+    out_a alone).  Raises on anything the kernel does not take.
     """
     global segment_launches
     _check_pair(a, b, "segmented scan")
@@ -121,7 +123,7 @@ def maxplus_segment_scan_cuda(a: Tensor, b: Tensor, f: Tensor
                          f"{f.dtype} {tuple(f.shape)} on {f.device}")
     rows, length = a.shape
     out_a = torch.empty_like(a)
-    out_b = torch.empty_like(b)
+    out_b = torch.empty_like(b) if with_b else None
     if a.numel() == 0:
         return out_a, out_b
     if f.shape[0] == 0 or rows % f.shape[0]:

@@ -138,16 +138,21 @@ def _flag_rows(f: Tensor, shape: torch.Size) -> Tensor:
 
 
 def maxplus_segment_scan(a: Tensor, b: Tensor, f: Tensor, *,
-                         impl: str = "auto") -> tuple[Tensor, Tensor]:
+                         impl: str = "auto", with_b: bool = True
+                         ) -> tuple[Tensor, Optional[Tensor]]:
     """Segmented inclusive (max, +) scan along the last axis.
 
     ``f`` holds reset flags (bool, integer or float 0/1; nonzero starts a
     new segment) and broadcasts against ``a``: the scan never looks back
-    across a flagged element.  Any leading shape.
+    across a flagged element.  Any leading shape.  ``with_b=False``
+    returns ``(out_a, None)``: the kernel then neither allocates nor
+    writes out_b (the plain version computes it and drops it).
     """
     if resolve_scan_impl(impl, a.device) == "torch":
-        return ref.maxplus_segment_scan_ref(a, b, f)
+        out_a, out_b = ref.maxplus_segment_scan_ref(a, b, f)
+        return out_a, (out_b if with_b else None)
     shape = torch.broadcast_shapes(a.shape, b.shape, f.shape)
     out_a, out_b = kernel.maxplus_segment_scan_cuda(
-        _rows(a, shape), _rows(b, shape), _flag_rows(f, shape))
-    return out_a.reshape(shape), out_b.reshape(shape)
+        _rows(a, shape), _rows(b, shape), _flag_rows(f, shape),
+        with_b=with_b)
+    return out_a.reshape(shape), (out_b.reshape(shape) if with_b else None)

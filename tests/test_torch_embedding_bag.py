@@ -102,6 +102,37 @@ def test_cpu_takes_the_plain_version_and_counts_it():
     assert (t_ops.plain_count(), t_ops.launch_count()) == (2, 0)
 
 
+@pytest.mark.parametrize("d,dtype,unit", [
+    (10, torch.bfloat16, 4), (1, torch.bfloat16, 2), (8, torch.bfloat16, 16),
+    (16, torch.bfloat16, 16), (128, torch.bfloat16, 16),
+    (6, torch.bfloat16, 4), (10, torch.float32, 8), (1, torch.float32, 4),
+    (3, torch.float32, 4), (16, torch.float32, 16)])
+def test_bag_plan_takes_the_widest_unit_a_row_allows(d, dtype, unit):
+    """A lane's load is the widest of 16/8/4/2 bytes dividing a row: 5 x 4
+    bytes at xDeepFM's D = 10 bf16, 2 bytes for the wide D = 1 table."""
+    table = torch.zeros((64, d), dtype=dtype)
+    ids = torch.zeros((5, 39, 4), dtype=torch.int64)
+    mask = torch.ones((5, 39, 4), dtype=torch.bool)
+    plan = t_kernel.bag_plan(table, ids, mask)
+    assert plan == t_kernel.BagPlan(unit, True)
+    assert (d * table.element_size()) % plan.unit_bytes == 0
+
+
+def test_bag_plan_narrows_for_unaligned_views():
+    """A table, ids or mask that starts off alignment (a view at an
+    offset) takes narrower loads; M other than 4 takes the scalar path."""
+    table = torch.zeros(64 * 16 + 1, dtype=torch.bfloat16)[1:].view(64, 16)
+    ids = torch.zeros(5 * 4 + 1, dtype=torch.int32)[1:].view(5, 4)
+    mask = torch.ones(5 * 4 + 1, dtype=torch.bool)[1:].view(5, 4)
+    assert t_kernel.bag_plan(table, ids, mask) == t_kernel.BagPlan(2, False)
+    aligned = torch.zeros(5, 4, dtype=torch.int32)
+    assert not t_kernel.bag_plan(table, aligned, mask).vec4
+    assert t_kernel.bag_plan(table, aligned, torch.ones(5, 4)).vec4
+    three = torch.zeros(5, 3, dtype=torch.int32)
+    assert not t_kernel.bag_plan(table, three,
+                                 torch.ones(5, 3, dtype=torch.bool)).vec4
+
+
 def test_cuda_impl_refuses_cpu_tensors():
     args = [torch.from_numpy(x) for x in _bags(20, 3, 2, 2, 2, 5)]
     with pytest.raises(ValueError, match="CUDA tensors"):

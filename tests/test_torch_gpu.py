@@ -24,6 +24,7 @@ from repro_torch.kernels import hopper
 from repro_torch.kernels.cin_fuse import kernel as cin_kernel
 from repro_torch.kernels.cin_fuse import ops as cin_ops
 from repro_torch.kernels.decode_attention import ops as dec_ops
+from repro_torch.kernels.embedding_bag import kernel as bag_kernel
 from repro_torch.kernels.embedding_bag import ops as bag_ops
 from repro_torch.kernels.embedding_bag import ref as bag_ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
@@ -173,6 +174,72 @@ def test_segment_kernel_matches_plain_scan(cuda, shape, fshape, dtype, rtol):
     assert ops.segment_launch_count() == before + 1
     _assert_rel(ka, pa, rtol)
     _assert_rel(kb, pb, rtol)
+
+
+def _segment_flags(kind, shape, device, seed):
+    if kind == "all":
+        return torch.ones(shape, dtype=torch.bool, device=device)
+    if kind == "none":
+        return torch.zeros(shape, dtype=torch.bool, device=device)
+    return _flags(shape, device, p_flag=0.05, seed=seed)
+
+
+# lengths off the 128-element tile and off the 4-element vector (37, 777,
+# 1000), a row shorter than a vector (1); per_flag 1 reads a flag row per
+# row, p = 5 shares one between the 5 server rows of a scenario
+@pytest.mark.parametrize("length", [1, 37, 777, 1000, 4096])
+@pytest.mark.parametrize("kind", ["random", "all", "none"])
+@pytest.mark.parametrize("per_flag", [1, 5])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-12)])
+def test_segment_kernel_out_a_only_lengths_and_flags(cuda, length, kind,
+                                                     per_flag, dtype, rtol):
+    shape = (3, 5, length)
+    a, b, _ = _inputs(shape, dtype, cuda, seed=length)
+    f = _segment_flags(kind, (3, 5 // per_flag, length), cuda, length)
+    before = ops.segment_launch_count()
+    ka, kb = ops.maxplus_segment_scan(a, b, f, impl="cuda")
+    oa, none = ops.maxplus_segment_scan(a, b, f, impl="cuda", with_b=False)
+    pa, pb = ops.maxplus_segment_scan(a, b, f, impl="torch")
+    torch.cuda.synchronize()
+    assert ops.segment_launch_count() == before + 2   # one a call
+    assert none is None
+    assert torch.equal(oa, ka)                        # bitwise
+    _assert_rel(ka, pa, rtol)
+    _assert_rel(kb, pb, rtol)
+
+
+# a row start off 16 bytes (storage offset 1 element: every row takes the
+# scalar path) and on 16 bytes (offset 4 floats / 2 doubles: the vector
+# path) give the same bits as a fresh tensor
+@pytest.mark.parametrize("offset", [1, 4])
+@pytest.mark.parametrize("length", [1000, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_segment_kernel_reads_rows_off_alignment(cuda, offset, length,
+                                                 dtype):
+    rows = 7
+    a, b, _ = _inputs((rows, length), dtype, cuda, seed=offset)
+    f = _flags((rows, length), cuda, seed=offset).to(torch.uint8)
+    off = offset if dtype == torch.float32 else max(offset // 2, 1)
+
+    def shifted(x):
+        store = torch.empty(x.numel() + off, dtype=x.dtype, device=cuda)
+        view = store[off:].view(x.shape)
+        view.copy_(x)
+        return view
+
+    sa, sb = shifted(a), shifted(b)
+    sf = torch.empty(f.numel() + 1, dtype=torch.uint8, device=cuda)[1:]
+    sf = sf.view(f.shape)
+    sf.copy_(f)
+    assert sa.is_contiguous() and (sa.data_ptr() % 16 == 0) == (
+        off * a.element_size() % 16 == 0)
+    ka, kb = kernel.maxplus_segment_scan_cuda(a, b, f)
+    va, vb = kernel.maxplus_segment_scan_cuda(sa, sb, sf)
+    wa, _ = kernel.maxplus_segment_scan_cuda(sa, sb, sf, with_b=False)
+    torch.cuda.synchronize()
+    assert torch.equal(va, ka) and torch.equal(vb, kb)
+    assert torch.equal(wa, ka)
 
 
 # p off a multiple of 32 at r = 16 and 13 in registers (16, 40; 13, 70
@@ -463,6 +530,88 @@ def test_bag_kernel_never_reads_masked_rows_or_ids(cuda):
     far = torch.where(mask, ids, 10 ** 12)    # past the table's end
     out = bag_ops.embedding_bag(poisoned, far, mask, impl="cuda")
     assert torch.equal(out, clean)
+
+
+# bag sizes M = 4 (the vector path) and 1, 3, 9 (entries 4 at a time,
+# scalar loads); widths whose rows take 2-, 4-, 8- and 16-byte units
+@pytest.mark.parametrize("m", [1, 3, 4, 9])
+@pytest.mark.parametrize("d", [1, 8, 10, 16, 128])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("dtype,rtol", [(torch.bfloat16, 1e-2),
+                                        (torch.float32, 1e-5)])
+def test_bag_kernel_bag_sizes_widths_and_edges(cuda, m, d, id_dtype, dtype,
+                                               rtol):
+    g = torch.Generator(device=cuda).manual_seed(m * 1000 + d)
+    rows = 5000
+    table = (0.01 * torch.randn((rows, d), generator=g, device=cuda)
+             ).to(dtype)
+    ids = torch.randint(0, rows, (97, 7, m), generator=g, device=cuda,
+                        dtype=id_dtype)
+    mask = torch.rand((97, 7, m), generator=g, device=cuda) < 0.6
+    mask[0, 0] = False                        # an empty bag: zeros
+    ids = torch.where(mask, ids, rows + 12_345)   # masked: never used
+    mask[1, 2, m - 1] = True                  # a valid id past the end:
+    ids[1, 2, m - 1] = rows                   # its bag is NaN
+    before = bag_ops.launch_count()
+    out = bag_ops.embedding_bag(table, ids, mask, impl="cuda")
+    torch.cuda.synchronize()
+    assert bag_ops.launch_count() == before + 1
+    assert out.shape == (97, 7, d) and out.dtype == dtype
+    assert bool(torch.isnan(out[1, 2]).all())
+    keep = torch.ones((97, 7), dtype=torch.bool, device=cuda)
+    keep[1, 2] = False
+    safe = ids.clone()
+    safe[1, 2, m - 1] = 0                     # the plain version indexes
+    expect = bag_ref.embedding_bag_masked(table.float(), safe, mask)
+    scale = (None if dtype == torch.bfloat16 else
+             bag_ref.embedding_bag_masked(table.float().abs(), safe,
+                                          mask)[keep])
+    _rows_close(out[keep], expect[keep], rtol, scale=scale)
+
+
+# rows wider than a block's 256 lanes take several runs of lanes (a 2-D
+# grid): bf16 D = 4104 (513 units of 16 bytes), float32 D = 2050 (1025 of
+# 8 bytes)
+@pytest.mark.parametrize("d,dtype,rtol", [(4104, torch.bfloat16, 1e-2),
+                                          (2050, torch.float32, 1e-5)])
+def test_bag_kernel_takes_rows_wider_than_a_block(cuda, d, dtype, rtol):
+    g = torch.Generator(device=cuda).manual_seed(d)
+    table = (0.01 * torch.randn((300, d), generator=g, device=cuda)
+             ).to(dtype)
+    ids = torch.randint(0, 300, (5, 3, 4), generator=g, device=cuda)
+    mask = torch.rand((5, 3, 4), generator=g, device=cuda) < 0.6
+    out = bag_ops.embedding_bag(table, ids, mask, impl="cuda")
+    expect = bag_ref.embedding_bag_masked(table.float(), ids, mask)
+    scale = (None if dtype == torch.bfloat16 else
+             bag_ref.embedding_bag_masked(table.float().abs(), ids, mask))
+    _rows_close(out, expect, rtol, scale=scale)
+
+
+# a table, ids and mask off their alignment take narrower loads (2-byte
+# units, scalar ids and mask) and give the same bits: the sum's order does
+# not depend on the load width
+@pytest.mark.parametrize("d", [1, 10, 16])
+@pytest.mark.parametrize("id_dtype", [torch.int32, torch.int64])
+def test_bag_kernel_reads_views_off_alignment(cuda, d, id_dtype):
+    g = torch.Generator(device=cuda).manual_seed(d)
+    table = (0.01 * torch.randn((3000, d), generator=g, device=cuda)
+             ).bfloat16()
+    ids = torch.randint(0, 3000, (200, 39, 4), generator=g, device=cuda,
+                        dtype=id_dtype)
+    mask = torch.rand((200, 39, 4), generator=g, device=cuda) < 0.7
+
+    def shifted(x):
+        store = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+        view = store[1:].view(x.shape)
+        view.copy_(x)
+        return view
+
+    st, si, sm = shifted(table), shifted(ids), shifted(mask)
+    assert bag_kernel.bag_plan(st, si, sm) == bag_kernel.BagPlan(2, False)
+    assert bag_kernel.bag_plan(table, ids, mask).vec4
+    out = bag_ops.embedding_bag(table, ids, mask, impl="cuda")
+    moved = bag_ops.embedding_bag(st, si, sm, impl="cuda")
+    assert torch.equal(out, moved)
 
 
 # B = 3 and 512 split K over h (float32 partials, then a fixed-order sum),

@@ -68,6 +68,23 @@ def test_wrapper_matches_reference_pallas_interpret(x64, shape, dtype):
     _check(got, want, dtype)
 
 
+@pytest.mark.parametrize("shape", [(3, 300), (2, 2, 77)])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_out_a_only_matches_two_outputs_and_reference(x64, shape, dtype):
+    """``with_b=False`` (the simulator's entry) returns the two-output
+    call's out_a and None; out_a agrees with the Pallas kernel."""
+    a, b, f = _inputs(shape, 7, dtype, p_flag=0.1)
+    ta, tb, tf = map(torch.from_numpy, (a, b, f))
+    only_a, none = t_ops.maxplus_segment_scan(ta, tb, tf, with_b=False)
+    both_a, both_b = t_ops.maxplus_segment_scan(ta, tb, tf)
+    assert none is None and both_b is not None
+    assert torch.equal(only_a, both_a)
+    want_a, _ = j_ops.maxplus_segment_scan(jnp.asarray(a), jnp.asarray(b),
+                                           jnp.asarray(f), interpret=True)
+    np.testing.assert_allclose(only_a.numpy(), np.asarray(want_a),
+                               rtol=RTOL[dtype])
+
+
 def test_plain_segment_scan_equals_sequential():
     a, b, f = _inputs((3, 257), 2, np.float64, p_flag=0.2)
     got = t_ref.maxplus_segment_scan_ref(*map(torch.from_numpy, (a, b, f)))
@@ -132,7 +149,11 @@ def test_cuda_impl_refuses_cpu_tensors_and_counts_nothing():
     with pytest.raises(ValueError, match="CUDA tensors"):
         jsq_kernel.jsq_route_cuda(torch.zeros(1, 2, 3), torch.ones(1, 4),
                                   torch.ones(1, 3, 4), torch.ones(1, 4))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        t_kernel.maxplus_segment_scan_cuda(a, b, f.to(torch.uint8),
+                                           with_b=False)
     t_ops.maxplus_segment_scan(a, b, f)
+    t_ops.maxplus_segment_scan(a, b, f, with_b=False)
     assert t_ops.segment_launch_count() == before
 
 

@@ -227,6 +227,31 @@ def test_fused_matches_masked(routing, r, cache):
                                rtol=1e-9)
 
 
+@pytest.mark.parametrize("routing", ["random", "jsq"])
+def test_fused_engine_scans_out_a_only(monkeypatch, routing):
+    """The fused engine's segmented scans ask for out_a alone, so on the
+    card out_b is neither allocated nor written; the results are those of
+    the masked engine, as above."""
+    calls = []
+    scan = tsim.mp_ops.maxplus_segment_scan
+
+    def spy(*args, **kw):
+        calls.append(kw.get("with_b", True))
+        return scan(*args, **kw)
+
+    monkeypatch.setattr(tsim.mp_ops, "maxplus_segment_scan", spy)
+    cluster = ClusterSpec(r=3, routing=routing, result_cache=(0.25, 2e-3))
+    fused = _own(cluster, n=3000)
+    assert calls and not any(calls)
+    monkeypatch.setattr(tsim.mp_ops, "maxplus_segment_scan", scan)
+    masked = _own(dataclasses.replace(cluster, replica_impl="masked"),
+                  n=3000)
+    for name in ("count",) + _SUMS:
+        np.testing.assert_allclose(getattr(fused, name).numpy(),
+                                   getattr(masked, name).numpy(), rtol=1e-9,
+                                   err_msg=name)
+
+
 def _assert_bit_identical(a, b):
     for f in dataclasses.fields(tsim.SimResult):
         assert torch.equal(getattr(a, f.name).nan_to_num(-7.0),

@@ -1,8 +1,8 @@
-"""Probe two design choices of the port's kernels on an H100.
+"""Probe design choices of the port's kernels on an H100.
 
-Each probe builds a variant of one kernel from the repo's source with one
-change, swaps it in for the wrapper's library, and holds it against the
-plain version on the same inputs:
+Each probe builds variants of one kernel from the repo's source, each with
+one change, swaps each in for the wrapper's library, and holds it against
+the plain version on the same inputs:
 
 * ``redux``: the JSQ router's shared-memory variant without the
   ``__syncwarp()`` before its ``redux.sync`` warp max, at r = 16, p = 200
@@ -12,11 +12,26 @@ plain version on the same inputs:
 * ``d8``: both attention kernels in bfloat16 at D = 8 without their
   second P V product on P - bf16(P), at every D = 8 shape of
   tests/test_torch_gpu.py (its seeds), beside the kernels as they are.
+* ``scan``: the segmented (max,+) scan with 4 or 8 items a lane, one warp
+  a row or a persistent grid (as many blocks as fit on the card at once,
+  each warp walking rows), timed in turns at the replicated path's
+  server scan, (6400, 4096) float32 and float64 with (64, 4096) flags,
+  out_a only and both outputs.
+* ``bag``: the embedding bag with 12, 16 or 20 bytes of a row a lane or
+  one unit a lane (at D = 10 bf16: 2, 2, 1 or 5 lanes a bag), without
+  its evict-first hints, and with a division for every count, timed in
+  turns at xDeepFM's serve_p99 and serve_bulk batches (D = 10, int32 and
+  int64 ids, and the wide D = 1), at serve_bulk with every id folded
+  onto 2^16 rows (all in L2) and with nothing gathered (an all-false
+  mask), and at D = 16 and 128 (AutoInt's width and a wide one;
+  serve_bulk's first 4096 samples' ids folded onto 2^20 rows).
 
-Run from the repo's root on a machine with a card and nvcc:
-``python3 tools/kernel_probes.py [redux] [d8]`` (both by default).  The
-variants are built under a temporary directory; full SASS listings go to
-``src/repro_torch/kernels/_build/probes/`` (beside the built libraries).
+The scan and bag variants are held against the plain version at every
+case before they are timed.  Run from the repo's root on a machine with a
+card and nvcc: ``python3 tools/kernel_probes.py [redux] [d8] [scan]
+[bag]`` (all by default).  The variants are built under a temporary
+directory; full SASS listings go to ``src/repro_torch/kernels/_build/
+probes/`` (beside the built libraries).
 """
 
 from __future__ import annotations
@@ -34,6 +49,9 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 from repro_torch.kernels import _cuda  # noqa: E402
+
+sys.path.insert(0, str(ROOT))
+from chip_smoke import _device_ms  # noqa: E402
 
 KERNELS = ROOT / "src" / "repro_torch" / "kernels"
 OUT = KERNELS / "_build" / "probes"
@@ -54,7 +72,14 @@ def variant(tmp: pathlib.Path, lib: _cuda.CudaLibrary, name: str,
     src = tmp / "kernels" / name / "csrc" / lib.source.name
     src.parent.mkdir(parents=True, exist_ok=True)
     src.write_text(text)
-    out = _cuda.CudaLibrary(src, lib.entries)
+    headers = []
+    for h in lib.headers:
+        if h.parent == lib.source.parent:    # the package's own headers
+            shutil.copy(h, src.parent / h.name)
+            headers.append(src.parent / h.name)
+        else:
+            headers.append(h)
+    out = _cuda.CudaLibrary(src, lib.entries, headers=headers)
     out.load()
     return out
 
@@ -268,14 +293,228 @@ def probe_d8(tmp: pathlib.Path) -> None:
               + " / ".join(f"{x:.3e}" for x in row[4:]))
 
 
+def _ptxas_lines(lib: _cuda.CudaLibrary, what: str, only: str = "") -> None:
+    """Registers and spills of each kernel instantiation whose demangled
+    name holds ``only``, one line each."""
+    name = "?"
+    for line in lib.build_log.splitlines():
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            name = subprocess.run(["c++filt", m.group(1)],
+                                  capture_output=True, text=True
+                                  ).stdout.strip() or m.group(1)
+            name = name.replace("(anonymous namespace)::", "").split("(")[0]
+        if only not in name:
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            print(f"      {what}: {name[5:75]} {m.group(1)} registers")
+        if "spill" in line and not re.search(r"\b0 bytes spill stores",
+                                             line):
+            print(f"      {what}: {name[5:75]} {line.strip()[:60]}")
+
+
+def _in_turns(variants: dict, time_one, turns: int = 3) -> None:
+    """Time each variant ``turns`` times, in turns; print all and the
+    least."""
+    times = {tag: [] for tag in variants}
+    for _ in range(turns):
+        for tag, lib in variants.items():
+            times[tag].append(time_one(lib))
+    for tag, t in times.items():
+        print(f"    {tag:28s} " + " / ".join(f"{x:.4f}" for x in t)
+              + f" ms (least {min(t):.4f})")
+
+
+SCAN_GRID = ("  const int64_t blocks = (rows + kRowWarps - 1) / kRowWarps;"
+             "  // warp a row\n")
+SCAN_PERSISTENT = (
+    "  int dev = 0, sms = 0, per_sm = 0;\n"
+    "  cudaGetDevice(&dev);\n"
+    "  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);\n"
+    "  cudaOccupancyMaxActiveBlocksPerMultiprocessor(\n"
+    "      &per_sm, maxplus_segment_scan_kernel<T, kWithB>, kRowThreads, 0);\n"
+    "  const int64_t want = (rows + kRowWarps - 1) / kRowWarps;\n"
+    "  const int64_t fit = static_cast<int64_t>(sms) * per_sm;\n"
+    "  const int64_t blocks = want < fit ? want : fit;  // persistent\n")
+SCAN_ITEMS = ("constexpr int kLaneItems = 4;",
+              "constexpr int kLaneItems = 8;")
+
+
+def probe_scan(tmp: pathlib.Path) -> None:
+    from repro_torch.kernels.maxplus_scan import kernel, ops
+    base = kernel.SEGMENT_LIB
+    base.load()
+    variants = {
+        "4 items, warp a row": base,
+        "8 items, warp a row": variant(tmp, base, "seg_i8", [SCAN_ITEMS]),
+        "4 items, persistent": variant(tmp, base, "seg_p",
+                                       [(SCAN_GRID, SCAN_PERSISTENT)]),
+        "8 items, persistent": variant(tmp, base, "seg_i8p",
+                                       [SCAN_ITEMS,
+                                        (SCAN_GRID, SCAN_PERSISTENT)])}
+    print("== scan: the segmented (max,+) scan's variants")
+    for tag, lib in variants.items():
+        _ptxas_lines(lib, tag)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    cases = [((6400, 4096), (64, 4096)), ((37, 1000), (37, 1000)),
+             ((15, 777), (3, 777)), ((4, 4096), (1, 4096))]
+    for (shape, fshape), dtype in ((c, d) for c in cases
+                                   for d in (torch.float32, torch.float64)):
+        arr = torch.empty(shape, dtype=dtype, device="cuda").exponential_(
+            generator=g).cumsum(-1)
+        b = torch.empty(shape, dtype=dtype, device="cuda").exponential_(
+            generator=g)
+        a = arr + b
+        f = (torch.rand(fshape, device="cuda", generator=g) < 0.05
+             ).to(torch.uint8)
+        rpf = shape[0] // fshape[0]
+        pa, pb = ops.maxplus_segment_scan(
+            a, b, f.repeat_interleave(rpf, 0), impl="torch")
+        rtol = 1e-5 if dtype == torch.float32 else 1e-12
+        for tag, lib in variants.items():
+            kernel.SEGMENT_LIB = lib
+            ka, kb = kernel.maxplus_segment_scan_cuda(a, b, f)
+            oa, none = kernel.maxplus_segment_scan_cuda(a, b, f,
+                                                        with_b=False)
+            torch.cuda.synchronize()
+            err = max(float(((x - y).abs() / y.abs().clamp_min(1e-30)).max())
+                      for x, y in ((ka, pa), (kb, pb)))
+            if not (err <= rtol and torch.equal(oa, ka) and none is None):
+                raise AssertionError(f"{tag} at {shape} {dtype}: rel err "
+                                     f"{err}, out_a-only equal "
+                                     f"{torch.equal(oa, ka)}")
+        kernel.SEGMENT_LIB = base
+    print("  every variant within rtol of the plain version, out_a only "
+          "bitwise equal to the two-output out_a (4 shapes x 2 dtypes)")
+    a, b = (torch.rand((6400, 4096), device="cuda", generator=g) + 0.5
+            for _ in range(2))
+    f = (torch.rand((64, 4096), device="cuda", generator=g) < 0.05
+         ).to(torch.uint8)
+    for dtype in (torch.float32, torch.float64):
+        x, y = a.to(dtype), b.to(dtype)
+        for with_b in (False, True):
+            moved = x.numel() * x.element_size() * (4 if with_b else 3) \
+                + f.numel()
+            print(f"  (6400, 4096) {str(dtype)[6:]}, flags (64, 4096), "
+                  f"{'both outputs' if with_b else 'out_a only'}: bound "
+                  f"{moved / 3.35e12 * 1e3:.4f} ms ({moved / 1e6:.1f} MB)")
+
+            def one(lib):
+                kernel.SEGMENT_LIB = lib
+                return _device_ms(lambda: kernel.maxplus_segment_scan_cuda(
+                    x, y, f, with_b=with_b))
+            _in_turns(variants, one)
+    kernel.SEGMENT_LIB = base
+
+
+BAG_PER_LANE = "return w == 2 ? 1 : (w == 4 ? 3 : 16 / w);\n}"
+BAG_STORE_PLAIN = [("__stcs(", "st_plain("),
+                   ("// The output is written once",
+                    "template <typename P, typename V>\n"
+                    "__device__ __forceinline__ void st_plain(P* p, V v) "
+                    "{ *p = v; }\n\n// The output is written once")]
+BAG_NO_HINTS = [("__ldcs(", "__ldg(")] + BAG_STORE_PLAIN
+BAG_DIVIDE = ("v[e] = pow2 ? x * inv : x / static_cast<float>(c);",
+              "v[e] = x / static_cast<float>(c);")
+
+
+def probe_bag(tmp: pathlib.Path) -> None:
+    import numpy as np
+    from repro_torch.configs import xdeepfm
+    from repro_torch.data.recsys_data import ctr_batch
+    from repro_torch.kernels.embedding_bag import kernel, ref
+    from repro_torch.models import recsys as RS
+    base = kernel.LIB
+    base.load()
+
+    def per_lane(rule):
+        return [(BAG_PER_LANE, f"return {rule};\n}}")]
+
+    variants = {
+        "12 B a lane (as is)": base,
+        "16 B a lane": variant(tmp, base, "bag_16",
+                               per_lane("w == 2 ? 1 : 16 / w")),
+        "20 B a lane": variant(tmp, base, "bag_20",
+                               per_lane("w == 2 ? 1 : (w == 4 ? 5 : 16 / w)")),
+        "one unit a lane": variant(tmp, base, "bag_1", per_lane("1")),
+        "12 B a lane, no hints": variant(tmp, base, "bag_plain",
+                                         BAG_NO_HINTS),
+        "12 B a lane, divide": variant(tmp, base, "bag_div", [BAG_DIVIDE])}
+    print("== bag: the embedding bag's variants: bytes of a row a lane (at "
+          "D = 10 bf16, 4-byte units: 12 B = 2 lanes a bag as 3 + 2 units, "
+          "16 B = 2 as 4 + 1, 20 B = 1, one unit = 5); no evict-first "
+          "hints on the mask, ids and output; a division where the count "
+          "is a power of two")
+    for tag, lib in variants.items():
+        _ptxas_lines(lib, tag, only="bfloat16, int, 4, true")
+    cfg = xdeepfm.FULL
+    g = torch.Generator(device="cuda").manual_seed(18)
+    rows = RS.padded_rows(cfg.total_rows)
+    table = (0.01 * torch.randn((rows, cfg.embed_dim), generator=g,
+                                device="cuda")).to(torch.bfloat16)
+    wide = (0.01 * torch.randn((rows, 1), generator=g, device="cuda")
+            ).to(torch.bfloat16)
+    batches = {}
+    for name, bsz, step in (("serve_p99", 512, 0), ("serve_bulk", 262_144,
+                                                    4)):
+        ids, mask, _ = ctr_batch(cfg, bsz, step=step, seed=0)
+        batches[name] = (torch.from_numpy(ids.astype(np.int32)).cuda(),
+                         torch.from_numpy(mask).cuda())
+    b_ids, b_mask = batches["serve_bulk"]
+    small = (b_ids[:4096] % (1 << 20), b_mask[:4096])
+    cases = [("D=10 serve_p99", table, *batches["serve_p99"]),
+             ("D=10 serve_bulk", table, b_ids, b_mask),
+             ("D=10 serve_bulk int64 ids", table, b_ids.long(), b_mask),
+             ("D=1 (wide) serve_p99", wide, *batches["serve_p99"]),
+             ("D=1 (wide) serve_bulk", wide, b_ids, b_mask)]
+    # where the time goes at D = 10: the same bags with every id folded
+    # onto 2^16 rows (1.3 MB, all in L2), and with nothing gathered
+    cases += [("D=10 serve_bulk, ids on 2^16 rows", table,
+               b_ids % (1 << 16), b_mask),
+              ("D=10 serve_bulk, mask all false", table, b_ids,
+               torch.zeros_like(b_mask))]
+    for d in (16, 128):
+        t = (0.01 * torch.randn((1 << 20, d), generator=g, device="cuda")
+             ).to(torch.bfloat16)
+        cases.append((f"D={d}, 4096 x 39 bags, 2^20 rows", t, *small))
+    for what, tab, ids, mask in cases:
+        expect = ref.embedding_bag_masked(tab.float(), ids, mask)
+        for tag, lib in variants.items():
+            kernel.LIB = lib
+            out = kernel.embedding_bag_cuda(tab, ids, mask)
+            torch.cuda.synchronize()
+            diff = (out.float() - expect).norm(dim=-1)
+            den = expect.norm(dim=-1)
+            err = float((diff / den.masked_fill(den == 0, 1.0)).max())
+            if not err <= 1e-2 or bool((diff[den == 0] > 0).any()):
+                raise AssertionError(f"{tag}, {what}: row err {err}")
+        kernel.LIB = base
+        plan = kernel.bag_plan(tab, ids, mask)
+        print(f"  {what}: {plan}; every variant within 1e-2 (row "
+              f"relative L2); device ms a call:")
+
+        def one(lib):
+            kernel.LIB = lib
+            return _device_ms(lambda: kernel.embedding_bag_cuda(tab, ids,
+                                                                 mask))
+        _in_turns(variants, one)
+    kernel.LIB = base
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    which = argv or ["redux", "d8"]
+    which = argv or ["redux", "d8", "scan", "bag"]
+    probes = {"redux": probe_redux, "d8": probe_d8, "scan": probe_scan,
+              "bag": probe_bag}
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip())
     with tempfile.TemporaryDirectory() as tmp:
         for name in which:
-            {"redux": probe_redux, "d8": probe_d8}[name](pathlib.Path(tmp))
+            probes[name](pathlib.Path(tmp))
     return 0
 
 
