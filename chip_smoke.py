@@ -23,7 +23,16 @@ card, and drives the port's paths:
     serve_p99 batches (B = 512) and one serve_bulk batch (B = 262,144) of
     `ctr_batch` requests, DeepFM and AutoInt one serve_p99 batch each,
     logits and each CIN layer on the served values held against the
-    plain path (phase 15), and where the device time goes (phase 15b).
+    plain path (phase 15), and where the device time goes (phase 15b);
+  * the planning layer (phase 16): examples/whatif_sweep.py's Table 6
+    columns through `plan_over_grid` and examples/global_sweep.py's
+    1,000,000-scenario grid in one `sweep_analytical` call, both held
+    against the CPU (16a); a simulated sweep of 3 x 64 scenarios at
+    1,048,576 queries each under random and JSQ routing, its kernel
+    launches asserted, Eq 7, the plain path, p95 frontiers and a
+    diurnal plan (16b); the paper's 4 x 100 plan with its simulated
+    cross-check (16c); and the disk-cache imbalance model over the
+    TodoBR universe against the CPU (16d).
 
 Phases 8 and 14 also print the wgmma kernels' ptxas reports (registers,
 spills, serialisation warnings) and take one tile through the shared
@@ -1626,6 +1635,337 @@ def phase_ctr_serving(card: str, cfg, params, batches) -> dict:
     return {"counts": counts, "walls": walls}
 
 
+# ------------------------------------------------------------ planning layer
+ANSWER_SLO = 0.300        # the paper's 300 ms answer-time constraint (Sec 6)
+SIM16_LAM = (20.0, 40.0, 80.0, 160.0)
+SIM16_SPEEDS = (1.0, 2.0, 3.0, 4.0)
+SIM16_R = (1.0, 2.0, 4.0)
+SIM16_QUERIES = 256 * CHUNK        # 1,048,576: the paper's order of 10^6
+IMB_P = (25, 50, 100, 200)
+IMB_CACHE_BYTES = 1e6      # per server: hit 0.61 at p = 25, 0.92 at 200
+IMB_RTOL = 1e-4            # card vs CPU, tests/test_torch_imbalance.py
+
+
+def _same_surface(x, y, what: str, rtol: float = 1e-5) -> float:
+    """Hold a card surface against the CPU's: the same cells infinite, the
+    finite ones within ``rtol``; returns the largest relative error."""
+    import torch
+    y = y.to(x.device)
+    if not torch.equal(torch.isinf(x), torch.isinf(y)):
+        raise AssertionError(f"{what}: infinite cells differ from the CPU's")
+    fin = torch.isfinite(y)
+    err = _rel_err(x[fin], y[fin]) if bool(fin.any()) else 0.0
+    if not err <= rtol:
+        raise AssertionError(f"{what}: card vs CPU rel err {err} > {rtol}")
+    return err
+
+
+def phase_whatif(card: str) -> None:
+    """16a: examples/whatif_sweep.py's Table 6 columns through
+    plan_over_grid, the Scenario 4 point, upgrade_grid against the CPU,
+    and examples/global_sweep.py's 1,000,000-scenario grid in one call."""
+    import torch
+    from repro_torch.core import capacity, planner, sweep
+    print("== phase 16a: analytic what-if sweeps on the card")
+    lam = [16.0, 32.0, 56.0, 80.0]
+    for mem in (1, 2, 3, 4):
+        grid = sweep.SweepGrid.build(
+            lam=lam, p=[50.0, 100.0, 150.0, 200.0],
+            cpu=torch.linspace(1.0, 4.0, 7),
+            disk=torch.linspace(1.0, 4.0, 7), memory=mem, device="cuda")
+        res, fr = planner.plan_over_grid(grid, ANSWER_SLO)
+        ok = float(torch.mean((res.response_upper <= ANSWER_SLO).float()))
+        print(f"  memory {mem}x, {grid.n_scenarios} scenarios, {ok:.1%} "
+              "meet 300 ms:")
+        for i in range(len(lam)):
+            print(f"    {fr.describe(i)}")
+    grid4 = sweep.SweepGrid.build(lam=[56.0], p=[100.0], cpu=[4.0],
+                                  disk=[4.0], memory=4, device="cuda")
+    r4 = float(sweep.sweep_analytical(grid4).response_upper.reshape(())) \
+        * 1e3
+    print(f"  R_upper(56 qps | memory 4x, cpu 4x, disk 4x, p = 100) = "
+          f"{r4:.1f} ms (paper: 286 ms)")
+    if not abs(r4 - 286.0) < 3.0:
+        raise AssertionError(f"Scenario 4 point {r4} ms, paper 286 ms")
+    err = max(_same_surface(capacity.upgrade_grid(56.0, memory=m),
+                            capacity.upgrade_grid(56.0, memory=m,
+                                                  device="cpu"),
+                            f"upgrade_grid memory {m}")
+              for m in (1, 2, 3, 4))
+    print(f"  upgrade_grid(56 qps), memory 1-4: card vs CPU max rel err "
+          f"{err:.2e} (rtol 1e-5)")
+
+    def global_grid(device):
+        return sweep.SweepGrid.build(
+            lam=torch.linspace(10.0, 120.0, 100),
+            p=[50.0, 100.0, 200.0, 400.0], cpu=torch.linspace(1.0, 3.0, 5),
+            disk=torch.linspace(1.0, 3.0, 5),
+            hit=torch.linspace(0.05, 0.95, 20), r=[1.0, 2.0, 4.0, 8.0, 16.0],
+            base=capacity.TABLE5_PARAMS, result_cache=RESULT_CACHE,
+            device=device)
+    grid = global_grid("cuda")
+    n = grid.n_scenarios
+    if n != 1_000_000:
+        raise AssertionError(f"the global grid has {n} scenarios")
+    sweep.sweep_analytical(grid)                    # warm-up
+    wall = _wall(lambda: sweep.sweep_analytical(grid))
+    ms = _time_ms(lambda: sweep.sweep_analytical(grid), n=20)
+    res = sweep.sweep_analytical(grid)
+    ref = sweep.sweep_analytical(global_grid("cpu"))
+    errs = [_same_surface(getattr(res, f), getattr(ref, f), f"global {f}")
+            for f in ("response_lower", "response_upper", "utilization")]
+    phase_profile(card, wall, lambda: sweep.sweep_analytical(grid),
+                  "phase 16a: device time by kernel, one sweep_analytical "
+                  "call on the 1,000,000-scenario grid")
+    fr = sweep.extract_frontier(res, 0.650)
+    print(f"  global grid, {n:,} scenarios (Table 5 base, result cache "
+          f"{RESULT_CACHE}), one sweep_analytical call: {wall * 1e3:.2f} ms "
+          f"wall = {n / wall:.4g} scenarios/s; mean of 20 calls "
+          f"{ms:.3f} ms = {n / ms * 1e3:.4g} scenarios/s [{card}]")
+    print(f"    card vs CPU: lower/upper/utilization max rel err "
+          f"{max(errs):.2e} (rtol 1e-5), the same cells infinite; "
+          f"{float(res.feasible_fraction):.1%} below saturation; cheapest "
+          f"650 ms cell at 120 qps: {fr.describe(99)}")
+
+
+class _DispatchWalls:
+    """Times each `simulate_fork_join_batch` call the sweep makes (a sync
+    before and after each), while in a ``with`` block."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core import simulator
+        self.walls, self._orig = [], simulator.simulate_fork_join_batch
+
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = self._orig(*args, **kw)
+            torch.cuda.synchronize()
+            self.walls.append((kw["cluster"].r, time.perf_counter() - t0))
+            return res
+        simulator.simulate_fork_join_batch = timed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import simulator
+        simulator.simulate_fork_join_batch = self._orig
+
+
+def phase_sim_sweep(card: str) -> dict:
+    """16b: the simulated sweep over Table 6 memory 1 at p = 100: lam 4 x
+    cpu 4 x disk 4 = 64 scenarios a dispatch, r 1 / 2 / 4, the result
+    cache, 1,048,576 queries a scenario, random and JSQ routing; then the
+    plain-path check, Eq 7, the p95 frontier and a diurnal plan."""
+    import torch
+    from repro_torch.core import planner, sweep
+    from repro_torch.core.cluster import ClusterSpec
+    from repro_torch.workloadgen import loadgen
+    print(f"== phase 16b: simulated sweep, Table 6 memory 1, p = {P}, "
+          f"{len(SIM16_LAM) * len(SIM16_SPEEDS) ** 2} scenarios x r "
+          f"{SIM16_R}, result cache {RESULT_CACHE}, {SIM16_QUERIES:,} "
+          "queries a scenario")
+
+    def grid_of(r):
+        return sweep.SweepGrid.build(
+            lam=SIM16_LAM, p=[float(P)], cpu=SIM16_SPEEDS,
+            disk=SIM16_SPEEDS, memory=1, r=r, result_cache=RESULT_CACHE,
+            device="cuda")
+    grid = grid_of(SIM16_R)
+    ana = sweep.sweep_analytical(grid)
+    lo, hi = ana.response_lower, ana.response_upper
+    n_chunks = SIM16_QUERIES // CHUNK
+    n_rep = sum(r > 1 for r in SIM16_R)
+    for routing in ("random", "jsq"):     # warm-up, uncounted
+        sweep.sweep_simulated(grid, 16, n_queries=CHUNK, chunk_size=CHUNK,
+                              cluster=ClusterSpec(routing=routing))
+    out = {}
+    for routing in ("random", "jsq"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        with _DispatchWalls() as walls:
+            t0 = time.perf_counter()
+            res = sweep.sweep_simulated(
+                grid, 16, n_queries=SIM16_QUERIES, chunk_size=CHUNK,
+                cluster=ClusterSpec(routing=routing))
+            mean = res.mean
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+        counts = _counts()
+        peak = torch.cuda.max_memory_allocated()
+        # r = 1: cache, broker and servers on the plain scan; r > 1: the
+        # same three levels segmented; JSQ routes each r > 1 chunk once
+        expect = {"maxplus_scan": 3 * n_chunks,
+                  "maxplus_segment_scan": 3 * n_chunks * n_rep,
+                  "jsq_route": n_chunks * n_rep if routing == "jsq" else 0}
+        if counts != expect:
+            raise AssertionError(f"16b {routing}: launches {counts}, "
+                                 f"expected {expect}")
+        n_scen = math.prod(grid.shape) // len(SIM16_R)
+        print(f"  {routing}: launches {counts}; {total:.3f} s for 3 "
+              f"dispatches = {3 * n_scen * SIM16_QUERIES / total:.4g} "
+              f"queries/s; peak {peak / 2**20:.0f} MiB [{card}]")
+        for r, wall in walls.walls:
+            print(f"    r = {r}: {wall:.3f} s = "
+                  f"{n_scen * SIM16_QUERIES / wall:.4g} queries/s, "
+                  f"{n_scen * SIM16_QUERIES * P / wall:.4g} "
+                  f"server-events/s")
+        if not bool(torch.isfinite(mean).all()):
+            raise AssertionError(f"16b {routing}: non-finite means")
+        fin = torch.isfinite(hi)
+        inside = (mean > 0.95 * lo) & (mean < 1.05 * hi)
+        print(f"    Eq 7: {int((inside & fin).sum())} of {int(fin.sum())} "
+              f"cells with a finite bound hold 0.95 lower < mean < 1.05 "
+              f"upper; p95 {float(res.quantile(0.95)[fin].min()) * 1e3:.1f}"
+              f"..{float(res.quantile(0.95)[fin].max()) * 1e3:.1f} ms")
+        if not bool(inside[fin].all()):
+            bad = torch.nonzero(fin & ~inside).tolist()
+            raise AssertionError(f"16b {routing}: means outside Eq 7 at "
+                                 f"{bad}")
+        fr_sim = sweep.extract_frontier(res, ANSWER_SLO, quantile=0.95)
+        fr_ana = sweep.extract_frontier(ana, ANSWER_SLO, quantile=0.95)
+        print("    frontier, simulated p95 <= 300 ms (analytic p95 "
+              "estimate where it differs):")
+        for i in range(len(SIM16_LAM)):
+            sim_s, ana_s = fr_sim.describe(i), fr_ana.describe(i)
+            print(f"      {sim_s}" + ("" if ana_s == sim_s
+                                      else f"\n        analytic: {ana_s}"))
+        out[routing] = {"counts": counts, "walls": walls.walls}
+    wall_r4 = next(w for r, w in out["random"]["walls"] if r == 4)
+    traced = phase_profile(
+        card, wall_r4, lambda: sweep.sweep_simulated(
+            grid_of([4.0]), 16, n_queries=SIM16_QUERIES, chunk_size=CHUNK,
+            cluster=ClusterSpec(routing="random")),
+        f"phase 16b: device time by kernel, one dispatch (random, r = 4, "
+        f"{SIM16_QUERIES:,} queries)")
+    _kernel_share(traced, "maxplus_segment_scan_kernel", "segmented scan")
+
+    # the kernel path against the plain path on the same draws, on the
+    # r = 2 dispatch; JSQ's plain loop is ~8 launches a query: 2 chunks
+    sub = grid_of([2.0])
+    for routing, n in (("random", 25 * CHUNK), ("jsq", 2 * CHUNK)):
+        kw = dict(n_queries=n, chunk_size=CHUNK,
+                  cluster=ClusterSpec(routing=routing))
+        kern = sweep.sweep_simulated(sub, 16, **kw).mean
+        plain = sweep.sweep_simulated(sub, 16, impl="torch", **kw).mean
+        err = _rel_err(kern, plain)
+        print(f"  {routing}, r = 2 dispatch, {n:,} queries: kernel path vs "
+              f"plain path means max rel err {err:.2e} (limit 1e-4)")
+        if not err <= 1e-4:
+            raise AssertionError(f"16b {routing}: kernel vs plain means "
+                                 f"differ by {err}")
+
+    # the daily peak: the r = 1 slab under the weekly diurnal profile,
+    # the week compressed so the lowest rate's horizon covers it once
+    profile = loadgen.diurnal_rates(device="cuda")
+    bin_s = SIM16_QUERIES / SIM16_LAM[0] / profile.shape[0]
+    t0 = time.perf_counter()
+    res1, fr_day = planner.plan_over_grid(
+        grid_of([1.0]), ANSWER_SLO, simulate=True, seed=16, quantile=0.95,
+        n_queries=SIM16_QUERIES, profile=profile, profile_bin_seconds=bin_s,
+        chunk_size=CHUNK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not bool(torch.isfinite(res1.mean).all()):
+        raise AssertionError("16b diurnal: non-finite means")
+    print(f"  diurnal (168 bins of {bin_s:.0f} s, peak/mean "
+          f"{float(profile.max() / profile.mean()):.2f}), r = 1 slab, p95 "
+          f"<= 300 ms: {wall:.3f} s [{card}]")
+    best = res1.quantile(0.95).reshape(len(SIM16_LAM), -1).amin(1)
+    for i in range(len(SIM16_LAM)):
+        print(f"    {fr_day.describe(i)} (lowest p95 "
+              f"{float(best[i]) * 1e3:.0f} ms)")
+    return out
+
+
+def phase_plans(card: str) -> None:
+    """16c: Scenario 4 sized for 200 qps with the simulated cross-check
+    (tests/test_capacity.py:22's case), and Scenario 6's cached plan."""
+    import torch
+    from repro_torch.core import capacity
+    from repro_torch.core.cluster import ClusterSpec
+    print("== phase 16c: capacity plans")
+    p4 = capacity.scenario("memory+cpus+disks", device="cuda")
+    _reset_counts()
+    t0 = time.perf_counter()
+    plan = capacity.plan_capacity(p4, 200.0, ANSWER_SLO, simulate=True,
+                                  cluster=ClusterSpec(routing="random"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    print(f"  Scenario 4, 200 qps under 300 ms: {plan.n_replicas} replicas "
+          f"x {plan.servers_per_replica} = {plan.total_servers} servers "
+          f"(paper: 4 x 100); Eq 7 [{plan.response_lower_ms:.1f}, "
+          f"{plan.response_upper_ms:.1f}] ms; simulated (random routing, "
+          f"60,000 queries) mean {plan.response_simulated_ms:.1f} ms, p95 "
+          f"{plan.response_simulated_p95_ms:.1f} ms; launches {counts}; "
+          f"{wall:.3f} s [{card}]")
+    if (plan.n_replicas, plan.total_servers) != (4, 400):
+        raise AssertionError(f"Scenario 4 plan {plan}")
+    if not plan.response_simulated_ms <= ANSWER_SLO * 1e3:
+        raise AssertionError(f"simulated mean {plan.response_simulated_ms} "
+                             "ms over the SLO")
+    if counts["maxplus_segment_scan"] == 0:
+        raise AssertionError("the plan's cross-check launched no "
+                             "segmented scan")
+    plan6 = capacity.plan_capacity(
+        p4, 195.0, ANSWER_SLO,
+        cluster=ClusterSpec(result_cache=(0.5, 0.069e-3)))
+    print(f"  Scenario 6, 195 qps with result caching: {plan6.n_replicas} "
+          f"x 100 (paper: 3 x 100)")
+    if plan6.n_replicas != 3:
+        raise AssertionError(f"Scenario 6 plan {plan6}")
+
+
+def phase_imbalance(card: str) -> None:
+    """16d: Eq 1's parameters from the disk-cache model over the TodoBR
+    universe (50,000 queries over 50,000 terms, term Zipf 0.98), list
+    sizes as tests/test_engine.py:146 builds them, card against CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.core import imbalance, queueing
+    from repro_torch.workloadgen import querygen
+    print("== phase 16d: imbalance model, TodoBR universe")
+    cfg = querygen.TODOBR
+    t0 = time.perf_counter()
+    uni = querygen.build_universe(cfg)
+    setup = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    rates = np.diff(np.concatenate(
+        [[0], querygen._zipf_cdf(cfg.vocab_size, cfg.term_zipf_alpha)])
+    ) * 10.0
+    sizes = (rng.pareto(1.2, cfg.vocab_size) + 1) * 2e4
+    print(f"  universe {cfg.n_unique_queries:,} queries x "
+          f"{cfg.vocab_size:,} terms built on the host in {setup:.2f} s; "
+          f"lists {sizes.sum() / 1e9:.2f} GB, cache "
+          f"{IMB_CACHE_BYTES / 1e6:g} MB a server [{card}]")
+
+    def params(p, device):
+        geom = imbalance.CacheGeometry(
+            torch.tensor(rates, dtype=torch.float32, device=device),
+            torch.tensor(sizes, dtype=torch.float32, device=device),
+            IMB_CACHE_BYTES, p)
+        return imbalance.service_params_from_cache_model(
+            geom, torch.from_numpy(uni.terms).to(device),
+            torch.from_numpy(uni.lengths).to(device))
+
+    for p in IMB_P:
+        card_p, cpu_p = params(p, "cuda"), params(p, "cpu")
+        err = max(_rel_err(getattr(card_p, f).cpu(), getattr(cpu_p, f))
+                  for f in ("hit", "s_hit", "s_miss", "s_disk"))
+        cv = float(imbalance.service_time_cv(card_p))
+        s = float(queueing.service_time_server(card_p))
+        print(f"  p = {p:3d}: hit {float(card_p.hit):.4f}, S_disk "
+              f"{float(card_p.s_disk) * 1e3:.3f} ms, S_hit "
+              f"{float(card_p.s_hit) * 1e3:.3f} ms, S_miss "
+              f"{float(card_p.s_miss) * 1e3:.3f} ms, S_server "
+              f"{s * 1e3:.3f} ms, CV {cv:.3f}; card vs CPU max rel err "
+              f"{err:.2e} (rtol {IMB_RTOL:g})")
+        if not err <= IMB_RTOL:
+            raise AssertionError(f"imbalance p = {p}: card vs CPU {err}")
+
+
 
 def main() -> int:
     import torch
@@ -1694,6 +2034,12 @@ def main() -> int:
         for kernel, what in (("embedding_bag_kernel", "embedding bag"),
                              ("cin_", "CIN")):
             _kernel_share(traced, kernel, what)
+    del params, batches
+    torch.cuda.empty_cache()
+    phase_whatif(card)
+    phase_sim_sweep(card)
+    phase_plans(card)
+    phase_imbalance(card)
     print(json.dumps({"kernels": [scan, segment, jsq, flash, decode, bag,
                                   cin]}))
     print(card)

@@ -45,9 +45,13 @@ def resolve(*xs: Any, device: DeviceLike = None,
 def as_tensor(x: Any, device: torch.device, dtype: torch.dtype
               ) -> torch.Tensor:
     """For formulas: a tensor keeps its own dtype (moved to ``device``),
-    as a JAX array does; a number or array becomes ``dtype``."""
+    as a JAX array does; a number or array becomes ``dtype``.  A Python
+    number is filled on the device: copying it from the host would wait
+    for the device's queue on the card."""
     if isinstance(x, torch.Tensor):
         return x.to(device)
+    if isinstance(x, (int, float)):
+        return torch.full((), x, dtype=dtype, device=device)
     return torch.as_tensor(x, dtype=dtype, device=device)
 
 

@@ -1,8 +1,14 @@
-"""Core: the analytical model, the load, and the streaming simulator.
+"""Core: the analytical model, the load, the streaming simulator and the
+planning layer built on them.
 
 Modules:
   queueing   — the analytical model (Eq 1-8, fork-join bounds)
   arrivals   — piecewise-rate / trace arrival processes
-  capacity   — Section-6 parameter tables, SLO solver, replica sizing
-  simulator  — streaming (max,+) fork-join simulator, single replica
+  cluster    — ClusterSpec, the simulated topology
+  simulator  — streaming (max,+) fork-join simulator, replicated cluster
+  capacity   — Section-6 tables, SLO solver, replica sizing, plans
+  sweep      — what-if grids, analytic and simulated surfaces, frontiers
+  planner    — plan_over_grid, and serving plans for LM cells
+  workload   — distribution fits, Zipf, folding (Sec 4)
+  imbalance  — disk-cache model of per-server imbalance (Sec 3.4)
 """

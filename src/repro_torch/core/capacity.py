@@ -1,20 +1,23 @@
-"""Capacity planning engine (paper Section 6), first part.
+"""Capacity planning engine (paper Section 6).
 
-PyTorch port of the parameter tables and analytic solvers of
-`repro.core.capacity`: the Table 5 validation cluster, the Table 6
-100-server case study with 1x..4x main memory, the Section 6 what-if
-scenarios, the SLO solver and replica sizing.  ``plan_capacity`` and
-``upgrade_grid`` are not ported yet (they need the cluster topology).
+PyTorch port of `repro.core.capacity`: the Table 5 validation cluster,
+the Table 6 100-server case study with 1x..4x main memory, the Section 6
+what-if scenarios, the SLO solver, replica sizing, the manager-facing
+`plan_capacity` (optionally cross-checked by the replicated streaming
+simulator) and the Fig 13/14 `upgrade_grid` surface.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import warnings
+from typing import Any, Optional
 
 import torch
 
-from repro_torch._tensor import DEFAULT_DEVICE, DeviceLike, resolve
-from repro_torch.core import queueing
+from repro_torch._tensor import DEFAULT_DEVICE, DeviceLike, as_tensor, resolve
+from repro_torch.core import queueing, simulator
+from repro_torch.core.cluster import ClusterSpec
 from repro_torch.core.queueing import ServerParams
 
 Tensor = torch.Tensor
@@ -29,6 +32,9 @@ __all__ = [
     "upper_bound_curve",
     "max_rate_under_slo",
     "replicas_needed",
+    "CapacityPlan",
+    "plan_capacity",
+    "upgrade_grid",
 ]
 
 _MS = 1e-3
@@ -169,3 +175,160 @@ def replicas_needed(
     # maximum as the reference's conversion does (torch's cast wraps)
     n = torch.clamp(n.to(torch.int64), max=torch.iinfo(torch.int32).max)
     return n.to(torch.int32), per_replica
+
+
+@dataclasses.dataclass(frozen=True)
+class CapacityPlan:
+    """Output of plan_capacity — the manager-facing answer (Sec 5, Q i-iii).
+
+    ``response_simulated_ms``/``response_simulated_p95_ms`` are filled
+    when the plan was cross-checked by the replicated streaming simulator
+    (``plan_capacity(..., simulate=True)``): the planned topology —
+    ``n_replicas`` dispatcher-routed copies of the p-server cluster,
+    result cache included — run at the full target rate.
+
+    The fields ``autoscale``, ``mean_active_replicas``,
+    ``survive_faults`` and ``response_faulted_p95_ms`` are the
+    reference's elastic and N+k extensions; they stay None / 0 until
+    ROADMAP queue 1 items 8 and 9 are ported.
+    """
+
+    n_replicas: int
+    servers_per_replica: int
+    total_servers: int
+    per_replica_rate_qps: float
+    response_upper_ms: float
+    response_lower_ms: float
+    utilization: float
+    response_simulated_ms: Optional[float] = None
+    response_simulated_p95_ms: Optional[float] = None
+    routing: Optional[str] = None
+    autoscale: Optional[Any] = None
+    mean_active_replicas: Optional[float] = None
+    survive_faults: int = 0
+    response_faulted_p95_ms: Optional[float] = None
+
+
+_SIM_REPLICA_CAP = 256
+
+
+def plan_capacity(
+    params: ServerParams,
+    target_rate: float,
+    slo_seconds: float,
+    *,
+    cluster: Optional[ClusterSpec] = None,
+    simulate: bool = False,
+    seed: int = 0,
+    n_queries: int = 60_000,
+    mode: str = "exponential",
+    survive_faults: int = 0,
+    draws=None,
+    device: DeviceLike = None,
+) -> CapacityPlan:
+    """Section-6 sizing, optionally cross-checked by simulation.
+
+    ``replicas_needed`` sizes the cluster off the Eq 7/Eq 8 upper bound.
+    ``simulate=True`` additionally runs the replicated streaming
+    simulator (`repro_torch.core.simulator.simulate_fork_join` with
+    ``r=n_replicas`` and the same result cache) at the FULL target rate,
+    so the plan's headline numbers carry a mechanistic check of the
+    even-split assumption under an actual routing policy.
+
+    ``cluster=ClusterSpec(...)`` supplies the topology (routing, result
+    cache, replica engine); its ``r`` must stay at the default — sizing
+    the fleet is this function's job.  ``seed`` seeds the simulator;
+    ``draws`` replaces its per-chunk random numbers (see
+    `repro_torch.core.simulator`).  ``device`` places parameters given
+    as Python numbers (default: the tensors' device, else ``cuda``).
+    ``survive_faults > 0`` (the N+k criterion) needs the fault model,
+    which is not ported yet.
+    """
+    spec = ClusterSpec() if cluster is None else cluster
+    if spec.r != 1:
+        raise ValueError(
+            "plan_capacity sizes the fleet itself; leave ClusterSpec.r "
+            "at its default")
+    k_down = int(survive_faults)
+    if k_down < 0:
+        raise ValueError(f"survive_faults must be >= 0; got {survive_faults}")
+    if k_down:
+        raise NotImplementedError(
+            "survive_faults= is not ported yet (ROADMAP queue 1 item 9)")
+    dev, _ = resolve(params, device=device)
+    cache = spec.result_cache
+    n, per_replica = replicas_needed(
+        params, target_rate, slo_seconds, result_cache=cache, device=dev)
+    n_i = int(n)
+    rate = float(target_rate) / max(n_i, 1)
+    lo, hi = queueing.response_time_bounds(rate, params, device=dev)
+    if cache is not None:
+        hi = queueing.response_time_with_result_cache(
+            rate, params, *cache, device=dev)
+    p = int(params.p)
+    util = queueing.utilization(
+        rate, queueing.service_time_server(params, device=dev), device=dev)
+    sim_ms = sim_p95_ms = None
+    feasible = float(per_replica) > 1e-9
+    if simulate and feasible and n_i <= _SIM_REPLICA_CAP:
+        sim = simulator.simulate_fork_join(
+            seed, float(target_rate), n_queries, params, mode=mode,
+            cluster=dataclasses.replace(spec, r=n_i), draws=draws,
+            device=dev)
+        sim_ms = float(sim.mean_response) * 1e3
+        sim_p95_ms = float(sim.quantile(0.95)) * 1e3
+    elif simulate:
+        reason = ("infeasible SLO" if not feasible
+                  else f"above the {_SIM_REPLICA_CAP}-replica simulation "
+                       "cap")
+        warnings.warn(
+            f"skipping the simulated cross-check: the plan needs {n_i} "
+            f"replicas ({reason}); run simulate_fork_join directly with "
+            "a smaller chunk_size if you really want this",
+            UserWarning, stacklevel=2)
+    return CapacityPlan(
+        n_replicas=n_i,
+        servers_per_replica=p,
+        total_servers=n_i * p,
+        per_replica_rate_qps=rate,
+        response_upper_ms=float(hi) * 1e3,
+        response_lower_ms=float(lo) * 1e3,
+        utilization=float(util),
+        response_simulated_ms=sim_ms,
+        response_simulated_p95_ms=sim_p95_ms,
+        routing=spec.routing if sim_ms is not None else None,
+    )
+
+
+def upgrade_grid(
+    lam: float,
+    *,
+    memory: int = 1,
+    cpu_speeds=None,
+    disk_speeds=None,
+    p: int = 100,
+    result_cache: Optional[tuple[float, float]] = None,
+    device: DeviceLike = DEFAULT_DEVICE,
+) -> Tensor:
+    """Fig 13/14 surface: upper-bound R over (cpu_speed x disk_speed)."""
+    def speeds(x):
+        if x is None:
+            return torch.linspace(1.0, 4.0, 7, device=device)
+        return as_tensor(x, torch.device(device), torch.float32)
+
+    cs = speeds(cpu_speeds)[:, None]
+    ds = speeds(disk_speeds)[None, :]
+    s_hit, s_miss, s_disk, hit = MEMORY_TABLE[memory]
+    params = ServerParams(
+        p=p,
+        s_broker=broker_service_time(p, device=device) / cs,
+        s_hit=s_hit / cs,
+        s_miss=s_miss / cs,
+        s_disk=s_disk / ds,
+        hit=hit,
+    )
+    if result_cache is None:
+        _, hi = queueing.response_time_bounds(lam, params)
+        return hi
+    return queueing.response_time_with_result_cache(lam, params,
+                                                    *result_cache)

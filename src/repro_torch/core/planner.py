@@ -9,25 +9,26 @@ Here the single-server measurement is a serving step's roofline terms
 measured step, which become S_server in the same fork-join queueing
 model; replicas of the serving cell take the role of cluster replicas.
 
-The default hardware is `H100_SXM`.  `plan_over_grid` (sweeps) waits for
-ROADMAP queue 1 item 6.  Entry points take ``device=`` for the queueing
-arithmetic (default ``cuda``).
+The default hardware is `H100_SXM`.  The serving entry points take
+``device=`` for the queueing arithmetic (default ``cuda``);
+`plan_over_grid`, the Section 6 what-if analysis over a whole
+`repro_torch.core.sweep.SweepGrid`, runs on the grid's device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch._tensor import DeviceLike
-from repro_torch.core import capacity, queueing
+from repro_torch.core import capacity, queueing, sweep
 
 __all__ = ["HardwareSpec", "H100_SXM", "RooflineTerms",
            "terms_from_analysis", "ServingModel", "serving_params",
-           "ServingPlan", "plan_serving"]
+           "ServingPlan", "plan_serving", "plan_over_grid"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,3 +202,61 @@ def plan_serving(
         utilization=float(util),
         bound=model.terms.bound,
     )
+
+
+def plan_over_grid(
+    grid: sweep.SweepGrid,
+    slo_seconds: float,
+    *,
+    cost_fn: Optional[Callable] = None,
+    simulate: bool = False,
+    seed: Optional[int] = None,
+    quantile: Optional[float] = None,
+    n_queries: Optional[int] = None,
+    profile=None,
+    profile_bin_seconds: float = 3600.0,
+    mesh=None,
+    **sim_kwargs,
+):
+    """Section-6 what-if analysis over a whole configuration grid at once.
+
+    Default: evaluates the analytical (Eq 7 upper bound) response surface
+    for every (lambda, p, cpu, disk, hit, r) combination and extracts
+    the constraint-satisfying frontier: per arrival rate, the cheapest
+    configuration with R_upper <= SLO.  Returns ``(surface result,
+    frontier)`` so callers can plot Figs 9-12 style curves from the same
+    evaluation.
+
+      * ``simulate=True`` — replace the analytic surface with the
+        streaming-simulated one (`sweep.sweep_simulated`, seeded by
+        ``seed``, default 0); ``n_queries`` (default 20,000) and any
+        extra ``sim_kwargs`` (mode, impl, chunk_size, hist_bins,
+        cluster, draws, dtype) pass through.
+      * ``quantile=0.95`` — plan against tail latency instead of the
+        mean/upper surface (both paths).
+      * ``profile=`` a relative-rate curve (e.g. ``loadgen.diurnal_rates``)
+        with ``profile_bin_seconds`` — makes every simulated scenario's
+        load time-varying, so "the cheapest config whose p95 survives the
+        daily peak" is ``simulate=True, quantile=0.95, profile=...``.
+
+    Replication rides the grid itself (``SweepGrid.build(r=[1, 2, 4])``)
+    and both paths price r dispatcher-routed replicas per cell.  ``mesh``
+    (scenario sharding) is not ported yet.
+    """
+    if simulate:
+        result = sweep.sweep_simulated(
+            grid, 0 if seed is None else seed,
+            n_queries=20_000 if n_queries is None else n_queries,
+            profile=profile, profile_bin_seconds=profile_bin_seconds,
+            mesh=mesh, **sim_kwargs)
+    else:
+        if (profile is not None or seed is not None
+                or n_queries is not None or sim_kwargs):
+            raise ValueError(
+                "profile/seed/n_queries/simulation kwargs only take effect "
+                "with simulate=True; the analytic path would silently "
+                "ignore them")
+        result = sweep.sweep_analytical(grid, mesh=mesh)
+    frontier = sweep.extract_frontier(result, slo_seconds, cost_fn=cost_fn,
+                                      quantile=quantile)
+    return result, frontier

@@ -16,7 +16,7 @@ import torch
 
 from repro_torch import interop
 from repro_torch.configs import qwen3_8b
-from repro_torch.core import capacity, simulator
+from repro_torch.core import capacity, simulator, sweep
 from repro_torch.core.cluster import ClusterSpec
 from repro_torch.configs import xdeepfm
 from repro_torch.data.recsys_data import ctr_batch
@@ -291,6 +291,35 @@ def test_replicated_engine_goes_through_both_kernels(cuda, routing):
         cluster=dataclasses.replace(cluster, replica_impl="masked"))
     _assert_rel(res.mean_response, masked.mean_response, 1e-4)
     assert int(torch.isfinite(res.tap_response).sum()) == 64
+
+
+@pytest.mark.parametrize("routing", ["random", "jsq"])
+def test_simulated_sweep_on_the_card_matches_plain_path(cuda, routing):
+    """A small simulated sweep (2 p x 2 r dispatches, the result cache)
+    on the card through the kernels against impl="torch" on the same
+    draws; each dispatch launches its scans (and JSQ its router)."""
+    grid = sweep.SweepGrid.build(
+        lam=[20.0, 40.0], p=[8.0, 16.0], cpu=[1.0, 2.0], hit=[0.17],
+        base=capacity.TABLE5_PARAMS, broker_from_p=False, r=[1.0, 3.0],
+        result_cache=(0.2, 2e-3), device=cuda)
+    n, chunk = 8192, 2048
+    kw = dict(n_queries=n, chunk_size=chunk,
+              cluster=ClusterSpec(routing=routing))
+    ops.reset_launch_count()
+    ops.reset_segment_launch_count()
+    jsq_ops.reset_launch_count()
+    kern = sweep.sweep_simulated(grid, 3, **kw)
+    n_chunks = n // chunk
+    # per p: the r = 1 dispatch scans cache, broker and servers (3 plain
+    # scans a chunk), the r = 3 one the same levels segmented
+    assert ops.launch_count() == 2 * 3 * n_chunks
+    assert ops.segment_launch_count() == 2 * 3 * n_chunks
+    assert jsq_ops.launch_count() == (2 * n_chunks if routing == "jsq"
+                                      else 0)
+    plain = sweep.sweep_simulated(grid, 3, impl="torch", **kw)
+    assert kern.mean.shape == grid.shape
+    _assert_rel(kern.mean, plain.mean, 1e-4)
+    _assert_rel(kern.quantile(0.95), plain.quantile(0.95), 1e-2)
 
 
 # ------------------------------------------------------------ attention

@@ -6,15 +6,32 @@ the reference's `HardwareSpec`), the same counters and the same SLOs.
 Roofline terms are Python floats: equal exactly.  The queueing side runs
 in float32 in both (the bisection, Eq 7 / Eq 8): integers (cells, chips)
 equal, rates and responses to rtol 1e-6.
+
+`plan_over_grid` gets grids built from the same numpy axes: the analytic
+frontier must choose the reference's configurations, and the simulated
+one, run on the reference's draws (a diurnal profile included), the
+reference's too.
 """
 
 import dataclasses
 import math
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
+import torch
 
+from repro.core import capacity as j_capacity
 from repro.core import planner as j_planner
+from repro.core import queueing as j_queueing
+from repro.core import simulator as j_sim
+from repro.core import sweep as j_sweep
+from repro.workloadgen import loadgen as j_loadgen
+from repro_torch import interop
 from repro_torch.core import planner as t_planner
+from repro_torch.core import sweep as t_sweep
+from repro_torch.workloadgen import loadgen as t_loadgen
 
 RTOL = 1e-6
 
@@ -119,3 +136,105 @@ def test_h100_constants_and_default():
                                           hlo_bytes=3.35e12,
                                           collective_bytes=0.0, n_chips=1)
     assert (terms.compute_s, terms.memory_s) == (1.0, 1.0)
+
+
+# ------------------------------------------------------------ plan_over_grid
+
+T5 = j_capacity.TABLE5_PARAMS
+
+
+def _grids(**axes):
+    j_kw, t_kw = {}, {}
+    for k, v in axes.items():
+        if k in ("lam", "p", "cpu", "disk", "hit", "r"):
+            v = np.asarray(v, np.float32)
+            j_kw[k], t_kw[k] = jnp.asarray(v), torch.from_numpy(v)
+        else:
+            j_kw[k] = t_kw[k] = v
+    return (j_sweep.SweepGrid.build(**j_kw),
+            t_sweep.SweepGrid.build(device="cpu", **t_kw))
+
+
+def _frontiers_equal(port, ref):
+    for f in ("lam", "p", "cpu", "disk", "hit", "r", "feasible"):
+        np.testing.assert_array_equal(getattr(port, f).numpy(),
+                                      np.asarray(getattr(ref, f)),
+                                      err_msg=f)
+    np.testing.assert_allclose(port.cost.numpy(), np.asarray(ref.cost),
+                               rtol=1e-6)
+    for i in range(port.lam.shape[0]):
+        assert port.describe(i) == ref.describe(i)
+
+
+@pytest.mark.parametrize("memory", [1, 2, 3, 4])
+@pytest.mark.parametrize("quantile", [None, 0.95])
+def test_plan_over_grid_analytic_matches_reference(memory, quantile):
+    """examples/whatif_sweep.py's Table 6 columns through both planners."""
+    jg, tg = _grids(lam=[16.0, 32.0, 56.0, 80.0],
+                    p=[50.0, 100.0, 150.0, 200.0],
+                    cpu=np.linspace(1.0, 4.0, 7),
+                    disk=np.linspace(1.0, 4.0, 7), memory=memory)
+    j_res, j_fr = j_planner.plan_over_grid(jg, 0.3, quantile=quantile)
+    t_res, t_fr = t_planner.plan_over_grid(tg, 0.3, quantile=quantile)
+    _frontiers_equal(t_fr, j_fr)
+    hi, hi_ref = t_res.response_upper.numpy(), np.asarray(j_res.response_upper)
+    np.testing.assert_array_equal(np.isinf(hi), np.isinf(hi_ref))
+    np.testing.assert_allclose(hi[np.isfinite(hi_ref)],
+                               hi_ref[np.isfinite(hi_ref)], rtol=1e-5)
+
+
+def test_plan_over_grid_simulated_diurnal_matches_reference():
+    """simulate=True, quantile=0.95 and a diurnal profile, on the
+    reference's draws: the same p95 frontier."""
+    jg, tg = _grids(lam=[14.0, 30.0], p=[4.0], cpu=[1.0, 1.5, 2.0],
+                    base=T5, hit=[0.17], broker_from_p=False)
+    profile = np.asarray(j_loadgen.diurnal_rates(1.0))
+    n, chunk, bin_s, key = 4096, 512, 120.0, jax.random.PRNGKey(3)
+    j_res, j_fr = j_planner.plan_over_grid(
+        jg, 0.3, simulate=True, key=key, quantile=0.95, n_queries=n,
+        profile=jnp.asarray(profile), profile_bin_seconds=bin_s,
+        chunk_size=chunk)
+    # the reference's one dispatch: its key, its (S,) parameters
+    _, params_full = jg.broadcast_full()
+    params = j_queueing.ServerParams(**{
+        f.name: getattr(params_full, f.name).reshape(-1)
+        for f in dataclasses.fields(j_queueing.ServerParams)})
+    k0 = jax.random.split(key, 1)[0]
+    per_chunk = [tuple(np.asarray(x) for x in j_sim.chunk_random_draws(
+        k0, c, 6, chunk, 4, params, "exponential"))
+        for c in range(n // chunk)]
+    t_res, t_fr = t_planner.plan_over_grid(
+        tg, 0.3, simulate=True, seed=3, quantile=0.95, n_queries=n,
+        profile=torch.from_numpy(profile), profile_bin_seconds=bin_s,
+        chunk_size=chunk,
+        draws=lambda k: interop.draws_from_numpy(per_chunk, device="cpu"))
+    np.testing.assert_allclose(t_res.mean.numpy(), np.asarray(j_res.mean),
+                               rtol=1e-4)
+    _frontiers_equal(t_fr, j_fr)
+
+
+def test_plan_over_grid_refuses_simulation_kwargs_when_analytic():
+    _, tg = _grids(lam=[10.0], p=[4.0], base=T5)
+    for kw in (dict(profile=torch.ones(3)), dict(seed=1),
+               dict(n_queries=100), dict(chunk_size=64)):
+        with pytest.raises(ValueError, match="simulate=True"):
+            t_planner.plan_over_grid(tg, 0.5, **kw)
+
+
+def test_diurnal_p95_frontier_costs_at_least_the_stationary_mean():
+    """tests/test_sweep.py's planning question through the port: the
+    cheapest config whose p95 survives the diurnal peak costs at least
+    the one planned on the stationary mean, and more somewhere."""
+    _, grid = _grids(lam=[14.0, 20.0], p=[4.0, 8.0, 16.0], base=T5,
+                     hit=[0.17], broker_from_p=False)
+    slo, n = 0.8, 40_000
+    _, mean_fr = t_planner.plan_over_grid(grid, slo, simulate=True, seed=7,
+                                          n_queries=n)
+    profile = t_loadgen.diurnal_rates(1.0, device="cpu")
+    _, p95_fr = t_planner.plan_over_grid(
+        grid, slo, simulate=True, seed=7, n_queries=n, quantile=0.95,
+        profile=profile,
+        profile_bin_seconds=n / 14.0 / profile.shape[0] / 4)
+    assert bool((p95_fr.cost >= mean_fr.cost).all())
+    assert bool((p95_fr.cost > mean_fr.cost).any()) or \
+        not bool(p95_fr.feasible.all())

@@ -333,9 +333,13 @@ def test_bad_mode_and_impl_raise():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """repro_torch stands alone: no module under it imports jax or repro."""
+    """repro_torch stands alone: no module under it, and no example of the
+    port (examples/torch_*.py), imports jax or repro."""
     bad = []
-    for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) >= 3
+    for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+            examples:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
             if isinstance(node, ast.Import):
