@@ -5,9 +5,9 @@
 
 Builds the hand-written CUDA kernels from the checkout's sources (the
 (max,+) scan, the segmented (max,+) scan, the JSQ router, flash attention,
-decode attention, the embedding bag and the fused CIN layer, one nvcc
-each, in parallel), holds each against its plain PyTorch version on the
-card, and drives the port's paths:
+decode attention, the embedding bag, the fused CIN layer and the fleet
+scan, one nvcc each, in parallel), holds each against its plain PyTorch
+version on the card, and drives the port's paths:
 
   * the simulator over Table 6's 100-server case study, 64 scenarios:
     the single-replica engine (phases 3-4) and the replicated cluster,
@@ -32,7 +32,16 @@ card, and drives the port's paths:
     launches asserted, Eq 7, the plain path, p95 frontiers and a
     diurnal plan (16b); the paper's 4 x 100 plan with its simulated
     cross-check (16c); and the disk-cache imbalance model over the
-    TodoBR universe against the CPU (16d).
+    TodoBR universe against the CPU (16d);
+  * the cluster under change (phase 17): the fleet scan (outage masks
+    and the autoscaler, the eighth kernel) and the masked JSQ router
+    against their plain loops (17a, 17a'); the 16b slab under the weekly
+    profile with an AutoscalePolicy (1..4) under JSQ and random routing,
+    the pinned policy bit-identical to static r = 4 (17b); the same slab
+    at r = 4 with all four fault channels under the three routings, the
+    fault-free identities, a trace (17c); the N+1 plan, a policy axis
+    and a fault axis through `plan_over_grid` (17d).  Kernel launches
+    are asserted and the kernel path is held against the plain path.
 
 Phases 8 and 14 also print the wgmma kernels' ptxas reports (registers,
 spills, serialisation warnings) and take one tile through the shared
@@ -152,21 +161,25 @@ def _wall(run) -> float:
 def _reset_counts() -> None:
     from repro_torch.kernels.decode_attention import ops as dec_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.fleet_scan import ops as fleet_ops
     from repro_torch.kernels.jsq_route import ops as jsq_ops
     from repro_torch.kernels.maxplus_scan import ops
     ops.reset_launch_count()
     ops.reset_segment_launch_count()
     jsq_ops.reset_launch_count()
+    fleet_ops.reset_launch_count()
     fa_ops.reset_counts()
     dec_ops.reset_counts()
 
 
 def _counts() -> dict:
+    from repro_torch.kernels.fleet_scan import ops as fleet_ops
     from repro_torch.kernels.jsq_route import ops as jsq_ops
     from repro_torch.kernels.maxplus_scan import ops
     return {"maxplus_scan": ops.launch_count(),
             "maxplus_segment_scan": ops.segment_launch_count(),
-            "jsq_route": jsq_ops.launch_count()}
+            "jsq_route": jsq_ops.launch_count(),
+            "fleet_scan": fleet_ops.launch_count()}
 
 
 def _attention_counts() -> dict:
@@ -687,7 +700,8 @@ def phase_replicated(card: str) -> tuple[dict, float]:
         peak = torch.cuda.max_memory_allocated()
         wall = _wall(lambda: run(routing))
         expect = {"maxplus_scan": 0, "maxplus_segment_scan": 3 * N_CHUNKS,
-                  "jsq_route": N_CHUNKS if routing == "jsq" else 0}
+                  "jsq_route": N_CHUNKS if routing == "jsq" else 0,
+                  "fleet_scan": 0}
         if counts != expect:
             raise AssertionError(f"{routing}: launches {counts}, expected "
                                  f"{expect}")
@@ -1798,7 +1812,8 @@ def phase_sim_sweep(card: str) -> dict:
         # same three levels segmented; JSQ routes each r > 1 chunk once
         expect = {"maxplus_scan": 3 * n_chunks,
                   "maxplus_segment_scan": 3 * n_chunks * n_rep,
-                  "jsq_route": n_chunks * n_rep if routing == "jsq" else 0}
+                  "jsq_route": n_chunks * n_rep if routing == "jsq" else 0,
+                  "fleet_scan": 0}
         if counts != expect:
             raise AssertionError(f"16b {routing}: launches {counts}, "
                                  f"expected {expect}")
@@ -1966,6 +1981,552 @@ def phase_imbalance(card: str) -> None:
             raise AssertionError(f"imbalance p = {p}: card vs CPU {err}")
 
 
+# ------------------------------------------------------------ the fleet
+# 17a: the fleet scan at the replicated path's width, r = R and the
+# widest warp (16 replicas), in both float types, three ways
+FLEET_R = (R, 16)
+FLEET_FAULT = dict(outages=((0, 500.0, 1500.0),), mtbf_seconds=2000.0,
+                   mttr_seconds=200.0)
+FLEET_GAP = 0.5                 # seconds between arrivals, on average
+# 17b-d: the 16b slab (Table 6 memory 1, p = 100, lam x cpu x disk = 64
+# scenarios, the result cache) under the weekly profile, 168 bins of
+# 1,048,576 / 20 / 168 = 312 s; the profile clamps the chunk to the
+# slowest bin's queries (~1,935)
+SIM17_QUERIES = SIM16_QUERIES
+SIM17_BIN_S = SIM17_QUERIES / SIM16_LAM[0] / 168
+SIM17_SEED = 17
+SIM17_POLICY = dict(min_r=1, max_r=R, target_utilization=0.7,
+                    decision_interval_seconds=SIM17_BIN_S,
+                    stabilization_intervals=2)
+SIM17_PLAIN_CHUNKS = 4          # the plain loops take ~1 s a chunk
+SIM17_IDENTITY_CHUNKS = 16      # the bit-identity checks
+SIM17_TRACE_CHUNKS = 128        # the traced dispatch: a quarter of the
+                                # queries (its trace, ~100k events at full
+                                # length, took ~50 s to gather and sum)
+# 17d's slab: the fastest 16b hardware (cpu and disk x4, ~23 qps a
+# replica under 300 ms by Eq 7), four loads, 262,144 queries a scenario
+PLANS17_LAM = (10.0, 20.0, 30.0, 40.0)
+PLANS17_QUERIES = 64 * CHUNK
+
+
+def _walled(phase, card: str):
+    """Run one phase and print its wall seconds."""
+    t0 = time.perf_counter()
+    out = phase(card)
+    print(f"  ({phase.__name__}: {time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def _fleet_case(r, dtype, what, gen):
+    """Inputs of one fleet-scan call at (N_SCEN, CHUNK): an outage of
+    replica 0 and the MTBF/MTTR chain, and/or the policy (min 1, max r,
+    the queue trigger) fed ~r/2 replicas' worth of demand."""
+    import torch
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.launch.elastic import AutoscalePolicy, autoscale_init
+    shape = (N_SCEN, CHUNK)
+    gaps = torch.empty(shape, dtype=dtype, device="cuda").exponential_(
+        generator=gen) * FLEET_GAP
+    dem = torch.empty(shape, dtype=dtype, device="cuda").exponential_(
+        generator=gen) * (FLEET_GAP * P * 0.7 * r / 2)
+    kw = dict(t_arr=torch.cumsum(gaps, -1) + 100.0, demand=dem, p=P, r=r,
+              u=torch.rand(shape + (r,), dtype=dtype, device="cuda",
+                           generator=gen),
+              up_state=torch.randint(0, 2, (N_SCEN, r), dtype=torch.int32,
+                                     device="cuda", generator=gen),
+              n_valid=CHUNK - 100)
+    if what in ("fault", "both"):
+        kw["fault"] = FaultSpec(**FLEET_FAULT)
+    if what in ("policy", "both"):
+        pol = AutoscalePolicy(min_r=1, max_r=r, target_utilization=0.7,
+                              decision_interval_seconds=20.0,
+                              stabilization_intervals=2,
+                              queue_trigger_seconds=30.0)
+        kw.update(policy=pol,
+                  as_state=autoscale_init(pol, N_SCEN, dtype, device="cuda"))
+    return gaps, kw
+
+
+def phase_fleet_kernel(card: str) -> dict:
+    """17a: the fleet scan against its plain loop at (64, 4096), r = 4
+    and 16, float32 and float64, the policy without an up fraction and
+    with the outage mask's (both recurrences at once); then its time
+    three ways (the mask alone as well)."""
+    import torch
+    from repro_torch.kernels.fleet_scan import ops as fleet_ops
+    print("== phase 17a: fleet scan vs plain loop on the card")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    worst = 0.0
+    for r, dtype, what in itertools.product(
+            FLEET_R, (torch.float32, torch.float64), ("policy", "both")):
+        gaps, kw = _fleet_case(r, dtype, what, gen)
+        before = fleet_ops.launch_count()
+        k_up, k_n, k_st, k_as = fleet_ops.fleet_scan(gaps, impl="cuda", **kw)
+        p_up, p_n, p_st, p_as = fleet_ops.fleet_scan(gaps, impl="torch",
+                                                     **kw)
+        torch.cuda.synchronize()
+        if fleet_ops.launch_count() != before + 1:
+            raise AssertionError("the fleet scan did not launch once")
+        same, err, moved = True, 0.0, ""
+        if "fault" in kw:
+            same &= bool(torch.equal(k_up, p_up) and torch.equal(k_st, p_st))
+            moved += f"up {float(p_up.float().mean()):.3f} "
+        if "policy" in kw:
+            same &= bool(torch.equal(k_n, p_n))
+            for kt, pt in zip(k_as, p_as):
+                if kt.dtype == torch.int32:
+                    same &= bool(torch.equal(kt, pt))
+                else:
+                    err = max(err, _rel_err(kt, pt))
+                    worst = max(worst, float((kt - pt).abs().max()))
+            moved += (f"n_act {int(p_n.min())}..{int(p_n.max())} (mean "
+                      f"{float(p_n.float().mean()):.2f})")
+        print(f"  r={r:2d} {str(dtype):14s} {what:6s}: masks, counts and "
+              f"integer carries equal {same}; float carries max rel err "
+              f"{err:.1e} (limit 1e-6); {moved}")
+        if not same or not err <= 1e-6:
+            raise AssertionError(f"fleet scan r={r} {dtype} {what}: equal "
+                                 f"{same}, float carries {err}")
+        if "policy" in kw and r > 1 and int(p_n.min()) == int(p_n.max()):
+            raise AssertionError(f"fleet scan r={r} {what}: the policy "
+                                 "never moved")
+    t_both = None
+    for what in ("fault", "policy", "both"):
+        gaps, kw = _fleet_case(R, torch.float32, what, gen)
+        ms = _time_ms(lambda: fleet_ops.fleet_scan(gaps, impl="cuda", **kw),
+                      n=20)
+        print(f"    r={R} float32 {what:6s} [{card}]: {ms:.4f} ms a chunk "
+              f"(mean of 20), {ms * 1e6 / CHUNK:.1f} ns a step")
+        if what == "both":
+            t_both, kw_both, gaps_both = ms, kw, gaps
+    plain_ms = _time_ms(lambda: fleet_ops.fleet_scan(
+        gaps_both, impl="torch", **kw_both), n=1, warm=0)
+    el = 4
+    # gaps, times, demand and u (r a query) read; up (r bytes a query)
+    # and n_act written; per step ~24 controller operations and ~3 a
+    # replica of the chain
+    moved = N_SCEN * CHUNK * ((3 + R) * el + R + 4)
+    n_ops = N_SCEN * CHUNK * (24 + 3 * R)
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / FP32_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    print(f"  at ({N_SCEN}, {CHUNK}, r={R}) float32, both [{card}]: kernel "
+          f"{t_both:.4f} ms  plain loop {plain_ms:.1f} ms  library: none  "
+          f"bound {bound_ms:.4f} ms ({moved / 1e6:.1f} MB at 3.35 TB/s; "
+          f"the chain is {CHUNK} dependent controller steps, "
+          f"{t_both * 1e6 / CHUNK:.1f} ns each)")
+    return {"name": "fleet_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/fleet_scan/csrc/"
+                      "fleet_scan.cu",
+            "replaces": "src/repro/core/faults.py:168 and "
+                        "src/repro/launch/elastic.py:164 (lax.scan, no "
+                        "Pallas kernel)",
+            "launches": None, "max_abs_err": worst, "ms": t_both,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None}
+
+
+def phase_masked_jsq(card: str) -> None:
+    """17a': the JSQ router with the autoscaler's active counts and the
+    fault injector's up mask against its plain loop at (64, r = 4,
+    p = 100, 4096), float32."""
+    import torch
+    from repro_torch.kernels.jsq_route import kernel, ops
+    print("== phase 17a': masked JSQ router vs plain loop on the card")
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    s_mean = 0.02
+    dtype = torch.float32
+    w = torch.zeros((N_SCEN, R, P), dtype=dtype, device="cuda")
+    gaps = torch.empty((N_SCEN, CHUNK), dtype=dtype, device="cuda"
+                       ).exponential_(generator=gen) * (s_mean / R / 0.8)
+    svc = torch.empty((N_SCEN, P, CHUNK), dtype=dtype, device="cuda"
+                      ).exponential_(generator=gen) * s_mean
+    live = (torch.rand((N_SCEN, CHUNK), device="cuda", generator=gen)
+            >= RESULT_CACHE[0]).to(dtype)
+    w = ops.jsq_route(w, gaps, svc, live, impl="cuda")[1]
+    n_act = torch.randint(1, R + 1, (N_SCEN, CHUNK), dtype=torch.int32,
+                          device="cuda", generator=gen)
+    up = torch.rand((N_SCEN, CHUNK, R), device="cuda", generator=gen) < 0.8
+    up[:, 1000:1100] = False                 # nothing up: unavailable
+    plain_unmasked = _time_ms(lambda: kernel.jsq_route_cuda(w, gaps, svc,
+                                                            live), n=20)
+    for what, masks in (("n_act", dict(n_act=n_act)), ("up", dict(up=up)),
+                        ("both", dict(n_act=n_act, up=up))):
+        before = ops.launch_count()
+        k = ops.jsq_route(w, gaps, svc, live, impl="cuda", **masks)
+        if ops.launch_count() != before + 1:
+            raise AssertionError("the masked JSQ call did not launch once")
+        pl = ops.jsq_route(w, gaps, svc, live, impl="torch", **masks)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(k[0], pl[0])) and all(
+            bool(torch.equal(a, b)) for a, b in zip(k[2:], pl[2:]))
+        err = _rel_err(k[1], pl[1])
+        ms = _time_ms(lambda: kernel.jsq_route_cuda(w, gaps, svc, live,
+                                                    **masks), n=20)
+        flags = ("" if len(k) == 2 else
+                 f"; spill {float(pl[2].float().mean()):.3f}, unavail "
+                 f"{float(pl[3].float().mean()):.3f}")
+        print(f"  {what:5s}: choices{', spill, unavail' if len(k) > 2 else ''}"
+              f" equal {same}; tracker max rel err {err:.1e} (limit 1e-6)"
+              f"{flags}; {ms:.4f} ms a chunk (mean of 20) against the "
+              f"unmasked {plain_unmasked:.4f} ms in this run [{card}]")
+        if not same or not err <= 1e-6:
+            raise AssertionError(f"masked JSQ ({what}) disagrees with the "
+                                 f"plain loop: equal {same}, tracker {err}")
+
+
+def _slab17(lam_axis, speeds):
+    """(lam (S,), ServerParams (S,)) of Table 6 memory 1 at p = P over
+    lam x cpu x disk, as the 16b sweep's slab."""
+    import dataclasses
+    from repro_torch.core import sweep
+    from repro_torch.core.queueing import ServerParams
+    grid = sweep.SweepGrid.build(lam=lam_axis, p=[float(P)], cpu=speeds,
+                                 disk=speeds, memory=1, device="cuda")
+    lam, params = grid.broadcast_full()
+    return lam.reshape(-1), ServerParams(p=P, **{
+        f.name: getattr(params, f.name).reshape(-1)
+        for f in dataclasses.fields(ServerParams) if f.name != "p"})
+
+
+def _profile17(lam):
+    """The weekly profile scaled to each scenario's mean rate, and the
+    chunk the engine clamps it to."""
+    import warnings
+    from repro_torch.core import simulator
+    from repro_torch.core.arrivals import ArrivalProcess
+    from repro_torch.workloadgen import loadgen
+    profile = loadgen.diurnal_rates(device="cuda")
+    arrival = ArrivalProcess.piecewise(profile, SIM17_BIN_S, device="cuda"
+                                       ).normalized().scaled_by(lam)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        chunk = simulator._clamp_chunk_for_profile(arrival, CHUNK)
+    return profile, arrival, chunk
+
+
+def _sim17(arrival, params, cluster, n=None, impl="auto"):
+    import warnings
+    from repro_torch.core import simulator
+    n = SIM17_QUERIES if n is None else n
+    with warnings.catch_warnings():     # the profile's chunk clamp
+        warnings.simplefilter("ignore", UserWarning)
+        return simulator.simulate_fork_join_batch(
+            SIM17_SEED, arrival, params, n, p=P, chunk_size=CHUNK,
+            impl=impl, cluster=cluster)
+
+
+_SHARED17 = ("count", "sum_response", "sumsq_response", "sum_broker",
+             "sum_cluster", "sum_server", "hist", "hist_log_lo",
+             "hist_log_step")
+
+
+def _bit_identical(a, b, what: str) -> None:
+    import torch
+    bad = [f for f in _SHARED17 if not torch.equal(getattr(a, f),
+                                                   getattr(b, f))]
+    if bad:
+        raise AssertionError(f"{what}: not bit-identical in {bad}")
+
+
+def _expect17(n_chunks, routing, fleet=True):
+    return {"maxplus_scan": 0, "maxplus_segment_scan": 3 * n_chunks,
+            "jsq_route": n_chunks if routing == "jsq" else 0,
+            "fleet_scan": n_chunks if fleet else 0}
+
+
+def phase_elastic_fleet(card: str) -> dict:
+    """17b: the autoscaled fleet at full width: the 16b slab under the
+    weekly profile, AutoscalePolicy(1..4, a decision a profile bin),
+    1,048,576 queries a scenario, JSQ and random routing; the pinned
+    policy against static r = 4, the cost integral's bounds, the plain
+    path on the first chunks and the launch counts."""
+    import torch
+    from repro_torch.core.cluster import ClusterSpec
+    from repro_torch.launch.elastic import AutoscalePolicy
+    lam, params = _slab17(SIM16_LAM, SIM16_SPEEDS)
+    profile, arrival, chunk = _profile17(lam)
+    n_chunks = -(-SIM17_QUERIES // chunk)
+    pol = AutoscalePolicy(**SIM17_POLICY)
+    print(f"== phase 17b: autoscaled fleet, {lam.shape[0]} scenarios x "
+          f"{SIM17_QUERIES:,} queries, weekly profile (168 bins of "
+          f"{SIM17_BIN_S:.0f} s, chunk clamped to {chunk}: {n_chunks} "
+          f"chunks), policy {pol.min_r}..{pol.max_r} @ "
+          f"{pol.target_utilization:.0%}, result cache {RESULT_CACHE}")
+
+    def cluster(routing, **kw):
+        return ClusterSpec(routing=routing, result_cache=RESULT_CACHE, **kw)
+    for routing in ("jsq", "random"):        # warm-up, uncounted
+        _sim17(arrival, params, cluster(routing, autoscale=pol), n=chunk)
+    out = {}
+    for routing in ("jsq", "random"):
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = _sim17(arrival, params, cluster(routing, autoscale=pol))
+        active = res.mean_active_replicas
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        if counts != _expect17(n_chunks, routing):
+            raise AssertionError(f"17b {routing}: launches {counts}, "
+                                 f"expected {_expect17(n_chunks, routing)}")
+        rs, el = res.replica_seconds, res.elapsed_seconds
+        if not bool(((pol.min_r * el <= rs)
+                     & (rs <= pol.max_r * el * (1 + 1e-6))).all()):
+            raise AssertionError(f"17b {routing}: replica_seconds outside "
+                                 "[min_r, max_r] x elapsed")
+        inside = (active > pol.min_r + 1e-3) & (active < pol.max_r - 1e-3)
+        if not bool(inside.any()):
+            raise AssertionError(f"17b {routing}: the policy never moved")
+        if not bool(torch.isfinite(res.mean_response).all()):
+            raise AssertionError(f"17b {routing}: non-finite means")
+        n_total = lam.shape[0] * SIM17_QUERIES
+        p95 = res.quantile(0.95)
+        print(f"  {routing}: launches {counts}; {wall:.3f} s = "
+              f"{n_total / wall:.4g} queries/s [{card}]; mean active "
+              f"replicas {float(active.min()):.2f}..{float(active.max()):.2f}"
+              f" (mean {float(active.mean()):.2f} of {pol.max_r}; "
+              f"{int(inside.sum())} scenarios strictly inside); p95 "
+              f"{float(p95.min()) * 1e3:.1f}..{float(p95.max()) * 1e3:.1f} "
+              "ms")
+        out[routing] = {"counts": counts, "wall": wall}
+
+    # a pinned policy (min = max = 4) is the static r = 4 engine
+    pinned = AutoscalePolicy(**dict(SIM17_POLICY, min_r=R))
+    a = _sim17(arrival, params, cluster("jsq", autoscale=pinned))
+    b = _sim17(arrival, params, cluster("jsq", r=R))
+    _bit_identical(a, b, "17b pinned policy vs static r = 4")
+    print(f"  jsq: pinned policy {R}..{R} bit-identical to static r = {R} "
+          f"in {', '.join(_SHARED17)}; mean active "
+          f"{float(a.mean_active_replicas.min()):.6f}.."
+          f"{float(a.mean_active_replicas.max()):.6f}")
+    # the kernel path against the plain path on the first chunks
+    n = SIM17_PLAIN_CHUNKS * chunk
+    for routing in ("jsq", "random"):
+        kern = _sim17(arrival, params, cluster(routing, autoscale=pol), n=n)
+        t0 = time.perf_counter()
+        plain = _sim17(arrival, params, cluster(routing, autoscale=pol),
+                       n=n, impl="torch")
+        torch.cuda.synchronize()
+        plain_wall = time.perf_counter() - t0
+        err = max(_rel_err(kern.mean_response, plain.mean_response),
+                  _rel_err(kern.replica_seconds, plain.replica_seconds))
+        print(f"  {routing}: kernel path vs plain path over "
+              f"{SIM17_PLAIN_CHUNKS} chunks: means and replica-seconds max "
+              f"rel err {err:.2e} (limit 1e-5; plain path {plain_wall:.2f} s)")
+        if not err <= 1e-5:
+            raise AssertionError(f"17b {routing}: kernel vs plain {err}")
+    return out
+
+
+def _fault17(profile):
+    """One FaultSpec with all four channels over the weekly profile:
+    replica 0 down over the busiest bins of the first two days (five
+    bins round each peak: the slab's horizons run from 21 bins at 160 qps
+    to the whole week at 20 qps, and its warmup from 2 to 17 bins, so
+    every scenario meets one window after warmup), the MTBF/MTTR chain, a
+    degraded server, a k = p - 1 broker timeout and one hedge."""
+    from repro_torch.core.faults import FaultSpec
+    peaks = [d * 24 + int(profile[d * 24:(d + 1) * 24].argmax())
+             for d in (0, 1)]
+    return FaultSpec(
+        outages=tuple((0, (b - 2) * SIM17_BIN_S, (b + 3) * SIM17_BIN_S)
+                      for b in peaks),
+        mtbf_seconds=20_000.0, mttr_seconds=2_000.0, degraded=((7, 1.5),),
+        broker_timeout_seconds=0.25, quorum_k=P - 1,
+        hedge_after_seconds=0.3, hedge_attempts=1)
+
+
+def phase_faulted_fleet(card: str) -> dict:
+    """17c: faults at full width: the 17b slab at r = 4 with one
+    FaultSpec holding all four channels, under round-robin, random and
+    JSQ; the identities, the plain path on the first chunks, the launch
+    counts and a trace of the JSQ dispatch."""
+    import torch
+    from repro_torch.core.cluster import ClusterSpec
+    from repro_torch.core.faults import FaultSpec
+    lam, params = _slab17(SIM16_LAM, SIM16_SPEEDS)
+    profile, arrival, chunk = _profile17(lam)
+    n_chunks = -(-SIM17_QUERIES // chunk)
+    fault = _fault17(profile)
+    print(f"== phase 17c: faulted fleet, r = {R}, {lam.shape[0]} scenarios"
+          f" x {SIM17_QUERIES:,} queries ({n_chunks} chunks of {chunk}), "
+          f"{fault}")
+
+    def cluster(routing, **kw):
+        return ClusterSpec(r=R, routing=routing, result_cache=RESULT_CACHE,
+                           **kw)
+    # identities on the first chunks: fault=None is the fault-free
+    # program, an all-up FaultSpec() is bit-identical in the shared stats
+    n_id = SIM17_IDENTITY_CHUNKS * chunk
+    for routing in ("round_robin", "random", "jsq"):
+        base = _sim17(arrival, params, cluster(routing), n=n_id)
+        none = _sim17(arrival, params, cluster(routing, fault=None), n=n_id)
+        allup = _sim17(arrival, params, cluster(routing, fault=FaultSpec()),
+                       n=n_id)
+        _bit_identical(base, none, f"17c {routing} fault=None")
+        _bit_identical(base, allup, f"17c {routing} all-up FaultSpec()")
+        if float(allup.spill_count.sum()) or float(allup.unavail_count.sum()):
+            raise AssertionError(f"17c {routing}: an all-up spec spilled")
+    print(f"  fault=None and an all-up FaultSpec() bit-identical to the "
+          f"fault-free run under round-robin, random and JSQ "
+          f"({SIM17_IDENTITY_CHUNKS} chunks)")
+    for routing in ("jsq", "random", "round_robin"):   # warm-up
+        _sim17(arrival, params, cluster(routing, fault=fault), n=chunk)
+    out = {}
+    for routing in ("jsq", "random", "round_robin"):
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = _sim17(arrival, params, cluster(routing, fault=fault))
+        spill = res.spill_fraction
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        if counts != _expect17(n_chunks, routing):
+            raise AssertionError(f"17c {routing}: launches {counts}, "
+                                 f"expected {_expect17(n_chunks, routing)}")
+        if not bool((spill > 0).all()):
+            raise AssertionError(f"17c {routing}: no spill under the "
+                                 "outage")
+        if not bool(torch.isfinite(res.mean_response).all()):
+            raise AssertionError(f"17c {routing}: non-finite means")
+        n_total = lam.shape[0] * SIM17_QUERIES
+        p95 = res.quantile(0.95)
+        print(f"  {routing}: launches {counts}; {wall:.3f} s = "
+              f"{n_total / wall:.4g} queries/s [{card}]; availability "
+              f"{float(res.availability.min()):.5f}..1, spill "
+              f"{float(spill.min()):.4f}..{float(spill.max()):.4f}, "
+              f"degraded {float(res.degraded_fraction.min()):.4f}.."
+              f"{float(res.degraded_fraction.max()):.4f}, p95 "
+              f"{float(p95.min()) * 1e3:.1f}..{float(p95.max()) * 1e3:.1f} "
+              "ms")
+        out[routing] = {"counts": counts, "wall": wall}
+    free_wall = _wall(lambda: _sim17(arrival, params, cluster("jsq")))
+    print(f"  jsq fault-free: {free_wall:.3f} s = "
+          f"{lam.shape[0] * SIM17_QUERIES / free_wall:.4g} queries/s; the "
+          f"faults cost x{out['jsq']['wall'] / free_wall:.2f} [{card}]")
+    n = SIM17_PLAIN_CHUNKS * chunk
+    for routing in ("jsq", "random"):
+        kern = _sim17(arrival, params, cluster(routing, fault=fault), n=n)
+        plain = _sim17(arrival, params, cluster(routing, fault=fault), n=n,
+                       impl="torch")
+        err = max(_rel_err(kern.mean_response, plain.mean_response),
+                  _rel_err(kern.spill_count + 1, plain.spill_count + 1),
+                  _rel_err(kern.degraded_count + 1,
+                           plain.degraded_count + 1))
+        print(f"  {routing}: kernel path vs plain path over "
+              f"{SIM17_PLAIN_CHUNKS} chunks: means, spills and degraded "
+              f"counts max rel err {err:.2e} (limit 1e-5)")
+        if not err <= 1e-5:
+            raise AssertionError(f"17c {routing}: kernel vs plain {err}")
+    n = SIM17_TRACE_CHUNKS * chunk
+
+    def traced_run():
+        return _sim17(arrival, params, cluster("jsq", fault=fault), n=n)
+    traced = phase_profile(
+        card, _wall(traced_run), traced_run,
+        f"phase 17c: device time by kernel, one faulted dispatch cut to "
+        f"its first {SIM17_TRACE_CHUNKS} chunks (jsq, r = {R}, {n:,} "
+        "queries)")
+    _kernel_share(traced, "fleet_scan_kernel", "fleet scan")
+    _kernel_share(traced, "jsq_reg_kernel", "JSQ router (masked)")
+    return out
+
+
+def phase_plans17(card: str) -> None:
+    """17d: the N+1 plan for Scenario 4 at 200 qps; four policies through
+    plan_over_grid priced by replica-seconds against the static-r
+    frontier; and a fault axis, on a 4-scenario slab (cpu and disk x4)
+    under the weekly profile."""
+    import warnings
+
+    import torch
+    from repro_torch.core import capacity, planner, sweep
+    from repro_torch.core.cluster import ClusterSpec
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.launch.elastic import AutoscalePolicy
+    from repro_torch.workloadgen import loadgen
+    print("== phase 17d: plans under change")
+    p4 = capacity.scenario("memory+cpus+disks", device="cuda")
+    t0 = time.perf_counter()
+    plan = capacity.plan_capacity(p4, 200.0, ANSWER_SLO, simulate=True,
+                                  survive_faults=1,
+                                  cluster=ClusterSpec(routing="random"))
+    wall = time.perf_counter() - t0
+    print(f"  Scenario 4, 200 qps, N+1: {plan.n_replicas} replicas x "
+          f"{plan.servers_per_replica} = {plan.total_servers} servers; "
+          f"simulated p95 {plan.response_simulated_p95_ms:.1f} ms, with "
+          f"{plan.survive_faults} replica down "
+          f"{plan.response_faulted_p95_ms:.1f} ms (SLO "
+          f"{ANSWER_SLO * 1e3:.0f} ms); {wall:.2f} s [{card}]")
+    if plan.n_replicas < 5 or plan.response_faulted_p95_ms is None:
+        raise AssertionError(f"N+1 plan {plan}")
+    kw = dict(simulate=True, seed=17, quantile=0.95,
+              n_queries=PLANS17_QUERIES,
+              profile=loadgen.diurnal_rates(device="cuda"),
+              profile_bin_seconds=SIM17_BIN_S, chunk_size=CHUNK)
+
+    def grid(**axes):
+        return sweep.SweepGrid.build(lam=PLANS17_LAM, p=[float(P)],
+                                     cpu=[4.0], disk=[4.0], memory=1,
+                                     result_cache=RESULT_CACHE,
+                                     device="cuda", **axes)
+    policies = tuple(AutoscalePolicy(min_r=1, max_r=mx,
+                                     target_utilization=trig,
+                                     decision_interval_seconds=SIM17_BIN_S,
+                                     stabilization_intervals=2)
+                     for mx in (2, R) for trig in (0.5, 0.7))
+    with warnings.catch_warnings():   # the profile's chunk clamp
+        warnings.simplefilter("ignore", UserWarning)
+        t0 = time.perf_counter()
+        res_pol, fr_pol = planner.plan_over_grid(
+            grid(autoscale=policies), ANSWER_SLO,
+            cluster=ClusterSpec(routing="jsq"), **kw)
+        _, fr_static = planner.plan_over_grid(
+            grid(r=[1.0, 2.0, float(R)]), ANSWER_SLO,
+            cluster=ClusterSpec(routing="jsq"), **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    eff = (res_pol.stats.replica_seconds
+           / res_pol.stats.elapsed_seconds).reshape(len(PLANS17_LAM), -1)
+    print(f"  {len(policies)} policies vs static r (1, 2, {R}) over "
+          f"{len(PLANS17_LAM)} rates (cpu, disk x4), JSQ, p95 <= "
+          f"{ANSWER_SLO * 1e3:.0f} ms under the weekly profile, "
+          f"{PLANS17_QUERIES:,} queries a scenario: {wall:.2f} s [{card}]")
+    for i in range(len(PLANS17_LAM)):
+        print(f"    elastic: {fr_pol.describe(i)}\n"
+              f"    static:  {fr_static.describe(i)}\n"
+              f"      mean active by policy "
+              f"{[round(float(x), 2) for x in eff[i]]}")
+    if not bool(torch.isfinite(eff).all()):
+        raise AssertionError("17d: non-finite replica-seconds")
+    scenarios = (None, FaultSpec(broker_timeout_seconds=0.25,
+                                 quorum_k=P - 1),
+                 FaultSpec(outages=((0, 0.0, 1e9),)),
+                 FaultSpec(outages=((0, 0.0, 1e9),),
+                           broker_timeout_seconds=0.25, quorum_k=P - 1))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        res_f, fr_f = planner.plan_over_grid(
+            grid(r=[float(R)], fault=scenarios), ANSWER_SLO,
+            cluster=ClusterSpec(routing="random"), **kw)
+    p95 = res_f.quantile(0.95).reshape(len(PLANS17_LAM), -1)
+    spill = res_f.stats.spill_fraction.reshape(len(PLANS17_LAM), -1)
+    degr = res_f.stats.degraded_fraction.reshape(len(PLANS17_LAM), -1)
+    print(f"  fault axis (None, quorum {P - 1}/{P}, replica 0 down, both) "
+          f"at r = {R}, random:")
+    for i in range(len(PLANS17_LAM)):
+        print(f"    lam={PLANS17_LAM[i]:g}: p95 "
+              f"{[round(float(x) * 1e3, 1) for x in p95[i]]} ms, spill "
+              f"{[round(float(x), 3) for x in spill[i]]}, degraded "
+              f"{[round(float(x), 3) for x in degr[i]]}")
+    if not (float(spill[:, 0].max()) == 0.0 and float(spill[:, 2].min()) > 0
+            and float(degr[:, 1].min()) >= 0.0):
+        raise AssertionError("17d: the fault axis' channels are wrong")
+
 
 def main() -> int:
     import torch
@@ -2040,8 +2601,16 @@ def main() -> int:
     phase_sim_sweep(card)
     phase_plans(card)
     phase_imbalance(card)
+    t17 = time.perf_counter()
+    fleet = _walled(phase_fleet_kernel, card)
+    _walled(phase_masked_jsq, card)
+    elastic = _walled(phase_elastic_fleet, card)
+    fleet["launches"] = elastic["jsq"]["counts"]["fleet_scan"]
+    _walled(phase_faulted_fleet, card)
+    _walled(phase_plans17, card)
+    print(f"== phase 17: {time.perf_counter() - t17:.1f} s [{card}]")
     print(json.dumps({"kernels": [scan, segment, jsq, flash, decode, bag,
-                                  cin]}))
+                                  cin, fleet]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

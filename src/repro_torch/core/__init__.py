@@ -5,6 +5,7 @@ Modules:
   queueing   — the analytical model (Eq 1-8, fork-join bounds)
   arrivals   — piecewise-rate / trace arrival processes
   cluster    — ClusterSpec, the simulated topology
+  faults     — FaultSpec, outage masks, degraded and partial results
   simulator  — streaming (max,+) fork-join simulator, replicated cluster
   capacity   — Section-6 tables, SLO solver, replica sizing, plans
   sweep      — what-if grids, analytic and simulated surfaces, frontiers

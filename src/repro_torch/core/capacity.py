@@ -11,14 +11,16 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Any, Optional
+from typing import Optional
 
 import torch
 
 from repro_torch._tensor import DEFAULT_DEVICE, DeviceLike, as_tensor, resolve
 from repro_torch.core import queueing, simulator
 from repro_torch.core.cluster import ClusterSpec
+from repro_torch.core.faults import FaultSpec
 from repro_torch.core.queueing import ServerParams
+from repro_torch.launch.elastic import AutoscalePolicy
 
 Tensor = torch.Tensor
 
@@ -187,10 +189,20 @@ class CapacityPlan:
     ``n_replicas`` dispatcher-routed copies of the p-server cluster,
     result cache included — run at the full target rate.
 
-    The fields ``autoscale``, ``mean_active_replicas``,
-    ``survive_faults`` and ``response_faulted_p95_ms`` are the
-    reference's elastic and N+k extensions; they stay None / 0 until
-    ROADMAP queue 1 items 8 and 9 are ported.
+    ``autoscale``/``mean_active_replicas`` are filled when the cross
+    check ran an elastic fleet (``cluster=ClusterSpec(autoscale=...)``):
+    the policy that was simulated and the time-averaged active replica
+    count it actually used — beside ``n_replicas`` (the static Sec-6
+    answer, which stays the provisioning headline) it quantifies the
+    elastic saving.
+
+    ``survive_faults``/``response_faulted_p95_ms`` are the N+k
+    survivability extension (``plan_capacity(..., survive_faults=k)``):
+    the fleet is provisioned with k spare replicas so the SLO holds with
+    k replicas down, and — when the simulated cross-check ran —
+    ``response_faulted_p95_ms`` is the observed p95 of exactly that
+    degraded scenario (k replicas held down for the whole run, failover
+    routing spilling their share to the survivors).
     """
 
     n_replicas: int
@@ -203,7 +215,7 @@ class CapacityPlan:
     response_simulated_ms: Optional[float] = None
     response_simulated_p95_ms: Optional[float] = None
     routing: Optional[str] = None
-    autoscale: Optional[Any] = None
+    autoscale: Optional[AutoscalePolicy] = None
     mean_active_replicas: Optional[float] = None
     survive_faults: int = 0
     response_faulted_p95_ms: Optional[float] = None
@@ -236,31 +248,58 @@ def plan_capacity(
     even-split assumption under an actual routing policy.
 
     ``cluster=ClusterSpec(...)`` supplies the topology (routing, result
-    cache, replica engine); its ``r`` must stay at the default — sizing
-    the fleet is this function's job.  ``seed`` seeds the simulator;
-    ``draws`` replaces its per-chunk random numbers (see
-    `repro_torch.core.simulator`).  ``device`` places parameters given
-    as Python numbers (default: the tensors' device, else ``cuda``).
-    ``survive_faults > 0`` (the N+k criterion) needs the fault model,
-    which is not ported yet.
+    cache, replica engine, autoscale policy); its ``r`` must stay at the
+    default — sizing the fleet is this function's job.  ``seed`` seeds
+    the simulator; ``draws`` replaces its per-chunk random numbers (see
+    `repro_torch.core.simulator`; every simulation of the plan reads the
+    same callable).  ``device`` places parameters given as Python
+    numbers (default: the tensors' device, else ``cuda``).
+
+    With ``autoscale=AutoscalePolicy(...)`` on the spec the simulated
+    cross-check runs THAT elastic fleet instead of ``n_replicas`` static
+    copies (the policy's ``max_r`` sets provisioning), and the plan
+    reports the policy and its ``mean_active_replicas``.  Policies need
+    the simulator, so ``simulate=False`` with a policy is an error.
+
+    ``survive_faults=k`` is the N+k survivability criterion: the fleet is
+    sized so the SLO still holds with k replicas down — the Eq 7/8 bound
+    at the survivor rate ``target_rate / n`` and ``n`` gains k spares.
+    With ``simulate=True`` the cross-check runs exactly that degraded
+    scenario (k replicas held down for the whole run by a `FaultSpec`
+    outage window, failover spilling their share to the survivors), and
+    grows the fleet (up to four times) while the observed p95 misses the
+    SLO; ``response_faulted_p95_ms`` is that p95.
     """
     spec = ClusterSpec() if cluster is None else cluster
     if spec.r != 1:
         raise ValueError(
             "plan_capacity sizes the fleet itself; leave ClusterSpec.r "
             "at its default")
+    if spec.autoscale is not None and not simulate:
+        raise ValueError(
+            "an autoscale policy only affects the simulated cross-check "
+            "(the Eq 7/8 sizing is static); pass simulate=True")
     k_down = int(survive_faults)
     if k_down < 0:
         raise ValueError(f"survive_faults must be >= 0; got {survive_faults}")
-    if k_down:
-        raise NotImplementedError(
-            "survive_faults= is not ported yet (ROADMAP queue 1 item 9)")
+    if k_down and spec.autoscale is not None:
+        raise ValueError(
+            "survive_faults sizes a static fleet; with an autoscale "
+            "policy the max_r provisioning is the policy's job — plan "
+            "the two separately")
+    if k_down and spec.fault is not None:
+        raise ValueError(
+            "survive_faults synthesizes its own k-replicas-down "
+            "FaultSpec; a ClusterSpec.fault would double-inject — give "
+            "one or the other")
     dev, _ = resolve(params, device=device)
     cache = spec.result_cache
     n, per_replica = replicas_needed(
         params, target_rate, slo_seconds, result_cache=cache, device=dev)
-    n_i = int(n)
-    rate = float(target_rate) / max(n_i, 1)
+    # N+k: the bound must hold at the SURVIVOR rate target / n_base, so
+    # provisioning gains k spares on top of the fault-free answer
+    n_i = int(n) + k_down
+    rate = float(target_rate) / max(int(n), 1)
     lo, hi = queueing.response_time_bounds(rate, params, device=dev)
     if cache is not None:
         hi = queueing.response_time_with_result_cache(
@@ -268,21 +307,44 @@ def plan_capacity(
     p = int(params.p)
     util = queueing.utilization(
         rate, queueing.service_time_server(params, device=dev), device=dev)
-    sim_ms = sim_p95_ms = None
-    feasible = float(per_replica) > 1e-9
-    if simulate and feasible and n_i <= _SIM_REPLICA_CAP:
+    sim_ms = sim_p95_ms = mean_active = faulted_p95_ms = None
+    sim_r = spec.autoscale.max_r if spec.autoscale is not None else n_i
+    feasible = float(per_replica) > 1e-9 or spec.autoscale is not None
+    if simulate and feasible and sim_r <= _SIM_REPLICA_CAP:
+        sim_spec = (spec if spec.autoscale is not None
+                    else dataclasses.replace(spec, r=n_i))
         sim = simulator.simulate_fork_join(
             seed, float(target_rate), n_queries, params, mode=mode,
-            cluster=dataclasses.replace(spec, r=n_i), draws=draws,
-            device=dev)
+            cluster=sim_spec, draws=draws, device=dev)
         sim_ms = float(sim.mean_response) * 1e3
         sim_p95_ms = float(sim.quantile(0.95)) * 1e3
+        if spec.autoscale is not None:
+            mean_active = float(sim.mean_active_replicas)
+        if k_down:
+            # the survivability check proper: k replicas held down for
+            # the WHOLE run (the peak-coincident worst case), failover
+            # spilling their share to the survivors; the even-split bound
+            # already sized for this, the simulation also sees routing
+            # imbalance, so grow the fleet while p95 misses
+            horizon = 2.0 * n_queries / max(float(target_rate), 1e-9)
+            down = FaultSpec(
+                outages=tuple((j, 0.0, horizon) for j in range(k_down)))
+            for _ in range(4):
+                ft = simulator.simulate_fork_join(
+                    seed, float(target_rate), n_queries, params, mode=mode,
+                    cluster=dataclasses.replace(spec, r=n_i, fault=down),
+                    draws=draws, device=dev)
+                faulted_p95_ms = float(ft.quantile(0.95)) * 1e3
+                if (faulted_p95_ms <= slo_seconds * 1e3
+                        or n_i >= _SIM_REPLICA_CAP):
+                    break
+                n_i += 1
     elif simulate:
-        reason = ("infeasible SLO" if not feasible
+        reason = ("infeasible SLO" if float(per_replica) <= 1e-9
                   else f"above the {_SIM_REPLICA_CAP}-replica simulation "
                        "cap")
         warnings.warn(
-            f"skipping the simulated cross-check: the plan needs {n_i} "
+            f"skipping the simulated cross-check: the plan needs {sim_r} "
             f"replicas ({reason}); run simulate_fork_join directly with "
             "a smaller chunk_size if you really want this",
             UserWarning, stacklevel=2)
@@ -297,6 +359,10 @@ def plan_capacity(
         response_simulated_ms=sim_ms,
         response_simulated_p95_ms=sim_p95_ms,
         routing=spec.routing if sim_ms is not None else None,
+        autoscale=spec.autoscale if sim_ms is not None else None,
+        mean_active_replicas=mean_active,
+        survive_faults=k_down,
+        response_faulted_p95_ms=faulted_p95_ms,
     )
 
 

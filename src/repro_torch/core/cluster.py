@@ -6,16 +6,21 @@ entry points rides one frozen, hashable object, passed as ``cluster=``:
     spec = ClusterSpec(r=4, routing="jsq", result_cache=(0.3, 2e-3))
     res = simulate_fork_join(seed, lam, n, params, cluster=spec)
 
+    elastic = ClusterSpec(routing="jsq",
+                          autoscale=AutoscalePolicy(min_r=1, max_r=6))
+
 ``ClusterSpec()`` (all defaults) is the single-replica, cache-less
 engine.  The port takes ``cluster=`` only: there are no loose ``r=`` /
-``routing=`` keywords.  Autoscaling and fault injection are not ported
-yet; a spec that asks for either raises.
+``routing=`` keywords.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
+
+from repro_torch.core.faults import FaultSpec
+from repro_torch.launch.elastic import AutoscalePolicy
 
 __all__ = ["ClusterSpec", "ROUTING_POLICIES", "REPLICA_IMPLS"]
 
@@ -28,21 +33,27 @@ class ClusterSpec:
     """Static topology of the simulated search cluster.
 
     r:            replica count (each replica = broker + p servers).
+                  With ``autoscale`` set, leave at the default — the
+                  engine provisions ``autoscale.max_r`` and the policy
+                  decides how many are active.
     routing:      dispatcher policy, one of ``ROUTING_POLICIES``.
     result_cache: ``(hit_r, s_cache)`` broker-level result cache of
                   Eq 8, or None.
     replica_impl: "fused" (segment-compacted scan, default) or
                   "masked" (full-stream re-scan oracle).
-    autoscale:    not ported yet (ROADMAP queue 1 item 8); must be None.
-    fault:        not ported yet (ROADMAP queue 1 item 9); must be None.
+    autoscale:    optional :class:`AutoscalePolicy` making the active
+                  replica count time-varying.
+    fault:        optional :class:`repro_torch.core.faults.FaultSpec`
+                  injecting replica outages, degraded servers, a
+                  partial-quorum broker timeout and hedged retries.
     """
 
     r: int = 1
     routing: str = "round_robin"
     result_cache: Optional[tuple[float, float]] = None
     replica_impl: str = "fused"
-    autoscale: Optional[Any] = None
-    fault: Optional[Any] = None
+    autoscale: Optional[AutoscalePolicy] = None
+    fault: Optional[FaultSpec] = None
 
     def __post_init__(self):
         object.__setattr__(self, "r", int(self.r))
@@ -60,13 +71,20 @@ class ClusterSpec:
                 f"unknown replica_impl {self.replica_impl!r}; choose "
                 f"one of {REPLICA_IMPLS}")
         if self.autoscale is not None:
-            raise NotImplementedError(
-                "autoscale= is not ported yet (ROADMAP queue 1 item 8)")
-        if self.fault is not None:
-            raise NotImplementedError(
-                "fault= is not ported yet (ROADMAP queue 1 item 9)")
+            if not isinstance(self.autoscale, AutoscalePolicy):
+                raise TypeError("autoscale must be an AutoscalePolicy; "
+                                f"got {type(self.autoscale).__name__}")
+            if self.r != 1:
+                raise ValueError(
+                    "with autoscale= the engine provisions "
+                    "autoscale.max_r replicas; leave r at its default "
+                    f"(got r={self.r})")
+        if self.fault is not None and not isinstance(self.fault, FaultSpec):
+            raise TypeError("fault must be a repro_torch.core.faults."
+                            f"FaultSpec; got {type(self.fault).__name__}")
 
     @property
     def engine_r(self) -> int:
-        """Replicas the engine provisions."""
-        return self.r
+        """Replicas the engine provisions (max_r under autoscaling)."""
+        return (self.autoscale.max_r if self.autoscale is not None
+                else self.r)

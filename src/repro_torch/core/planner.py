@@ -240,7 +240,12 @@ def plan_over_grid(
         daily peak" is ``simulate=True, quantile=0.95, profile=...``.
 
     Replication rides the grid itself (``SweepGrid.build(r=[1, 2, 4])``)
-    and both paths price r dispatcher-routed replicas per cell.  ``mesh``
+    and both paths price r dispatcher-routed replicas per cell.  Elastic
+    fleets ride it the same way: ``autoscale=(AutoscalePolicy(...), ...)``
+    makes the replica axis a POLICY axis, and with ``simulate=True`` the
+    frontier prices each policy by its observed replica-seconds; a
+    ``fault=`` axis asks which failure scenarios still meet the SLO.
+    Both are simulation-only; the analytic path raises.  ``mesh``
     (scenario sharding) is not ported yet.
     """
     if simulate:

@@ -1,8 +1,8 @@
 """Streaming max-plus discrete-event simulator for fork-join search clusters.
 
 PyTorch port of `repro.core.simulator`: the single-replica engine, the
-replicated cluster (r > 1 routing, the result cache) and the reservoir
-tap.
+replicated cluster (r > 1 routing, the result cache), the reservoir tap,
+elastic autoscaling and fault injection.
 
 FCFS queueing is a linear recurrence in the (max, +) semiring.  With
 arrival times A_i (sorted) and service times S_i, the completion time
@@ -43,6 +43,25 @@ An optional result cache (``result_cache=(hit_r, s_cache)``) sends each
 query, with probability hit_r, to its replica's broker-cache FCFS queue
 with Exp(s_cache) service instead of the index servers (Eq 8).
 
+Elastic autoscaling (``ClusterSpec(autoscale=AutoscalePolicy(...))``)
+makes the ACTIVE replica count time-varying: the engine provisions
+``max_r`` replicas and the HPA-shaped controller of
+`repro_torch.launch.elastic` rides the chunk carry.  Routing targets
+active replicas only (round-robin wraps at n_active, random thins over
+n_active, JSQ masks the rest out of its argmin); scale-out replicas start
+cold and scale-in replicas drain.  The result gains the cost integral
+``replica_seconds`` / ``elapsed_seconds``.
+
+Fault injection (``ClusterSpec(fault=FaultSpec(...))``, see
+`repro_torch.core.faults`): replica-up masks (outage windows and the
+MTBF/MTTR chain) route around down replicas (failover spills to the next
+survivor, JSQ masks them out), degraded servers rescale the service
+draws, a broker timeout turns the join into a k-of-p order statistic,
+and hedged duplicates race the straggling join.  The result gains
+``spill_count`` / ``unavail_count`` / ``degraded_count``.  Both features
+run their per-query recurrences in one launch a chunk, the fleet scan
+(`repro_torch.kernels.fleet_scan`).
+
 Service-time generators cover three regimes:
 
   * "exponential" — iid Exp(S_server) per (query, server);
@@ -62,7 +81,7 @@ with ``side`` a dict holding the enabled streams (see
 `chunk_side_draws`); tests feed the reference's own draws through it
 (`repro_torch.interop.draws_from_numpy`).
 
-Not ported yet: autoscaling, faults and telemetry.
+Not ported yet: telemetry (ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -79,8 +98,11 @@ from repro_torch._tensor import DEFAULT_DEVICE, DeviceLike, from_host
 from repro_torch.core import queueing
 from repro_torch.core.arrivals import ArrivalProcess
 from repro_torch.core.cluster import ROUTING_POLICIES, ClusterSpec
+from repro_torch.core.faults import FaultSpec, fault_init
 from repro_torch.core.queueing import ServerParams, service_time_server
+from repro_torch.kernels.fleet_scan import ops as fleet_ops
 from repro_torch.kernels.jsq_route import ops as jsq_ops
+from repro_torch.launch.elastic import AutoscalePolicy, autoscale_init
 from repro_torch.kernels.maxplus_scan import ops as mp_ops
 from repro_torch.kernels.maxplus_scan.ref import maxplus_combine
 
@@ -93,6 +115,8 @@ __all__ = [
     "fcfs_completion_times_routed",
     "ArrivalProcess",
     "ClusterSpec",
+    "AutoscalePolicy",
+    "FaultSpec",
     "SimResult",
     "simulate_fork_join",
     "simulate_fork_join_batch",
@@ -113,6 +137,7 @@ DEFAULT_HIST_BINS = 256
 _TAP_SALT = 0x7EE5
 _ROUTE_SALT = 0x2077
 _CACHE_SALT = 0xCA8E
+_FAULT_SALT = 0xFA17
 # log-histogram span, in decades around the per-scenario analytic scale
 _HIST_DECADES_BELOW = 3.0
 _HIST_DECADES_TOTAL = 6.0
@@ -239,6 +264,15 @@ class SimResult:
     ``tap_response`` is a uniform reservoir sample (without replacement)
     of per-query post-warmup response times, ``tap_size`` slots carried
     through the chunk loop; slots not yet filled hold NaN.
+
+    ``replica_seconds`` / ``elapsed_seconds`` are the autoscaler's cost
+    integral — active replica-seconds and simulated wall seconds over the
+    whole run (warmup included) — None unless the run carried an
+    `AutoscalePolicy`.  ``spill_count`` / ``unavail_count`` /
+    ``degraded_count`` are the fault channels, None unless the run
+    carried a `FaultSpec`: post-warmup queries re-routed off a down
+    replica, queries with no surviving replica to route to, and k-of-p
+    results cut short by the broker timeout.
     """
 
     count: Tensor           # post-warmup samples per scenario
@@ -251,10 +285,54 @@ class SimResult:
     hist_log_lo: Tensor     # (...,) ln(lowest bin edge, seconds)
     hist_log_step: Tensor   # (...,) ln(bin edge ratio)
     tap_response: Tensor    # (..., tap_size) reservoir sample of responses
+    replica_seconds: Optional[Tensor] = None  # integral of active r dt
+    elapsed_seconds: Optional[Tensor] = None  # integral of dt (valid)
+    spill_count: Optional[Tensor] = None      # failover-spilled queries
+    unavail_count: Optional[Tensor] = None    # no surviving replica
+    degraded_count: Optional[Tensor] = None   # k-of-p partial results
+
+    def map(self, fn: Callable[[Tensor], Tensor]) -> "SimResult":
+        """A result with ``fn`` applied to every field that is set."""
+        return SimResult(**{
+            f.name: None if getattr(self, f.name) is None
+            else fn(getattr(self, f.name))
+            for f in dataclasses.fields(self)})
 
     @property
     def tap_size(self) -> int:
         return self.tap_response.shape[-1]
+
+    @property
+    def mean_active_replicas(self) -> Tensor:
+        """Time-average active replica count of an autoscaled run."""
+        if self.replica_seconds is None:
+            raise ValueError("no autoscaler ran: replica_seconds is only "
+                             "recorded under ClusterSpec(autoscale=...)")
+        return self.replica_seconds / torch.clamp_min(self.elapsed_seconds,
+                                                      1e-30)
+
+    def _fault_channel(self, name: str) -> Tensor:
+        val = getattr(self, name)
+        if val is None:
+            raise ValueError(
+                f"no faults were injected: {name} is only recorded "
+                "under ClusterSpec(fault=FaultSpec(...))")
+        return val
+
+    @property
+    def availability(self) -> Tensor:
+        """Fraction of post-warmup queries that found a live replica."""
+        return 1.0 - self._fault_channel("unavail_count") / self._n
+
+    @property
+    def spill_fraction(self) -> Tensor:
+        """Fraction of queries failed over off a down replica."""
+        return self._fault_channel("spill_count") / self._n
+
+    @property
+    def degraded_fraction(self) -> Tensor:
+        """Fraction of responses returned on a k-of-p partial quorum."""
+        return self._fault_channel("degraded_count") / self._n
 
     @property
     def _n(self) -> Tensor:
@@ -401,21 +479,32 @@ def chunk_random_draws(seed: int, chunk_idx: int, n_scen: int, chunk: int,
 
 def chunk_side_draws(seed: int, chunk_idx: int, n_scen: int, chunk: int, *,
                      route_r: Optional[int] = None,
+                     route_uniform: bool = False,
                      cache_hit: Optional[Tensor] = None,
                      tap: bool = False,
+                     fault_r: Optional[int] = None,
+                     hedge: Optional[tuple[int, int]] = None,
                      device: DeviceLike = DEFAULT_DEVICE,
                      dtype: torch.dtype = torch.float32) -> dict:
     """The salted side streams of chunk ``chunk_idx``, each only if asked.
 
     * ``"route"`` (random routing over ``route_r`` replicas): (S, chunk)
       int64 replica indices;
+    * ``"route_u"`` (``route_uniform``: random routing under an
+      autoscaler, which thins over the active count): (S, chunk) U(0, 1)
+      from the same stream;
     * ``"cache_hit"`` / ``"cache_unit"`` (result cache with (S,) hit
       ratios ``cache_hit``): (S, chunk) bool hits and unit-mean
       exponential cache services;
-    * ``"tap"``: (S, chunk) U(0, 1) reservoir priorities.
+    * ``"tap"``: (S, chunk) U(0, 1) reservoir priorities;
+    * ``"fault_u"`` (an MTBF/MTTR chain over ``fault_r`` replicas):
+      (S, chunk, r) U(0, 1);
+    * ``"hedge"`` (``hedge=(attempts, p)``): (attempts, S, p, chunk) unit
+      exponentials, one fresh fork a hedged attempt.
 
     Each stream hashes its salt on top of (seed, chunk), mirroring the
-    reference's ``fold_in(fold_in(key, c), SALT)``.
+    reference's ``fold_in(fold_in(key, c), SALT)``; the fault streams
+    hash one more word (0 for the chain, 1 + j for attempt j).
     """
     dev = torch.device(device)
     shape = (n_scen, chunk)
@@ -425,6 +514,19 @@ def chunk_side_draws(seed: int, chunk_idx: int, n_scen: int, chunk: int, *,
         gen.manual_seed(_mix(seed, chunk_idx, _ROUTE_SALT))
         side["route"] = torch.randint(0, route_r, shape, generator=gen,
                                       device=dev)
+    if route_uniform:
+        side["route_u"] = _unit_uniform(_mix(seed, chunk_idx, _ROUTE_SALT),
+                                        shape, dev, dtype)
+    if fault_r is not None:
+        side["fault_u"] = _unit_uniform(
+            _mix(seed, chunk_idx, _FAULT_SALT, 0), shape + (fault_r,), dev,
+            dtype)
+    if hedge is not None:
+        attempts, p = hedge
+        side["hedge"] = torch.stack([
+            _unit_exponential(_mix(seed, chunk_idx, _FAULT_SALT, 1 + j),
+                              (n_scen, p, chunk), dev, dtype)
+            for j in range(attempts)])
     if cache_hit is not None:
         side["cache_hit"] = _unit_uniform(
             _mix(seed, chunk_idx, _CACHE_SALT, 0), shape, dev,
@@ -501,6 +603,48 @@ def _clamp_chunk_for_profile(proc: ArrivalProcess, chunk: int) -> int:
     return chunk
 
 
+def _routing_assign(routing: str, r: int, gidx: Tensor, n_scen: int,
+                    chunk: int, side: dict, n_act: Optional[Tensor] = None,
+                    up: Optional[Tensor] = None):
+    """(S, chunk) replica assignment of the oblivious policies.
+
+    Returns ``(assign, spill, unavail)``.  Round-robin assigns by GLOBAL
+    query index, so the assignment does not depend on the chunking;
+    random reads the ``"route"`` side stream.  ``n_act`` (autoscaling,
+    (S, chunk)): round-robin wraps the global index at the active count
+    and random thins the ``"route_u"`` uniforms over it, so inactive
+    replicas receive no new work.  ``up`` (faults, (S, chunk, r)):
+    failover spills a query raw-routed to a down replica onto the next
+    surviving active replica cyclically (the smallest offset j with
+    up[(raw + j) % r]), which keeps round-robin's even split over the
+    survivors; ``spill`` marks re-routed queries, ``unavail`` queries
+    with no active replica up (they keep their raw assignment).  Both are
+    None without ``up``.
+    """
+    if routing == "round_robin":
+        if n_act is not None:
+            raw = gidx[None, :].to(torch.int32) % n_act
+        else:
+            raw = (gidx % r)[None, :].expand(n_scen, chunk)
+    elif n_act is not None:
+        raw = torch.minimum((side["route_u"] * n_act).to(torch.int32),
+                            n_act - 1)
+    else:
+        raw = side["route"]
+    if up is None:
+        return raw, None, None
+    replicas = torch.arange(r, device=gidx.device)
+    ok = up
+    if n_act is not None:
+        ok = ok & (replicas < n_act[:, :, None])
+    cand = (raw[:, :, None] + replicas) % r
+    ok_c = torch.gather(ok, -1, cand)                     # (S, chunk, r)
+    j = torch.argmax(ok_c.to(torch.uint8), dim=-1)      # first ok offset
+    any_ok = ok_c.any(dim=-1)
+    assign = torch.where(any_ok, (raw + j) % r, raw)
+    return assign, any_ok & (j > 0), ~any_ok
+
+
 def _simulate_stream(
     draws: Draws,
     proc: ArrivalProcess,
@@ -516,6 +660,8 @@ def _simulate_stream(
     routing: str = "round_robin",
     cache: Optional[tuple[Tensor, Tensor]] = None,
     replica_impl: str = "fused",
+    autoscale: Optional[AutoscalePolicy] = None,
+    fault: Optional[FaultSpec] = None,
 ) -> SimResult:
     """The chunked engine behind every entry point.
 
@@ -525,8 +671,14 @@ def _simulate_stream(
     of the reference, op for op.  r > 1 runs the fused route-compacted
     engine (``replica_impl="fused"``) or the masked re-scan oracle
     ("masked"); both consume the same routing choices and draws, so their
-    sample paths agree query for query.  The chunk loop issues device
-    work only: no host sync, no branch on a tensor value.
+    sample paths agree query for query.
+
+    ``autoscale`` (callers provision r = max_r) and ``fault`` add their
+    carries and side streams only when present, so ``None`` runs the
+    program without them op for op.  Each sub-feature of a `FaultSpec`
+    gates its own ops, so an all-up spec keeps every branch (the fused
+    fast path included) of the fault-free program.  The chunk loop issues
+    device work only: no host sync, no branch on a tensor value.
     """
     dtype = proc.rates.dtype
     device = proc.rates.device
@@ -534,6 +686,11 @@ def _simulate_stream(
     n_chunks = -(-n_queries // chunk)
     n_warm = int(n_queries * warmup_fraction)
     has_cache = cache is not None
+    elastic = autoscale is not None
+    faulty = fault is not None
+    f_outage = faulty and fault.has_outages
+    f_quorum = faulty and fault.broker_timeout_seconds is not None
+    f_hedge = faulty and fault.hedge_after_seconds is not None
 
     s_broker = params.s_broker.to(dtype).expand(n_scen)
 
@@ -563,9 +720,25 @@ def _simulate_stream(
 
     col = torch.arange(chunk, device=device)
     period = proc.period_seconds.to(dtype)
-    need = (({"route"} if r > 1 and routing == "random" else set())
-            | ({"cache_hit", "cache_unit"} if has_cache else set())
-            | ({"tap"} if tap_size > 0 else set()))
+    need = set()
+    if r > 1 and routing == "random":
+        need.add("route_u" if elastic else "route")
+    if has_cache:
+        need |= {"cache_hit", "cache_unit"}
+    if tap_size > 0:
+        need.add("tap")
+    if faulty and fault.mtbf_seconds is not None:
+        need.add("fault_u")
+    if f_hedge:
+        need.add("hedge")
+    factors = None
+    if faulty and fault.degraded:
+        # degraded servers: one factor a server column, on every replica
+        f_host = [1.0] * p
+        for srv, f in fault.degraded:
+            f_host[srv % p] *= f
+        factors = torch.tensor(f_host, dtype=dtype).to(device)[None, :,
+                                                               None]
 
     def zeros(*shape):
         return torch.zeros((n_scen,) + shape, dtype=dtype, device=device)
@@ -587,6 +760,38 @@ def _simulate_stream(
                          device=device)
     tap_val = torch.full((n_scen, tap_size), math.nan, dtype=dtype,
                          device=device)
+    if elastic:
+        as_state = autoscale_init(autoscale, n_scen, dtype, device=device)
+        rep_secs, elapsed = zeros(), zeros()
+    f_up = None
+    if faulty:
+        (f_up,) = fault_init(  # staticcheck: disable=RPR007  (the engine drives the recurrence)
+            fault, n_scen, r, device=device)
+        # the absolute clock of the outage windows (t_origin wraps with
+        # the profile's period; outages must not)
+        f_tabs = zeros()
+        s_spill, s_unav, s_degr = zeros(), zeros(), zeros()
+
+    def quorum_join(completions: Tensor, fork_base: Tensor, dim: int):
+        """Fork-join merge: full quorum, or k-of-p past the timeout.
+
+        The broker waits for all p servers until ``fork_base +
+        broker_timeout_seconds``; past it, it returns as soon as k
+        answers are in (the k-th order statistic of the per-server
+        completions).  Returns ``(join, degraded)``; with no timeout
+        this is exactly ``amax`` and ``degraded`` is None.
+        """
+        full = torch.amax(completions, dim=dim)
+        if not f_quorum:
+            return full, None
+        k = fault.quorum(p)
+        if k >= p:
+            return full, torch.zeros(full.shape, dtype=torch.bool,
+                                     device=device)
+        t_k = torch.kthvalue(completions, k, dim=dim).values
+        deadline = fork_base + fault.broker_timeout_seconds
+        late = full > deadline
+        return torch.where(late, torch.maximum(t_k, deadline), full), late
 
     for c_idx in range(n_chunks):
         u_gaps, u_brk, services, *rest = draws(c_idx)
@@ -606,6 +811,10 @@ def _simulate_stream(
         # `arrivals` into replica-compacted layout
         last_arrival = arrivals[:, -1]
         gidx = col + c_idx * chunk
+        if factors is not None:
+            # degraded servers rescale the CANONICAL service draws before
+            # anything (the autoscaler's demand included) reads them
+            services = services * factors
 
         if has_cache:
             # hits short-circuit at their replica's broker cache: an FCFS
@@ -616,6 +825,37 @@ def _simulate_stream(
                        * is_hit.to(dtype))
         s_broker_c = u_brk * s_broker[:, None]
 
+        up_q = n_act = None
+        if elastic or f_outage:
+            # the fleet scan, one launch: the replica-up mask at each
+            # arrival (outage windows on the absolute clock, the MTBF/MTTR
+            # chain on the salted fault stream) and the autoscaler's
+            # active count, fed each query's server-seconds of demand
+            # (misses only); the padded tail advances neither
+            dem = None
+            if elastic:
+                dem = torch.sum(services, dim=1)
+                if has_cache:
+                    dem = dem * miss_f
+            t_arr = (f_tabs[:, None] + arrivals
+                     if f_outage and fault.outages else None)
+            up_q, n_act, f_up, as_state = fleet_ops.fleet_scan(
+                gaps, n_valid=n_queries - c_idx * chunk, t_arr=t_arr,
+                u=side.get("fault_u"), demand=dem, up_state=f_up,
+                as_state=as_state if elastic else None,
+                fault=fault if f_outage else None, policy=autoscale, p=p,
+                r=r, impl=impl)
+        if faulty:
+            f_tabs = f_tabs + last_arrival
+        if elastic:
+            # the cost integral the policy sweeps price: active
+            # replica-seconds and wall seconds (warmup included)
+            gaps_v = gaps * (gidx < n_queries).to(dtype)[None, :]
+            rep_secs = rep_secs + torch.sum(n_act.to(dtype) * gaps_v, -1)
+            elapsed = elapsed + torch.sum(gaps_v, -1)
+
+        degr = None
+        spill_q = unav_q = None
         # `perm` maps chunk-order (S, chunk) arrays into the layout the
         # fused branches compute in (replica-compacted); None = identity.
         # The statistics are permutation-invariant, so the epilogue only
@@ -634,7 +874,7 @@ def _simulate_stream(
             completions = fcfs_completion_times(
                 broker_done[:, None, :], services, impl=impl,
                 carry=c_srv[:, 0])
-            join = torch.amax(completions, dim=1)
+            join, degr = quorum_join(completions, broker_done, 1)
             server0 = completions[:, 0, :]
             c_brk_new = broker_done[:, -1:]
             c_srv_new = completions[:, None, :, -1]
@@ -642,13 +882,18 @@ def _simulate_stream(
         else:
             live = miss_f if has_cache else torch.ones_like(gaps)
             w_jsq_new = w_jsq
-            if routing == "round_robin":
-                assign = (gidx % r)[None, :].expand(n_scen, chunk)
-            elif routing == "random":
-                assign = side["route"]
-            else:   # jsq: needs the carried work state
-                assign, w_jsq_new = jsq_ops.jsq_route(
-                    w_jsq, gaps, services, live, impl=impl)
+            up_route = up_q if f_outage else None
+            if routing == "jsq":   # needs the carried work state
+                routed = jsq_ops.jsq_route(w_jsq, gaps, services, live,
+                                           n_act=n_act, up=up_route,
+                                           impl=impl)
+                assign, w_jsq_new = routed[:2]
+                if up_route is not None:
+                    spill_q, unav_q = routed[2:]
+            else:
+                assign, spill_q, unav_q = _routing_assign(
+                    routing, r, gidx, n_scen, chunk, side, n_act=n_act,
+                    up=up_route)
 
         if r == 1:
             pass
@@ -675,18 +920,24 @@ def _simulate_stream(
                 broker_done_r[:, :, None, :],
                 services[:, None, :, :] * mask_srv[:, :, None, :],
                 impl=impl, carry=c_srv)
-            join_r = torch.amax(completions, dim=2)
+            join_r, degr_r = quorum_join(completions, broker_done_r, 2)
             # read each query off its OWN replica's sample path
             broker_done = torch.sum(broker_done_r * mask_srv, dim=1)
             join = torch.sum(join_r * mask_srv, dim=1)
+            if f_quorum:
+                degr = torch.sum(degr_r.to(dtype) * mask_srv, dim=1) > 0.0
             server0 = torch.sum(completions[:, :, 0, :] * mask_srv, dim=1)
             c_brk_new = broker_done_r[:, :, -1]
             c_srv_new = completions[:, :, :, -1]
-        elif routing == "round_robin" and chunk % r == 0:
+        elif (routing == "round_robin" and chunk % r == 0
+              and not elastic and not f_outage):
             # Fused fast path: with chunk % r == 0 the round-robin
             # assignment is col % r every chunk, so compaction into
             # per-replica contiguous runs is a pure reshape (no sort) and
-            # the plain scan covers the (S, r, ...) queues.
+            # the plain scan covers the (S, r, ...) queues.  (Autoscaled
+            # round-robin wraps at the time-varying active count, and
+            # failover spills break the col % r pattern: both take the
+            # general path below.)
             ct = chunk // r
 
             def to_rep(x):                       # (S, chunk) -> (S, r, ct)
@@ -711,18 +962,21 @@ def _simulate_stream(
             completions = fcfs_completion_times(
                 broker_done_q[:, :, None, :], svc_q, impl=impl, carry=c_srv)
             broker_done = broker_done_q.reshape(n_scen, chunk)
-            join = torch.amax(completions, dim=2).reshape(n_scen, chunk)
+            join_q, degr_q = quorum_join(completions, broker_done_q, 2)
+            join = join_q.reshape(n_scen, chunk)
+            if f_quorum:
+                degr = degr_q.reshape(n_scen, chunk)
             server0 = completions[:, :, 0, :].reshape(n_scen, chunk)
             c_brk_new = broker_done_q[..., -1]
             c_srv_new = completions[..., -1]
             arrivals = arr_q.reshape(n_scen, chunk)
         else:
-            # Fused general path (random, jsq, uneven round-robin):
-            # stable-sort by replica so each replica's queries form a
-            # contiguous segment (still in arrival order), seed segment
-            # heads from the carries, and run ONE segmented (max, +) scan
-            # per queue level.  Gathers index with expanded views, so no
-            # (S, p, chunk) index tensor exists.
+            # Fused general path (random, jsq, uneven, autoscaled or
+            # failed-over round-robin): stable-sort by replica so each
+            # replica's queries form a contiguous segment (still in arrival
+            # order), seed segment heads from the carries, and run ONE
+            # segmented (max, +) scan per queue level.  Gathers index with
+            # expanded views, so no (S, p, chunk) index tensor exists.
             order, flags, counts, heads, ends = _compact(assign, r)
 
             def perm(x):
@@ -745,7 +999,7 @@ def _simulate_stream(
             completions = _fcfs_segmented(
                 broker_done[:, None, :], svc_s, flags[:, None, :],
                 heads[:, None, :], c_srv.transpose(1, 2), impl)
-            join = torch.amax(completions, dim=1)
+            join, degr = quorum_join(completions, broker_done, 1)
             server0 = completions[:, 0, :]
             c_brk_new = torch.where(
                 counts > 0, torch.gather(broker_done, -1, ends), c_brk)
@@ -754,9 +1008,29 @@ def _simulate_stream(
             c_srv_new = torch.where(counts[:, :, None] > 0,
                                     srv_ends.transpose(1, 2), c_srv)
 
+        if f_hedge:
+            # Hedged retries: each attempt races the (possibly partial-
+            # quorum) join with a duplicate fork fired a backoff delay
+            # after the broker fork, served off-queue by spare capacity
+            # with fresh draws from the salted fault stream.  A response
+            # the hedge wins is a full-quorum result: it clears the
+            # degraded flag.
+            cand = None
+            for h_j, h_delay in enumerate(fault.hedge_delays()):
+                dup = torch.amax(side["hedge"][h_j], dim=1) * s_mean[:, None]
+                if perm is not None:
+                    dup = perm(dup)
+                c = broker_done + h_delay + dup
+                cand = c if cand is None else torch.minimum(cand, c)
+            if degr is not None:
+                degr = degr & (join <= cand)
+            join = torch.minimum(join, cand)
+
         if has_cache:
             if perm is not None:
                 is_hit = perm(is_hit)
+            if degr is not None:
+                degr = degr & ~is_hit   # hits never fork: always whole
             resp_cache = cache_done - arrivals
             response = torch.where(is_hit, resp_cache, join - arrivals)
             broker_res = torch.where(is_hit, resp_cache,
@@ -770,6 +1044,7 @@ def _simulate_stream(
             server_res = server0 - broker_done
             c_cache_new = c_cache
         mf = ((gidx >= n_warm) & (gidx < n_queries)).to(dtype)[None, :]
+        mf0 = mf                 # chunk order, for the chunk-order flags
         if perm is not None:
             mf = perm(mf)
         count = count + torch.sum(mf, -1).expand(n_scen)
@@ -778,6 +1053,17 @@ def _simulate_stream(
         s_br = s_br + torch.sum(broker_res * mf, -1)
         s_cl = s_cl + torch.sum(cluster_res * mf, -1)
         s_sv = s_sv + torch.sum(server_res * mf, -1)
+        if faulty:
+            # spill / unavail are in chunk (arrival) order, the degraded
+            # flag in the engine's layout; the sums do not care
+            if f_outage and r > 1:
+                s_spill = s_spill + torch.sum(spill_q.to(dtype) * mf0, -1)
+                s_unav = s_unav + torch.sum(unav_q.to(dtype) * mf0, -1)
+            elif f_outage:       # r == 1: down means nowhere to route
+                s_unav = s_unav + torch.sum(
+                    (1.0 - up_q[:, :, 0].to(dtype)) * mf0, -1)
+            if degr is not None:
+                s_degr = s_degr + torch.sum(degr.to(dtype) * mf, -1)
 
         bins = torch.clamp(
             torch.floor((torch.log(torch.clamp_min(response, 1e-30))
@@ -807,14 +1093,31 @@ def _simulate_stream(
         c_brk = c_brk_new - shift[:, None]
         c_srv = c_srv_new - shift[:, None, None]
         c_cache = c_cache_new - shift[:, None] if has_cache else c_cache_new
+        if elastic or f_outage:
+            # An inactive (or failed) replica receives no work, so its
+            # rebased carry would drift toward -inf chunk after chunk.
+            # Clamping at the chunk origin is EXACT (seeding max(a, c + b)
+            # is unchanged for any c <= the segment head's arrival, and
+            # arrivals are positive) and pins a drained replica at 0, the
+            # cold state a scale-out (or repaired) replica starts from.
+            c_brk = torch.clamp_min(c_brk, 0.0)
+            c_srv = torch.clamp_min(c_srv, 0.0)
+            if has_cache:
+                c_cache = torch.clamp_min(c_cache, 0.0)
         w_jsq = w_jsq_new
         t_origin = torch.remainder(t_origin + shift, period)
 
+    extra = {}
+    if elastic:
+        extra.update(replica_seconds=rep_secs, elapsed_seconds=elapsed)
+    if faulty:
+        extra.update(spill_count=s_spill, unavail_count=s_unav,
+                     degraded_count=s_degr)
     return SimResult(
         count=count, sum_response=s_resp, sumsq_response=ss_resp,
         sum_broker=s_br, sum_cluster=s_cl, sum_server=s_sv,
         hist=hist, hist_log_lo=hist_log_lo, hist_log_step=hist_log_step,
-        tap_response=tap_val)
+        tap_response=tap_val, **extra)
 
 
 def simulate_fork_join_batch(
@@ -840,7 +1143,8 @@ def simulate_fork_join_batch(
     ``lam`` is an (S,) rate vector or an :class:`ArrivalProcess` with
     (S, n_bins) rates; every ``params`` field is (S,) (or broadcasts).
     All scenarios share the server count ``p`` and the topology
-    ``cluster=ClusterSpec(...)`` (None: one replica, no cache).  The
+    ``cluster=ClusterSpec(...)`` (None: one replica, no cache; an
+    autoscale policy provisions its ``max_r``).  The
     per-chunk FCFS recurrences flatten onto the rows of one kernel launch
     per queue level.  ``tap_size > 0`` carries a reservoir sample of
     responses.  ``draws`` replaces the port's own RNG plan (see the
@@ -870,10 +1174,18 @@ def simulate_fork_join_batch(
                       for v in spec.result_cache)
     if draws is None:
         with_gaps = proc.trace_gaps is None
+        random = r > 1 and spec.routing == "random"
+        elastic = spec.autoscale is not None
+        fault = spec.fault
         side_kw = dict(
-            route_r=r if r > 1 and spec.routing == "random" else None,
+            route_r=r if random and not elastic else None,
+            route_uniform=random and elastic,
             cache_hit=None if cache is None else cache[0],
-            tap=tap_size > 0)
+            tap=tap_size > 0,
+            fault_r=(r if fault is not None
+                     and fault.mtbf_seconds is not None else None),
+            hedge=((int(fault.hedge_attempts), p) if fault is not None
+                   and fault.hedge_after_seconds is not None else None))
 
         def draws(chunk_idx: int):
             base = chunk_random_draws(seed, chunk_idx, n_scen, chunk, p, vp,
@@ -885,7 +1197,8 @@ def simulate_fork_join_batch(
     return _simulate_stream(draws, proc, vp, n_queries, p, impl, chunk,
                             warmup_fraction, hist_bins, tap_size, r=r,
                             routing=spec.routing, cache=cache,
-                            replica_impl=spec.replica_impl)
+                            replica_impl=spec.replica_impl,
+                            autoscale=spec.autoscale, fault=spec.fault)
 
 
 def simulate_fork_join(
@@ -913,9 +1226,12 @@ def simulate_fork_join(
     independent FCFS queue over the forked stream, and the join waits for
     the slowest server.  ``lam`` is the TOTAL rate in qps or any
     :class:`ArrivalProcess`.  ``cluster=ClusterSpec(r=..., routing=...,
-    result_cache=..., replica_impl=...)`` sets the topology: r replicas
-    behind a dispatcher, and the Eq 8 result cache at each replica's
-    broker.  Streams through ``chunk_size`` query chunks; warmup queries
+    result_cache=..., replica_impl=..., autoscale=..., fault=...)`` sets
+    the topology: r replicas behind a dispatcher, the Eq 8 result cache
+    at each replica's broker, an autoscaler (the result gains
+    ``replica_seconds`` / ``elapsed_seconds``) and injected faults (the
+    result gains ``spill_count`` / ``unavail_count`` /
+    ``degraded_count``).  Streams through ``chunk_size`` query chunks; warmup queries
     are discarded from the returned statistics, whose fields are 0-dim
     (``tap_response`` is (tap_size,)).
     """
@@ -925,8 +1241,7 @@ def simulate_fork_join(
         warmup_fraction=warmup_fraction, chunk_size=chunk_size,
         hist_bins=hist_bins, tap_size=tap_size, cluster=cluster, draws=draws,
         device=device, dtype=dtype)
-    return SimResult(**{f.name: getattr(res, f.name)[0]
-                        for f in dataclasses.fields(SimResult)})
+    return res.map(lambda x: x[0])
 
 
 def simulate_mmc(arrivals: Tensor, services: Tensor, c: int) -> Tensor:

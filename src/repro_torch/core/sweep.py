@@ -24,11 +24,16 @@ rate, the cheapest configuration with R <= SLO", where R can be the
 analytic upper bound, the simulated mean, or a simulated quantile such as
 p95 (exposed to planners via `repro_torch.core.planner.plan_over_grid`).
 
+The replica axis may be swapped for a POLICY axis (a tuple of
+`AutoscalePolicy` values) or a FAULT-SCENARIO axis (a tuple of
+`FaultSpec` values, None the fault-free baseline); both are
+simulation-only, and the frontier prices policy cells by their observed
+replica-seconds.
+
 The grid's tensors live on one device (``SweepGrid.build(device=...)``,
-default ``cuda``) and every surface is computed there.  Policy axes
-(``autoscale=``), fault axes (``fault=``), telemetry and scenario
-sharding (``mesh=``) are not ported yet and raise, naming their ROADMAP
-queue 1 item.
+default ``cuda``) and every surface is computed there.  Telemetry and
+scenario sharding (``mesh=``) are not ported yet and raise, naming their
+ROADMAP queue 1 item.
 """
 
 from __future__ import annotations
@@ -43,7 +48,9 @@ from repro_torch._tensor import DEFAULT_DEVICE, DeviceLike, as_tensor
 from repro_torch.core import capacity, queueing, simulator
 from repro_torch.core.arrivals import ArrivalProcess
 from repro_torch.core.cluster import ClusterSpec
+from repro_torch.core.faults import FaultSpec
 from repro_torch.core.queueing import ServerParams
+from repro_torch.launch.elastic import AutoscalePolicy
 
 Tensor = torch.Tensor
 TensorLike = Union[Tensor, Sequence[float], float]
@@ -96,9 +103,19 @@ class SweepGrid:
     (conservative un-thinned mixture analytically; a mechanistic
     dispatcher cache queue in the simulator).
 
+    ``autoscale`` replaces the replica axis with a POLICY axis: a tuple
+    of `repro_torch.launch.elastic.AutoscalePolicy` values becomes the
+    grid's 6th dimension (``r`` must stay at its default — each policy's
+    ``max_r`` sets provisioning).  Policy grids are simulation-only, and
+    :func:`extract_frontier` prices their cells by observed
+    replica-seconds instead of a static replica count.
+
+    ``fault`` likewise replaces the replica axis with a FAULT-SCENARIO
+    axis: a tuple of `repro_torch.core.faults.FaultSpec` values (None
+    entries are the fault-free baseline), every cell running at the one
+    fixed replica count on the ``r`` axis.  Simulation-only too.
+
     The axes are 1-D tensors on one device; `build` makes them float32.
-    ``autoscale`` (a policy axis, ROADMAP queue 1 item 8) and ``fault``
-    (a fault-scenario axis, item 9) must stay None.
     """
 
     lam: Tensor
@@ -117,10 +134,46 @@ class SweepGrid:
         if self.r is None:
             object.__setattr__(self, "r", torch.ones(
                 (1,), dtype=torch.float32, device=self.lam.device))
-        if self.autoscale is not None:
-            raise _not_ported("SweepGrid(autoscale=...)", 8)
         if self.fault is not None:
-            raise _not_ported("SweepGrid(fault=...)", 9)
+            fts = (tuple(self.fault)
+                   if isinstance(self.fault, (tuple, list))
+                   else (self.fault,))
+            if not fts:
+                raise ValueError("fault= needs at least one scenario "
+                                 "(or None for a fault-free grid)")
+            for ft in fts:
+                if ft is not None and not isinstance(ft, FaultSpec):
+                    raise TypeError(
+                        "fault must hold FaultSpec (or None) values; "
+                        f"got {type(ft).__name__}")
+            if self.autoscale is not None:
+                raise ValueError(
+                    "autoscale and fault both claim the grid's 6th "
+                    "axis; sweep one at a time")
+            if self.r.shape[0] != 1:
+                raise ValueError(
+                    "a fault grid replaces the replica axis; give r ONE "
+                    "value (the fixed replica count every scenario "
+                    "runs at)")
+            object.__setattr__(self, "fault", fts)
+        if self.autoscale is None:
+            return
+        pols = (tuple(self.autoscale)
+                if isinstance(self.autoscale, (tuple, list))
+                else (self.autoscale,))
+        if not pols:
+            raise ValueError("autoscale= needs at least one policy "
+                             "(or None for a static grid)")
+        for pol in pols:
+            if not isinstance(pol, AutoscalePolicy):
+                raise TypeError(
+                    "autoscale must hold AutoscalePolicy values; got "
+                    f"{type(pol).__name__}")
+        if self.r.shape[0] != 1 or float(self.r[0]) != 1.0:
+            raise ValueError(
+                "a policy grid replaces the replica axis; leave r at "
+                "its default (each policy's max_r sets provisioning)")
+        object.__setattr__(self, "autoscale", pols)
 
     @classmethod
     def build(cls, *, lam: TensorLike, p: TensorLike = 100.0,
@@ -156,8 +209,14 @@ class SweepGrid:
 
     @property
     def shape(self) -> tuple[int, ...]:
+        if self.autoscale is not None:
+            last = len(self.autoscale)
+        elif self.fault is not None:
+            last = len(self.fault)
+        else:
+            last = self.r.shape[0]
         return (self.lam.shape[0], self.p.shape[0], self.cpu.shape[0],
-                self.disk.shape[0], self.hit.shape[0], self.r.shape[0])
+                self.disk.shape[0], self.hit.shape[0], last)
 
     @property
     def n_scenarios(self) -> int:
@@ -191,6 +250,10 @@ class SweepGrid:
 
     def lam_replica(self) -> Tensor:
         """Per-replica arrival rate, broadcastable over `shape`."""
+        if self.autoscale is not None:
+            raise ValueError(
+                "per-replica rates are undefined on a policy grid: the "
+                "active replica count varies over time (simulate instead)")
         lam, _ = self.broadcast()
         return lam / self.r.reshape(1, 1, 1, 1, 1, -1)
 
@@ -274,6 +337,14 @@ def sweep_analytical(grid: SweepGrid, *, mesh=None) -> SweepResult:
     the returned surfaces are expanded to `grid.shape`.  ``mesh``
     (scenario sharding) is not ported yet.
     """
+    if grid.autoscale is not None:
+        raise ValueError(
+            "sweep_analytical cannot evaluate a policy grid: the Eq 7/8 "
+            "bounds assume a fixed replica count (use sweep_simulated)")
+    if grid.fault is not None:
+        raise ValueError(
+            "sweep_analytical cannot evaluate a fault grid: the Eq 7/8 "
+            "bounds assume every replica is up (use sweep_simulated)")
     if mesh is not None:
         raise _not_ported("sweep_analytical(mesh=...)", 12)
     _, params = grid.broadcast()
@@ -341,11 +412,24 @@ def _static_count(x: float, axis_name: str) -> int:
 
 def _stack(results: Sequence[simulator.SimResult], dim: int
            ) -> simulator.SimResult:
-    """Stack every tensor field of ``results`` along ``dim``."""
+    """Stack every set tensor field of ``results`` along ``dim``."""
+    def field(name):
+        vals = [getattr(res, name) for res in results]
+        return None if vals[0] is None else torch.stack(vals, dim=dim)
     return simulator.SimResult(**{
-        f.name: torch.stack([getattr(res, f.name) for res in results],
-                            dim=dim)
+        f.name: field(f.name)
         for f in dataclasses.fields(simulator.SimResult)})
+
+
+def _fill_fault_channels(res: simulator.SimResult) -> simulator.SimResult:
+    """Zero fault channels for a fault axis's ``None`` baseline cell, so
+    that its result stacks with the FaultSpec cells': nothing spilled,
+    unavailable or degraded."""
+    if res.spill_count is not None:
+        return res
+    z = torch.zeros_like(res.count)
+    return dataclasses.replace(res, spill_count=z, unavail_count=z,
+                               degraded_count=z)
 
 
 def sweep_simulated(
@@ -384,6 +468,16 @@ def sweep_simulated(
     lam stays the total rate, so the surface cross-checks the analytical
     ``lam / r`` splitting assumption, imbalance included.
 
+    ``grid.autoscale`` swaps the replica axis for a POLICY axis: one
+    dispatch per `AutoscalePolicy`, each provisioning ``max_r`` replicas
+    with the policy deciding how many are active; every cell then carries
+    ``stats.replica_seconds`` / ``stats.elapsed_seconds``, which
+    `extract_frontier` prices.  ``grid.fault`` swaps it for a
+    FAULT-SCENARIO axis instead: one dispatch per `FaultSpec` (None
+    entries are the fault-free baseline, whose fault channels come back
+    as zeros), every cell at the grid's one replica count.  Policies and
+    faults go on the grid, never on the ClusterSpec.
+
     ``profile`` makes the load non-stationary: a (n_bins,) relative-rate
     curve (e.g. `repro_torch.workloadgen.loadgen.diurnal_rates`) that
     tiles with period ``n_bins * profile_bin_seconds``.  It is normalized
@@ -391,8 +485,9 @@ def sweep_simulated(
     ``tap_size > 0`` carries the simulator's reservoir tap through every
     scenario (:attr:`SimSweepResult.sample_response`).
 
-    Dispatch (i, j) — the i-th p and the j-th r — has flat index
-    ``k = i * n_r + j`` and simulates from the seed ``_mix(seed, k)``.
+    Dispatch (i, j) — the i-th p and the j-th entry of the 6th axis (r,
+    policy or fault scenario) — has flat index ``k = i * n_6 + j`` and
+    simulates from the seed ``_mix(seed, k)``.
     ``draws``, if given, maps k to that dispatch's per-chunk draws
     callable (the simulator's ``draws=``), or None for the port's own
     RNG; tests feed the reference's per-dispatch draws through it.
@@ -408,6 +503,14 @@ def sweep_simulated(
         raise ValueError(
             "sweep_simulated takes replica counts from the grid's r "
             "axis; leave ClusterSpec.r at its default")
+    if spec.autoscale is not None:
+        raise ValueError(
+            "autoscale policies form a sweep axis: put them on "
+            "SweepGrid(autoscale=...) rather than the ClusterSpec")
+    if spec.fault is not None:
+        raise ValueError(
+            "fault scenarios form a sweep axis: put them on "
+            "SweepGrid(fault=...) rather than the ClusterSpec")
     if spec.result_cache is not None and grid.result_cache is not None:
         raise ValueError(
             "result_cache given on both the ClusterSpec and the grid; "
@@ -441,9 +544,16 @@ def sweep_simulated(
         p = _static_count(p_axis[i], "server")
         cfg_slabs = []
         for j in range(n_cfg):
-            cell = ClusterSpec(r=_static_count(r_axis[j], "replica"),
-                               routing=spec.routing, result_cache=cache,
-                               replica_impl=spec.replica_impl)
+            topo = dict(routing=spec.routing, result_cache=cache,
+                        replica_impl=spec.replica_impl)
+            if grid.autoscale is not None:
+                cell = ClusterSpec(autoscale=grid.autoscale[j], **topo)
+            elif grid.fault is not None:
+                cell = ClusterSpec(r=_static_count(r_axis[0], "replica"),
+                                   fault=grid.fault[j], **topo)
+            else:
+                cell = ClusterSpec(r=_static_count(r_axis[j], "replica"),
+                                   **topo)
             lam_ij = lam_slabs[i, j]
             arrival = (ArrivalProcess.stationary(lam_ij, device=dev,
                                                  dtype=dtype)
@@ -457,11 +567,11 @@ def sweep_simulated(
                 hist_bins=hist_bins, tap_size=tap_size, cluster=cell,
                 draws=None if draws is None else draws(k), device=dev,
                 dtype=dtype)
-            cfg_slabs.append(simulator.SimResult(**{
-                f.name: getattr(res, f.name).reshape(
-                    slab_shape + getattr(res, f.name).shape[1:])
-                for f in dataclasses.fields(simulator.SimResult)}))
-        # stack the replica axis behind (L,C,D,H) -> axis 4
+            if grid.fault is not None:
+                res = _fill_fault_channels(res)
+            cfg_slabs.append(res.map(
+                lambda x: x.reshape(slab_shape + x.shape[1:])))
+        # stack the replica / policy / fault axis behind (L,C,D,H) -> 4
         p_slabs.append(_stack(cfg_slabs, 4))
     # stack the p axis into position 1 -> (L,P,C,D,H,R)
     return SimSweepResult(grid=grid, stats=_stack(p_slabs, 1))
@@ -485,9 +595,12 @@ def default_config_cost(p: Tensor, cpu: Tensor, disk: Tensor,
 class Frontier:
     """Per-lambda cheapest feasible configuration (all tensors (L,)).
 
-    ``autoscale`` and ``fault`` are the reference's policy and
-    fault-scenario choices; they stay None until ROADMAP queue 1 items 8
-    and 9 are ported.
+    On a policy grid ``r`` is the chosen policy's MEAN ACTIVE replica
+    count (``replica_seconds / elapsed_seconds``, generally fractional)
+    and ``autoscale`` holds the chosen `AutoscalePolicy` per rate;
+    otherwise ``autoscale`` is None and ``r`` is the static count.  On a
+    fault grid ``fault`` holds the chosen cell's `FaultSpec` (or None for
+    the fault-free baseline cell) per rate.
     """
 
     lam: Tensor
@@ -499,15 +612,25 @@ class Frontier:
     hit: Tensor
     response: Tensor    # targeted-surface response of the chosen config (s)
     r: Tensor = None    # replicas of the chosen config
-    autoscale: Optional[tuple] = None
-    fault: Optional[tuple] = None
+    autoscale: Optional[tuple[AutoscalePolicy, ...]] = None
+    fault: Optional[tuple[Optional[FaultSpec], ...]] = None
 
     def describe(self, i: int) -> str:
         if not bool(self.feasible[i]):
             return (f"lam={float(self.lam[i]):g} qps: INFEASIBLE "
                     f"anywhere on the grid")
-        reps = 1 if self.r is None else int(round(float(self.r[i])))
-        rep_s = f" x{reps} replicas" if reps != 1 else ""
+        if self.autoscale is not None:
+            pol = self.autoscale[i]
+            rep_s = (f" autoscale {pol.min_r}..{pol.max_r}"
+                     f" @{pol.target_utilization:.0%}"
+                     f" (mean active {float(self.r[i]):.2f})")
+        else:
+            reps = 1 if self.r is None else int(round(float(self.r[i])))
+            rep_s = f" x{reps} replicas" if reps != 1 else ""
+            if self.fault is not None:
+                ft = self.fault[i]
+                rep_s += (" (fault-free)" if ft is None
+                          else f" under {ft!r}")
         return (f"lam={float(self.lam[i]):g} qps: p={float(self.p[i]):g} "
                 f"cpu x{float(self.cpu[i]):g} disk x{float(self.disk[i]):g} "
                 f"hit={float(self.hit[i]):.2f}{rep_s} -> "
@@ -538,6 +661,11 @@ def extract_frontier(
     ``cost_fn`` prices ONE replica's hardware (p, cpu, disk, hit);
     replication multiplies it — r copies of the cluster cost r times as
     much.
+
+    On a policy grid the replica multiplier is each cell's OBSERVED
+    time-averaged fleet size ``replica_seconds / elapsed_seconds``, so
+    "cheapest" means fewest replica-seconds per second — comparable to a
+    static-r plan's ``cost * r`` at the same SLO compliance.
     """
     grid = result.grid
     if surface is None:
@@ -551,7 +679,19 @@ def extract_frontier(
         grid.hit.reshape(1, 1, 1, -1),
     )
     costs = torch.broadcast_to(costs, grid.shape[1:5])
-    costs_full = (costs[..., None] * grid.r.reshape(1, 1, 1, 1, -1))[None]
+    if grid.autoscale is not None:
+        stats = getattr(result, "stats", None)
+        if stats is None or stats.replica_seconds is None:
+            raise ValueError(
+                "a policy grid prices configurations by simulated "
+                "replica-seconds; extract the frontier from a "
+                "sweep_simulated result")
+        eff_r = stats.replica_seconds / torch.clamp_min(
+            stats.elapsed_seconds, 1e-30)             # (L,P,C,D,H,A)
+        costs_full = costs[None, :, :, :, :, None] * eff_r
+    else:
+        costs_full = (costs[..., None]
+                      * grid.r.reshape(1, 1, 1, 1, -1))[None]
 
     feasible = surface <= slo_seconds                     # (L,P,C,D,H,R)
     masked = torch.where(feasible, costs_full, math.inf)
@@ -562,6 +702,18 @@ def extract_frontier(
     ip, ic, id_, ih, ir = torch.unravel_index(best, grid.shape[1:])
     chosen_resp = torch.gather(surface.reshape(grid.shape[0], -1), 1,
                                best[:, None])[:, 0]
+    chosen_pol = chosen_fault = None
+    if grid.autoscale is not None:
+        chosen_r = torch.gather(eff_r.reshape(grid.shape[0], -1), 1,
+                                best[:, None])[:, 0]
+        chosen_pol = tuple(grid.autoscale[t] for t in ir.tolist())
+    elif grid.fault is not None:
+        # fault cells all run at the one fixed replica count; the 6th
+        # index picks the failure scenario, not the fleet size
+        chosen_r = grid.r[:1].expand(ir.shape)
+        chosen_fault = tuple(grid.fault[t] for t in ir.tolist())
+    else:
+        chosen_r = grid.r[ir]
     return Frontier(
         lam=grid.lam,
         feasible=torch.isfinite(best_cost),
@@ -571,5 +723,7 @@ def extract_frontier(
         disk=grid.disk[id_],
         hit=grid.hit[ih],
         response=chosen_resp,
-        r=grid.r[ir],
+        r=chosen_r,
+        autoscale=chosen_pol,
+        fault=chosen_fault,
     )

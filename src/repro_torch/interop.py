@@ -59,10 +59,11 @@ def draws_from_numpy(per_chunk: Sequence[tuple], *,
     ``per_chunk[c]`` is (u_gaps (S, chunk) or None, u_broker (S, chunk),
     services (S, p, chunk)) for chunk c, as numpy arrays, optionally
     followed by a dict of side streams (``"route"`` int replica indices,
-    ``"cache_hit"`` bool, ``"cache_unit"``, ``"tap"``; each (S, chunk); see
-    `repro_torch.core.simulator.chunk_side_draws`).  Everything is moved
-    to ``device`` once, up front: floating arrays in ``dtype``, integer
-    and bool arrays as they are.
+    ``"cache_hit"`` bool, ``"cache_unit"``, ``"tap"``, ``"route_u"``, each
+    (S, chunk); ``"fault_u"`` (S, chunk, r); ``"hedge"`` (attempts, S, p,
+    chunk); see `repro_torch.core.simulator.chunk_side_draws`).
+    Everything is moved to ``device`` once, up front: floating arrays in
+    ``dtype``, integer and bool arrays as they are.
     """
     def move(x):
         return None if x is None else from_host(x, device, dtype)

@@ -155,8 +155,9 @@ def all_libraries() -> tuple[CudaLibrary, ...]:
     from repro_torch.kernels.decode_attention import kernel as decode
     from repro_torch.kernels.embedding_bag import kernel as bag
     from repro_torch.kernels.flash_attention import kernel as flash
+    from repro_torch.kernels.fleet_scan import kernel as fleet
     from repro_torch.kernels.hopper import TILE_LIB
     from repro_torch.kernels.jsq_route import kernel as jsq
     from repro_torch.kernels.maxplus_scan import kernel as scan
     return (scan.SCAN_LIB, scan.SEGMENT_LIB, jsq.LIB, flash.LIB, decode.LIB,
-            bag.LIB, cin.LIB, TILE_LIB)
+            bag.LIB, cin.LIB, fleet.LIB, TILE_LIB)

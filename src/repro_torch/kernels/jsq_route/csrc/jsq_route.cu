@@ -49,6 +49,16 @@
 // The deposit is rounded as the plain version rounds it (a product, then
 // a sum; no fused multiply-add), so kernel and loop choose alike.
 //
+// Masks (the `MASKED` instances; the unmasked ones are the code above,
+// unchanged): per query, the autoscaler's active count n_act and the
+// fault injector's up mask (one int32 of bits a query, bit k replica k)
+// take replicas out of the argmin by setting their drained maximum to
+// +inf there; the trackers keep draining.  The argmin over the active
+// replicas alone is the fault-free choice: a query with no active
+// replica up takes it (`unavail`), and one whose fault-free choice is
+// down and moves is a `spill`.  Both masks are staged with the tile, off
+// the chain.
+//
 // Plain C interface (bound with ctypes): each entry point returns
 // cudaGetLastError() after the launch.
 
@@ -125,6 +135,20 @@ __device__ __forceinline__ void stage(T* buf, const T* s_rows, const T* g_row,
   __pipeline_commit();
 }
 
+// Queue the copies of a tile's masks (active counts, then up bits, each
+// row `tile` wide) into the group that `stage` commits next.
+__device__ __forceinline__ void stage_masks(int* buf, const int* a_row,
+                                            const int* b_row, int64_t n,
+                                            int64_t base, int tile,
+                                            int lane) {
+  const int64_t left = n - base;
+  const int cols = left < tile ? static_cast<int>(left) : tile;
+  for (int c = lane; c < cols; c += 32) {
+    __pipeline_memcpy_async(&buf[c], &a_row[base + c], sizeof(int));
+    __pipeline_memcpy_async(&buf[tile + c], &b_row[base + c], sizeof(int));
+  }
+}
+
 // The argmin over KC (a power of two) carried maxima, first index on
 // ties: a tree whose right branch wins only when strictly less
 template <typename T, int KC>
@@ -146,6 +170,26 @@ __device__ __forceinline__ int argmin_first(const T (&d)[KC]) {
     }
   }
   return idx[0];
+}
+
+// The masked choice of one query from the drained maxima d: the argmin
+// over the active replicas that are up, else (none is) over the active
+// replicas.  Returns the choice | spill << 8 | unavail << 9.
+template <typename T, int KC>
+__device__ __forceinline__ int masked_choice(const T (&d)[KC], int act,
+                                             int bits) {
+  T da[KC], du[KC];
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    const bool a = k < act;
+    da[k] = a ? d[k] : T(INFINITY);
+    du[k] = (a && ((bits >> k) & 1)) ? d[k] : T(INFINITY);
+  }
+  const int raw = argmin_first(da);
+  const bool any_up = (bits & ((1 << act) - 1)) != 0;
+  const int best = any_up ? argmin_first(du) : raw;
+  const int spill = any_up && !((bits >> raw) & 1);
+  return best | (spill << 8) | (static_cast<int>(!any_up) << 9);
 }
 
 // x[k] for a runtime k < KC (a power of two): a tree of selects on its bits
@@ -177,11 +221,13 @@ __device__ __forceinline__ T tree_max(const T (&x)[PER]) {
   return v[0];
 }
 
-template <typename T, int KC, int PER>
+template <typename T, int KC, int PER, bool MASKED>
 __global__ void __launch_bounds__(32)
 jsq_reg_kernel(const T* __restrict__ w_in, const T* __restrict__ gaps,
                const T* __restrict__ services, const T* __restrict__ live,
-               int64_t* __restrict__ choice, T* __restrict__ w_out, int r,
+               const int* __restrict__ n_act, const int* __restrict__ up_bits,
+               int64_t* __restrict__ choice, T* __restrict__ w_out,
+               bool* __restrict__ spill, bool* __restrict__ unavail, int r,
                int p, int64_t n, int tile) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int lane = threadIdx.x;
@@ -189,8 +235,9 @@ jsq_reg_kernel(const T* __restrict__ w_in, const T* __restrict__ gaps,
   const int stride = tile + 1;
   const int buf_len = (p + 2) * stride;
   T* bufs = reinterpret_cast<T*>(smem);
-  // the tile's choices, stored once a tile
+  // the tile's choices (and flags), stored once a tile; then the masks
   int* cbuf = reinterpret_cast<int*>(bufs + 2 * buf_len);
+  int* mbufs = cbuf + tile;   // MASKED: 2 x (n_act, bits), tile each
   const T* g_row = gaps + s * n;
   const T* l_row = live + s * n;
   const T* s_rows = services + s * static_cast<int64_t>(p) * n;
@@ -220,11 +267,17 @@ jsq_reg_kernel(const T* __restrict__ w_in, const T* __restrict__ gaps,
     if (k >= r) m[k] = INFINITY;
   }
 
+  if constexpr (MASKED)
+    stage_masks(mbufs, n_act + s * n, up_bits + s * n, n, 0, tile, lane);
   stage(bufs, s_rows, g_row, l_row, p, n, 0, tile, lane);
   for (int64_t base = 0, it = 0; base < n; base += tile, ++it) {
     const int cols = static_cast<int>(n - base < tile ? n - base : tile);
     const T* cur = bufs + (it & 1) * buf_len;
+    const int* mcur = mbufs + (it & 1) * 2 * tile;
     // the next tile: copies in flight while this one runs
+    if constexpr (MASKED)
+      stage_masks(mbufs + ((it + 1) & 1) * 2 * tile, n_act + s * n,
+                  up_bits + s * n, n, base + tile, tile, lane);
     stage(bufs + ((it + 1) & 1) * buf_len, s_rows, g_row, l_row, p, n,
           base + tile, tile, lane);
     __pipeline_wait_prior(1);   // this tile's group has landed
@@ -257,7 +310,13 @@ jsq_reg_kernel(const T* __restrict__ w_in, const T* __restrict__ gaps,
       T d[KC];
 #pragma unroll
       for (int k = 0; k < KC; ++k) d[k] = max0(m[k] - gap);
-      const int best = argmin_first(d);
+      int best, flags = 0;
+      if constexpr (MASKED) {
+        flags = masked_choice(d, mcur[t], mcur[tile + t]);
+        best = flags & 0xff;
+      } else {
+        best = argmin_first(d);
+      }
       const T mx = warp_max(select_at(lmax, best));
 #pragma unroll
       for (int k = 0; k < KC; ++k) {
@@ -266,10 +325,19 @@ jsq_reg_kernel(const T* __restrict__ w_in, const T* __restrict__ gaps,
           if (k == best) w[k][q] = cand[k][q];
         m[k] = k == best ? mx : d[k];
       }
-      if (lane == 0) cbuf[t] = best;
+      if (lane == 0) cbuf[t] = MASKED ? flags : best;
     }
     __syncwarp();   // every lane is done with `cur` before it is restaged
-    for (int t = lane; t < cols; t += 32) c_row[base + t] = cbuf[t];
+    for (int t = lane; t < cols; t += 32) {
+      if constexpr (MASKED) {
+        const int c = cbuf[t];
+        c_row[base + t] = c & 0xff;
+        spill[s * n + base + t] = (c >> 8) & 1;
+        unavail[s * n + base + t] = (c >> 9) & 1;
+      } else {
+        c_row[base + t] = cbuf[t];
+      }
+    }
   }
   __pipeline_wait_prior(0);
 #pragma unroll
@@ -286,12 +354,15 @@ jsq_reg_kernel(const T* __restrict__ w_in, const T* __restrict__ gaps,
 // not a multiple of 32; the warp max needs the whole warp, so a
 // __syncwarp() closes them (ptxas already reconverges there with a
 // BSYNC, and the sync compiles to nothing; PERF.md).
-template <typename T, int KC>
+template <typename T, int KC, bool MASKED>
 __global__ void __launch_bounds__(32)
 jsq_smem_kernel(const T* __restrict__ w_in, const T* __restrict__ gaps,
                 const T* __restrict__ services, const T* __restrict__ live,
-                int64_t* __restrict__ choice, T* __restrict__ w_out, int r,
-                int p, int64_t n, int per, int tile) {
+                const int* __restrict__ n_act,
+                const int* __restrict__ up_bits, int64_t* __restrict__ choice,
+                T* __restrict__ w_out, bool* __restrict__ spill,
+                bool* __restrict__ unavail, int r, int p, int64_t n, int per,
+                int tile) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int64_t s = blockIdx.x;
   const int lane = threadIdx.x;
@@ -300,6 +371,7 @@ jsq_smem_kernel(const T* __restrict__ w_in, const T* __restrict__ gaps,
   const int rp = r * p;
   T* ws = reinterpret_cast<T*>(smem);   // (r, p)
   T* bufs = ws + rp;                    // 2 x (p + 2, tile + 1)
+  int* mbufs = reinterpret_cast<int*>(bufs + 2 * buf_len);  // MASKED
   const T* g_row = gaps + s * n;
   const T* l_row = live + s * n;
   const T* s_rows = services + s * static_cast<int64_t>(p) * n;
@@ -320,10 +392,16 @@ jsq_smem_kernel(const T* __restrict__ w_in, const T* __restrict__ gaps,
     if (k >= r) m[k] = INFINITY;
   }
 
+  if constexpr (MASKED)
+    stage_masks(mbufs, n_act + s * n, up_bits + s * n, n, 0, tile, lane);
   stage(bufs, s_rows, g_row, l_row, p, n, 0, tile, lane);
   for (int64_t base = 0, it = 0; base < n; base += tile, ++it) {
     const int cols = static_cast<int>(n - base < tile ? n - base : tile);
     const T* cur = bufs + (it & 1) * buf_len;
+    const int* mcur = mbufs + (it & 1) * 2 * tile;
+    if constexpr (MASKED)
+      stage_masks(mbufs + ((it + 1) & 1) * 2 * tile, n_act + s * n,
+                  up_bits + s * n, n, base + tile, tile, lane);
     stage(bufs + ((it + 1) & 1) * buf_len, s_rows, g_row, l_row, p, n,
           base + tile, tile, lane);
     __pipeline_wait_prior(1);
@@ -353,7 +431,13 @@ jsq_smem_kernel(const T* __restrict__ w_in, const T* __restrict__ gaps,
       T d[KC];
 #pragma unroll
       for (int k = 0; k < KC; ++k) d[k] = max0(m[k] - gap);
-      const int best = argmin_first(d);
+      int best, flags = 0;
+      if constexpr (MASKED) {
+        flags = masked_choice(d, mcur[t], mcur[tile + t]);
+        best = flags & 0xff;
+      } else {
+        best = argmin_first(d);
+      }
       T loc = lmax[0];
 #pragma unroll
       for (int k = 1; k < KC; ++k)
@@ -362,7 +446,13 @@ jsq_smem_kernel(const T* __restrict__ w_in, const T* __restrict__ gaps,
       const T mx = warp_max(loc);
 #pragma unroll
       for (int k = 0; k < KC; ++k) m[k] = k == best ? mx : d[k];
-      if (lane == 0) c_row[base + t] = best;
+      if (lane == 0) {
+        c_row[base + t] = best;
+        if constexpr (MASKED) {
+          spill[s * n + base + t] = (flags >> 8) & 1;
+          unavail[s * n + base + t] = (flags >> 9) & 1;
+        }
+      }
       T* wb = ws + best * p;
       for (int q = 0; q < per; ++q) {
         const int j = lane + 32 * q;
@@ -376,9 +466,9 @@ jsq_smem_kernel(const T* __restrict__ w_in, const T* __restrict__ gaps,
 }
 
 // The launch plan (kernels/jsq_route/kernel.py `JsqPlan.args`): variant
-// (0 registers, 1 shared), KC, PER, tile, shared bytes.  A block is one
-// warp, one scenario.
-constexpr int kPlanLen = 5;
+// (0 registers, 1 shared), KC, PER, tile, shared bytes, masked (0 / 1).
+// A block is one warp, one scenario.
+constexpr int kPlanLen = 6;
 
 template <typename Kernel>
 int set_smem(Kernel kernel, int64_t smem) {
@@ -388,56 +478,72 @@ int set_smem(Kernel kernel, int64_t smem) {
       static_cast<int>(smem)));
 }
 
-template <typename T, int KC, int PER>
-int launch_reg(const void* w_in, const void* gaps, const void* services,
-               const void* live, void* choice, void* w_out, int64_t scenarios,
-               int64_t r, int64_t p, int64_t n, const int64_t* plan,
-               void* stream) {
+// The pointers of one launch: inputs, masks (null unless masked),
+// outputs, flags (null unless masked)
+struct Args {
+  const void* w_in;
+  const void* gaps;
+  const void* services;
+  const void* live;
+  const void* n_act;
+  const void* up_bits;
+  void* choice;
+  void* w_out;
+  void* spill;
+  void* unavail;
+};
+
+template <typename T, int KC, int PER, bool MASKED>
+int launch_reg(const Args& a, int64_t scenarios, int64_t r, int64_t p,
+               int64_t n, const int64_t* plan, void* stream) {
   if constexpr (KC * PER * static_cast<int>(sizeof(T) / 4) > kRegBudget) {
     return static_cast<int>(cudaErrorInvalidValue);
   } else {
-    const int err = set_smem(jsq_reg_kernel<T, KC, PER>, plan[4]);
+    const int err = set_smem(jsq_reg_kernel<T, KC, PER, MASKED>, plan[4]);
     if (err != 0) return err;
-    jsq_reg_kernel<T, KC, PER><<<dim3(static_cast<unsigned>(scenarios)), 32,
-                                 plan[4], static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(w_in), static_cast<const T*>(gaps),
-        static_cast<const T*>(services), static_cast<const T*>(live),
-        static_cast<int64_t*>(choice), static_cast<T*>(w_out),
-        static_cast<int>(r), static_cast<int>(p), n,
-        static_cast<int>(plan[3]));
+    jsq_reg_kernel<T, KC, PER, MASKED>
+        <<<dim3(static_cast<unsigned>(scenarios)), 32, plan[4],
+           static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const T*>(a.w_in), static_cast<const T*>(a.gaps),
+            static_cast<const T*>(a.services), static_cast<const T*>(a.live),
+            static_cast<const int*>(a.n_act),
+            static_cast<const int*>(a.up_bits),
+            static_cast<int64_t*>(a.choice), static_cast<T*>(a.w_out),
+            static_cast<bool*>(a.spill), static_cast<bool*>(a.unavail),
+            static_cast<int>(r), static_cast<int>(p), n,
+            static_cast<int>(plan[3]));
     return static_cast<int>(cudaGetLastError());
   }
 }
 
-template <typename T, int KC>
-int launch_smem(const void* w_in, const void* gaps, const void* services,
-                const void* live, void* choice, void* w_out,
-                int64_t scenarios, int64_t r, int64_t p, int64_t n,
-                const int64_t* plan, void* stream) {
-  const int err = set_smem(jsq_smem_kernel<T, KC>, plan[4]);
+template <typename T, int KC, bool MASKED>
+int launch_smem(const Args& a, int64_t scenarios, int64_t r, int64_t p,
+                int64_t n, const int64_t* plan, void* stream) {
+  const int err = set_smem(jsq_smem_kernel<T, KC, MASKED>, plan[4]);
   if (err != 0) return err;
-  jsq_smem_kernel<T, KC><<<dim3(static_cast<unsigned>(scenarios)), 32,
-                           plan[4], static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(w_in), static_cast<const T*>(gaps),
-      static_cast<const T*>(services), static_cast<const T*>(live),
-      static_cast<int64_t*>(choice), static_cast<T*>(w_out),
+  jsq_smem_kernel<T, KC, MASKED><<<dim3(static_cast<unsigned>(scenarios)),
+                                   32, plan[4],
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(a.w_in), static_cast<const T*>(a.gaps),
+      static_cast<const T*>(a.services), static_cast<const T*>(a.live),
+      static_cast<const int*>(a.n_act), static_cast<const int*>(a.up_bits),
+      static_cast<int64_t*>(a.choice), static_cast<T*>(a.w_out),
+      static_cast<bool*>(a.spill), static_cast<bool*>(a.unavail),
       static_cast<int>(r), static_cast<int>(p), n, static_cast<int>(plan[2]),
       static_cast<int>(plan[3]));
   return static_cast<int>(cudaGetLastError());
 }
-template <typename T, int KC>
-int launch_kc(const void* w_in, const void* gaps, const void* services,
-              const void* live, void* choice, void* w_out, int64_t scenarios,
-              int64_t r, int64_t p, int64_t n, const int64_t* plan,
-              void* stream) {
+
+template <typename T, int KC, bool MASKED>
+int launch_kc(const Args& a, int64_t scenarios, int64_t r, int64_t p,
+              int64_t n, const int64_t* plan, void* stream) {
   if (plan[0] == 1)
-    return launch_smem<T, KC>(w_in, gaps, services, live, choice, w_out,
-                              scenarios, r, p, n, plan, stream);
+    return launch_smem<T, KC, MASKED>(a, scenarios, r, p, n, plan, stream);
   switch (plan[2]) {
-#define REPRO_JSQ_PER(PER)                                                    \
-  case PER:                                                                   \
-    return launch_reg<T, KC, PER>(w_in, gaps, services, live, choice, w_out, \
-                                  scenarios, r, p, n, plan, stream);
+#define REPRO_JSQ_PER(PER)                                                  \
+  case PER:                                                                 \
+    return launch_reg<T, KC, PER, MASKED>(a, scenarios, r, p, n, plan,     \
+                                          stream);
     REPRO_JSQ_PER(1)
     REPRO_JSQ_PER(2)
     REPRO_JSQ_PER(4)
@@ -449,19 +555,13 @@ int launch_kc(const void* w_in, const void* gaps, const void* services,
   }
 }
 
-template <typename T>
-int launch(const void* w_in, const void* gaps, const void* services,
-           const void* live, void* choice, void* w_out, int64_t scenarios,
-           int64_t r, int64_t p, int64_t n, const int64_t* plan,
-           int64_t plan_len, void* stream) {
-  if (plan_len != kPlanLen || r < 1 || r > plan[1] || plan[3] < 1 ||
-      32 * plan[2] < p || scenarios > 0x7fffffff)
-    return static_cast<int>(cudaErrorInvalidValue);
+template <typename T, bool MASKED>
+int launch_masked(const Args& a, int64_t scenarios, int64_t r, int64_t p,
+                  int64_t n, const int64_t* plan, void* stream) {
   switch (plan[1]) {
-#define REPRO_JSQ_KC(KC)                                                     \
-  case KC:                                                                   \
-    return launch_kc<T, KC>(w_in, gaps, services, live, choice, w_out,      \
-                            scenarios, r, p, n, plan, stream);
+#define REPRO_JSQ_KC(KC)                                                   \
+  case KC:                                                                 \
+    return launch_kc<T, KC, MASKED>(a, scenarios, r, p, n, plan, stream);
     REPRO_JSQ_KC(2)
     REPRO_JSQ_KC(4)
     REPRO_JSQ_KC(8)
@@ -472,25 +572,44 @@ int launch(const void* w_in, const void* gaps, const void* services,
   }
 }
 
+template <typename T>
+int launch(const Args& a, int64_t scenarios, int64_t r, int64_t p, int64_t n,
+           const int64_t* plan, int64_t plan_len, void* stream) {
+  if (plan_len != kPlanLen || r < 1 || r > plan[1] || plan[3] < 1 ||
+      32 * plan[2] < p || scenarios > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (plan[5] != 0) {
+    if (!a.n_act || !a.up_bits || !a.spill || !a.unavail)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_masked<T, true>(a, scenarios, r, p, n, plan, stream);
+  }
+  return launch_masked<T, false>(a, scenarios, r, p, n, plan, stream);
+}
+
 }  // namespace
 
 // plan: kPlanLen int64 (host memory), as `JsqPlan.args` lays it out.
+// n_act, up_bits, spill and unavail are null unless the plan is masked.
 extern "C" int jsq_route_f32(const void* w_in, const void* gaps,
                              const void* services, const void* live,
-                             void* choice, void* w_out, int64_t scenarios,
-                             int64_t r, int64_t p, int64_t n,
-                             const int64_t* plan, int64_t plan_len,
-                             void* stream) {
-  return launch<float>(w_in, gaps, services, live, choice, w_out, scenarios,
-                       r, p, n, plan, plan_len, stream);
+                             const void* n_act, const void* up_bits,
+                             void* choice, void* w_out, void* spill,
+                             void* unavail, int64_t scenarios, int64_t r,
+                             int64_t p, int64_t n, const int64_t* plan,
+                             int64_t plan_len, void* stream) {
+  const Args a{w_in,    gaps,   services, live,  n_act,
+               up_bits, choice, w_out,    spill, unavail};
+  return launch<float>(a, scenarios, r, p, n, plan, plan_len, stream);
 }
 
 extern "C" int jsq_route_f64(const void* w_in, const void* gaps,
                              const void* services, const void* live,
-                             void* choice, void* w_out, int64_t scenarios,
-                             int64_t r, int64_t p, int64_t n,
-                             const int64_t* plan, int64_t plan_len,
-                             void* stream) {
-  return launch<double>(w_in, gaps, services, live, choice, w_out, scenarios,
-                        r, p, n, plan, plan_len, stream);
+                             const void* n_act, const void* up_bits,
+                             void* choice, void* w_out, void* spill,
+                             void* unavail, int64_t scenarios, int64_t r,
+                             int64_t p, int64_t n, const int64_t* plan,
+                             int64_t plan_len, void* stream) {
+  const Args a{w_in,    gaps,   services, live,  n_act,
+               up_bits, choice, w_out,    spill, unavail};
+  return launch<double>(a, scenarios, r, p, n, plan, plan_len, stream);
 }

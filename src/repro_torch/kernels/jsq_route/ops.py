@@ -9,6 +9,8 @@ and the plain loop for a CPU tensor.  A CUDA tensor under ``"auto"`` or
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels._cuda import resolve_impl
@@ -29,15 +31,20 @@ def reset_launch_count() -> None:
 
 
 def jsq_route(w: Tensor, gaps: Tensor, services: Tensor, live: Tensor, *,
-              impl: str = "auto") -> tuple[Tensor, Tensor]:
+              n_act: Optional[Tensor] = None, up: Optional[Tensor] = None,
+              impl: str = "auto"):
     """Route one chunk by join-shortest-queue on carried per-replica work.
 
     w: (S, r, p) remaining seconds per replica server at the previous
     arrival; gaps, live: (S, n); services: (S, p, n) (broadcast views are
-    materialized for the kernel).  Returns (choice (S, n) int64, the
-    tracker after the chunk (S, r, p)).
+    materialized for the kernel).  ``n_act`` (S, n) int32, the active
+    replica count a query, and ``up`` (S, n, r) bool, the replica-up
+    mask, take replicas out of the argmin (their trackers keep draining).
+    Returns (choice (S, n) int64, the tracker after the chunk (S, r, p)),
+    plus (spill, unavail) (S, n) bool when ``up`` is given.
     """
     if resolve_impl(impl, w.device) == "torch":
-        return ref.jsq_route_ref(w, gaps, services, live)
-    return kernel.jsq_route_cuda(w.contiguous(), gaps.contiguous(),
-                                 services.contiguous(), live.contiguous())
+        return ref.jsq_route_ref(w, gaps, services, live, n_act=n_act, up=up)
+    return kernel.jsq_route_cuda(
+        w.contiguous(), gaps.contiguous(), services.contiguous(),
+        live.contiguous(), n_act=n_act, up=up)

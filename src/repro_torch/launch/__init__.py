@@ -1,1 +1,2 @@
-"""Launch-time policies (`elastic.hedge_threshold`)."""
+"""Launch-time policies: the serving autoscaler (`elastic.AutoscalePolicy`),
+the hedging threshold and training-mesh resizing."""

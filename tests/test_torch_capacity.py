@@ -25,6 +25,7 @@ from repro_torch import interop
 from repro_torch.core import capacity as tcap
 from repro_torch.core import queueing as tq
 from repro_torch.core.cluster import ClusterSpec
+from repro_torch.launch.elastic import AutoscalePolicy
 
 CPU = "cpu"
 T5J = jcap.TABLE5_PARAMS
@@ -203,8 +204,11 @@ def test_plan_capacity_refusals():
         tcap.plan_capacity(p4, 200.0, 0.3, cluster=ClusterSpec(r=2))
     with pytest.raises(ValueError, match="survive_faults must be >= 0"):
         tcap.plan_capacity(p4, 200.0, 0.3, survive_faults=-1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        tcap.plan_capacity(p4, 200.0, 0.3, survive_faults=1)
+    with pytest.raises(ValueError, match="sizes a static fleet"):
+        tcap.plan_capacity(
+            p4, 200.0, 0.3, survive_faults=1, simulate=True,
+            cluster=ClusterSpec(autoscale=AutoscalePolicy(min_r=1,
+                                                          max_r=4)))
     # an infeasible SLO skips the cross-check with the reference's warning
     base = tcap.scenario("baseline", device=CPU)
     with pytest.warns(UserWarning, match="infeasible SLO"):

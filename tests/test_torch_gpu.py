@@ -18,8 +18,10 @@ from repro_torch import interop
 from repro_torch.configs import qwen3_8b
 from repro_torch.core import capacity, simulator, sweep
 from repro_torch.core.cluster import ClusterSpec
+from repro_torch.core.faults import FaultSpec
 from repro_torch.configs import xdeepfm
 from repro_torch.data.recsys_data import ctr_batch
+from repro_torch.launch.elastic import AutoscalePolicy, autoscale_init
 from repro_torch.kernels import hopper
 from repro_torch.kernels.cin_fuse import kernel as cin_kernel
 from repro_torch.kernels.cin_fuse import ops as cin_ops
@@ -29,6 +31,7 @@ from repro_torch.kernels.embedding_bag import ops as bag_ops
 from repro_torch.kernels.embedding_bag import ref as bag_ref
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.fleet_scan import ops as fleet_ops
 from repro_torch.kernels.jsq_route import ops as jsq_ops
 from repro_torch.kernels.maxplus_scan import kernel, ops
 from repro_torch.models import recsys as RS
@@ -320,6 +323,134 @@ def test_simulated_sweep_on_the_card_matches_plain_path(cuda, routing):
     assert kern.mean.shape == grid.shape
     _assert_rel(kern.mean, plain.mean, 1e-4)
     _assert_rel(kern.quantile(0.95), plain.quantile(0.95), 1e-2)
+
+
+# ------------------------------------------------------------ the fleet
+_FLEET_FAULT = FaultSpec(outages=((0, 2.0, 5.0), (3, 1.0, 9.0)),
+                         mtbf_seconds=3.0, mttr_seconds=0.5)
+_FLEET_POLICY = AutoscalePolicy(min_r=1, max_r=4, target_utilization=0.6,
+                                decision_interval_seconds=0.4,
+                                stabilization_intervals=2,
+                                queue_trigger_seconds=0.5)
+
+
+def _fleet_inputs(s, n, r, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    gaps = torch.empty((s, n), dtype=dtype, device=device).exponential_(
+        generator=g) * 0.02
+    # ~2.5 r server-seconds a second against 4.8 a replica at the
+    # target: the policy scales to ~r / 2
+    dem = torch.empty((s, n), dtype=dtype, device=device).exponential_(
+        generator=g) * 0.05 * r
+    u = torch.rand((s, n, r), dtype=dtype, device=device, generator=g)
+    upf = torch.rand((s, n), dtype=dtype, device=device, generator=g)
+    return gaps, dem, u, upf
+
+
+# r = 1, 4 and 16 (the lanes a warp carries), n on and off a tile, the
+# four ways the engine calls it: faults alone, the policy alone, both (the
+# controller reading the mask's count), the policy with an explicit up
+# fraction (autoscale_scan's)
+@pytest.mark.parametrize("r,n", [(1, 33), (4, 300), (16, 257)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("what", ["fault", "policy", "both", "upf"])
+def test_fleet_kernel_matches_plain_loop(cuda, r, n, dtype, what):
+    s = 6
+    gaps, dem, u, upf = _fleet_inputs(s, n, r, dtype, cuda, seed=r + n)
+    t_arr = torch.cumsum(gaps, -1) + 0.5
+    pol = dataclasses.replace(_FLEET_POLICY, max_r=max(r, 1),
+                              min_r=1) if what != "fault" else None
+    kw = dict(t_arr=t_arr, u=u, demand=dem, n_valid=n - 5,
+              fault=_FLEET_FAULT if what in ("fault", "both") else None,
+              policy=pol, p=8, r=r,
+              up_frac=upf if what == "upf" else None,
+              up_state=torch.ones((s, r), dtype=torch.int32, device=cuda),
+              as_state=None if pol is None else autoscale_init(
+                  pol, s, dtype, device=cuda))
+    before = fleet_ops.launch_count()
+    k_up, k_n, k_st, k_as = fleet_ops.fleet_scan(gaps, impl="cuda", **kw)
+    p_up, p_n, p_st, p_as = fleet_ops.fleet_scan(gaps, impl="torch", **kw)
+    torch.cuda.synchronize()
+    assert fleet_ops.launch_count() == before + 1
+    if kw["fault"] is not None:
+        assert torch.equal(k_up, p_up) and torch.equal(k_st, p_st)
+        assert bool((~p_up).any()) and bool(p_up.any())
+    if pol is not None:
+        assert torch.equal(k_n, p_n)
+        for kt, pt in zip(k_as, p_as):
+            if kt.dtype == torch.int32:
+                assert torch.equal(kt, pt)
+            else:
+                _assert_rel(kt, pt, 1e-6)
+        assert r == 1 or int(p_n.min()) < int(p_n.max())
+
+
+@pytest.mark.parametrize("r,p,n", [(4, 100, 300), (3, 5, 1000), (1, 7, 33),
+                                   (16, 40, 65), (16, 200, 70),
+                                   (13, 70, 129)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("masks", ["n_act", "up", "both"])
+def test_masked_jsq_kernel_matches_plain_loop(cuda, r, p, n, dtype, masks):
+    g = torch.Generator(device=cuda).manual_seed(r * 1000 + p + 7)
+    s = 6
+    w = torch.rand((s, r, p), dtype=dtype, device=cuda, generator=g)
+    gaps = torch.empty((s, n), dtype=dtype, device=cuda).exponential_(
+        generator=g) * 0.3 / r
+    svc = torch.empty((s, p, n), dtype=dtype, device=cuda).exponential_(
+        generator=g)
+    live = (torch.rand((s, n), device=cuda, generator=g) > 0.2).to(dtype)
+    n_act = up = None
+    if masks in ("n_act", "both"):
+        n_act = torch.randint(1, r + 1, (s, n), generator=g, device=cuda,
+                              dtype=torch.int32)
+    if masks in ("up", "both"):
+        up = torch.rand((s, n, r), device=cuda, generator=g) < 0.7
+        up[1, : n // 3] = False                # no replica up: unavailable
+    before = jsq_ops.launch_count()
+    k = jsq_ops.jsq_route(w, gaps, svc, live, n_act=n_act, up=up,
+                          impl="cuda")
+    pl = jsq_ops.jsq_route(w, gaps, svc, live, n_act=n_act, up=up,
+                           impl="torch")
+    torch.cuda.synchronize()
+    assert jsq_ops.launch_count() == before + 1
+    assert len(k) == len(pl) == (4 if up is not None else 2)
+    for kt, pt in zip(k, pl):
+        assert torch.equal(kt, pt)
+    if up is not None and r > 1:
+        assert bool(pl[2].any()) and bool(pl[3].any())
+
+
+@pytest.mark.parametrize("routing", ["round_robin", "random", "jsq"])
+def test_elastic_faulted_engine_goes_through_the_fleet_scan(cuda, routing):
+    """An autoscaled, faulted run on the card: one fleet scan a chunk,
+    the segmented scans (and JSQ) as before, and the plain path's
+    statistics on the same draws."""
+    params = dataclasses.replace(capacity.TABLE5_PARAMS, p=16)
+    n, chunk = 8192, 2048
+    fault = FaultSpec(outages=((0, 5.0, 40.0),), mtbf_seconds=20.0,
+                      mttr_seconds=4.0, broker_timeout_seconds=0.5,
+                      quorum_k=15, hedge_after_seconds=0.4)
+    pol = AutoscalePolicy(min_r=1, max_r=4, decision_interval_seconds=2.0)
+    cluster = ClusterSpec(routing=routing, result_cache=(0.2, 2e-3),
+                          autoscale=pol, fault=fault)
+    ops.reset_launch_count()
+    ops.reset_segment_launch_count()
+    jsq_ops.reset_launch_count()
+    fleet_ops.reset_launch_count()
+    res = simulator.simulate_fork_join(7, 60.0, n, params, cluster=cluster,
+                                       chunk_size=chunk)
+    n_chunks = n // chunk
+    assert fleet_ops.launch_count() == n_chunks
+    assert ops.launch_count() == 0
+    assert ops.segment_launch_count() == 3 * n_chunks
+    assert jsq_ops.launch_count() == (n_chunks if routing == "jsq" else 0)
+    plain = simulator.simulate_fork_join(7, 60.0, n, params,
+                                         cluster=cluster, chunk_size=chunk,
+                                         impl="torch")
+    for name in ("mean_response", "mean_active_replicas", "spill_fraction",
+                 "availability", "degraded_fraction"):
+        _assert_rel(getattr(res, name), getattr(plain, name), 1e-4)
+    assert 1.0 <= float(res.mean_active_replicas) <= 4.0
 
 
 # ------------------------------------------------------------ attention

@@ -11,6 +11,13 @@ choice of registers or shared memory, and that it takes every shape the
 kernel took before, are checked here.  The kernel itself is held against
 the plain loop on the card (tests/test_torch_gpu.py, chip_smoke.py phase
 5b).
+
+The masked router (the autoscaler's active counts and the fault
+injector's up mask) is held likewise: the plain loop against the
+reference's `_jsq_route` with ``n_act`` and ``up`` in float64 (choices,
+spill and unavail exact), and the kernel's masked choice (drained maxima
+set to +inf outside the mask, the argmin over the active replicas kept
+for ``spill``) against the plain loop.
 """
 
 import jax
@@ -148,3 +155,116 @@ def test_plan_takes_every_shape_the_previous_kernel_took():
                     <= SMEM_LIMIT
     with pytest.raises(ValueError, match="replicas"):
         t_kernel.jsq_plan(17, 10, 4)
+
+
+# ------------------------------------------------------------ masks
+
+def _masks(s, r, n, seed):
+    rng = np.random.default_rng(seed)
+    n_act = rng.integers(1, r + 1, size=(s, n)).astype(np.int32)
+    up = rng.random((s, n, r)) < 0.65
+    up[0, : n // 4] = False                     # nothing up: unavailable
+    return n_act, up
+
+
+def _carried_max_route_masked(w, gaps, services, live, n_act, up):
+    """The masked kernel's recurrence: the drained maxima of inactive and
+    down replicas are +inf in the argmin; the argmin over the active
+    replicas alone is the fault-free choice (``spill``, ``unavail``)."""
+    rows = torch.arange(w.shape[0])
+    replicas = torch.arange(w.shape[1])
+    m = w.amax(dim=-1)
+    out = [], [], []
+    for i in range(gaps.shape[1]):
+        gap = gaps[:, i, None]
+        w = torch.clamp_min(w - gap[..., None], 0.0)
+        d = torch.clamp_min(m - gap, 0.0)
+        active = replicas < n_act[:, i, None]
+        ok = active & up[:, i]
+        raw = torch.argmin(torch.where(active, d, torch.inf), dim=-1)
+        any_up = ok.any(dim=-1)
+        best = torch.where(any_up,
+                           torch.argmin(torch.where(ok, d, torch.inf), -1),
+                           raw)
+        w[rows, best] = w[rows, best] + live[:, i, None] * services[:, :, i]
+        m = d.clone()
+        m[rows, best] = w[rows, best].amax(dim=-1)
+        for acc, v in zip(out, (best, any_up & ~up[rows, i, raw], ~any_up)):
+            acc.append(v)
+    return tuple(torch.stack(v, dim=-1) for v in out) + (w,)
+
+
+@pytest.mark.parametrize("masks", ["n_act", "up", "both"])
+@pytest.mark.parametrize("with_hits", [False, True])
+def test_masked_plain_loop_matches_reference(x64, masks, with_hits):
+    rng = np.random.default_rng(3)
+    s, r, p, n = 3, 4, 5, 300
+    w = rng.exponential(size=(s, r, p)) * 0.5
+    w[0] = 0.0
+    gaps = rng.exponential(size=(s, n)) * 0.3 / r
+    svc = rng.exponential(size=(s, p, n))
+    live = ((rng.random((s, n)) > 0.3) if with_hits
+            else np.ones((s, n))).astype(np.float64)
+    n_act, up = _masks(s, r, n, seed=4)
+    n_act = n_act if masks in ("n_act", "both") else None
+    up = up if masks in ("up", "both") else None
+    ref = jsim._jsq_route(
+        jnp.asarray(w), jnp.asarray(gaps), jnp.asarray(svc),
+        jnp.asarray(live), r, jnp.float64,
+        n_act=None if n_act is None else jnp.asarray(n_act),
+        up=None if up is None else jnp.asarray(up))
+    port = t_ref.jsq_route_ref(
+        torch.from_numpy(w), torch.from_numpy(gaps), torch.from_numpy(svc),
+        torch.from_numpy(live),
+        n_act=None if n_act is None else torch.from_numpy(n_act),
+        up=None if up is None else torch.from_numpy(up))
+    assert len(port) == len(ref) == (4 if up is not None else 2)
+    np.testing.assert_array_equal(port[0].numpy(), np.asarray(ref[0]))
+    np.testing.assert_allclose(port[1].numpy(), np.asarray(ref[1]),
+                               rtol=1e-12)
+    if up is not None:
+        np.testing.assert_array_equal(port[2].numpy(), np.asarray(ref[2]))
+        np.testing.assert_array_equal(port[3].numpy(), np.asarray(ref[3]))
+        assert port[2].any() and port[3].any()
+    if n_act is not None:
+        # no query lands on a replica past its active count unless none
+        # of the active ones was up
+        landed = port[0].numpy() < n_act
+        assert landed.all() if up is None else landed[~port[3].numpy()].all()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("s,r,p,n", [(4, 4, 100, 300), (3, 3, 5, 400),
+                                     (2, 16, 7, 120), (3, 1, 9, 50)])
+def test_masked_carried_maximum_equals_plain_loop(dtype, s, r, p, n):
+    arrays = _inputs(s, r, p, n, dtype, seed=r * 10 + p)
+    w, gaps, svc, live = (torch.from_numpy(a) for a in arrays)
+    n_act, up = (torch.from_numpy(a) for a in _masks(s, r, n, seed=r))
+    kc, ks, ku, kw = _carried_max_route_masked(w.clone(), gaps, svc, live,
+                                               n_act, up)
+    pc, pw, ps, pu = t_ref.jsq_route_ref(w.clone(), gaps, svc, live,
+                                         n_act=n_act, up=up)
+    for a, b in ((kc, pc), (ks, ps), (ku, pu), (kw, pw)):
+        assert torch.equal(a, b)
+
+
+def test_masked_plan_stages_the_masks():
+    """The masked instances stage an active count and a word of up bits a
+    query with each tile: 16 bytes a query more shared memory, and the
+    plan's last word tells the entry point."""
+    for itemsize in (4, 8):
+        for r, p in ((4, 100), (16, 200), (3, 5)):
+            plain = t_kernel.jsq_plan(r, p, itemsize)
+            masked = t_kernel.jsq_plan(r, p, itemsize, True)
+            assert masked.masked and not plain.masked
+            assert (masked.registers, masked.kc, masked.per) == (
+                plain.registers, plain.kc, plain.per)
+            tile = masked.tile
+            staged = 2 * (p + 2) * (tile + 1) * itemsize
+            expect = (staged + 4 * tile if masked.registers
+                      else r * p * itemsize + staged) + 16 * tile
+            assert masked.smem_bytes == expect <= SMEM_LIMIT
+            assert list(masked.args) == [int(not masked.registers),
+                                         masked.kc, masked.per, tile,
+                                         expect, 1]
+            assert list(plain.args)[5] == 0

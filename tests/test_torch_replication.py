@@ -33,6 +33,7 @@ from repro_torch.core import queueing as tq
 from repro_torch.core import simulator as tsim
 from repro_torch.core.cluster import ClusterSpec
 from repro_torch.kernels.jsq_route import ops as jsq_ops
+from repro_torch.launch.elastic import AutoscalePolicy
 
 CPU = "cpu"
 F64 = torch.float64
@@ -254,8 +255,11 @@ def test_fused_engine_scans_out_a_only(monkeypatch, routing):
 
 def _assert_bit_identical(a, b):
     for f in dataclasses.fields(tsim.SimResult):
-        assert torch.equal(getattr(a, f.name).nan_to_num(-7.0),
-                           getattr(b, f.name).nan_to_num(-7.0)), f.name
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if x is None or y is None:
+            assert x is None and y is None, f.name
+            continue
+        assert torch.equal(x.nan_to_num(-7.0), y.nan_to_num(-7.0)), f.name
 
 
 def test_r1_fused_and_masked_bit_identical():
@@ -353,10 +357,14 @@ def test_cluster_spec_validation():
         ClusterSpec(routing="nope")
     with pytest.raises(ValueError, match="replica"):
         ClusterSpec(r=0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    # the reference's refusals of what is not a policy / a FaultSpec, and
+    # of a replica count beside a policy (which provisions max_r)
+    with pytest.raises(TypeError, match="AutoscalePolicy"):
         ClusterSpec(autoscale=object())
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(TypeError, match="FaultSpec"):
         ClusterSpec(fault=object())
+    with pytest.raises(ValueError, match="leave r at its default"):
+        ClusterSpec(r=2, autoscale=AutoscalePolicy(min_r=1, max_r=4))
     assert ClusterSpec(result_cache=(1, 2)).result_cache == (1.0, 2.0)
     with pytest.raises(TypeError, match="ClusterSpec"):
         tsim.simulate_fork_join(0, 10.0, 100, tcap.TABLE5_PARAMS,

@@ -38,6 +38,7 @@ from repro_torch import interop
 from repro_torch.core import capacity as tcap
 from repro_torch.core import sweep as tsweep
 from repro_torch.core.cluster import ClusterSpec
+from repro_torch.launch.elastic import AutoscalePolicy
 
 CPU = "cpu"
 F64 = torch.float64
@@ -437,20 +438,29 @@ def test_sweep_replica_impl_passthrough():
     np.testing.assert_allclose(f.mean.numpy(), m.mean.numpy(), rtol=1e-9)
 
 
-@pytest.mark.parametrize("what,item", [
-    ("autoscale", 8), ("fault", 9), ("telemetry", 10), ("mesh_sim", 12),
-    ("mesh_analytic", 12)])
-def test_not_ported_inputs_raise(what, item):
+@pytest.mark.parametrize("what,exc,match", [
+    ("autoscale", TypeError, "AutoscalePolicy"),
+    ("fault", ValueError, "6th axis"),
+    ("telemetry", NotImplementedError, "queue 1 item 10"),
+    ("mesh_sim", NotImplementedError, "queue 1 item 12"),
+    ("mesh_analytic", NotImplementedError, "queue 1 item 12")])
+def test_not_ported_inputs_raise(what, exc, match):
+    """Telemetry and scenario sharding still raise, naming their ROADMAP
+    items; the policy and fault axes, now ported, refuse what the
+    reference's grid refuses: a value that is not a policy, and a policy
+    axis and a fault axis together (both claim the 6th dimension)."""
     _, grid = _grids(lam=[10.0], p=[4.0], base=T5)
+    pol = AutoscalePolicy(min_r=1, max_r=2)
     calls = {
         "autoscale": lambda: dataclasses.replace(grid, autoscale=("p",)),
-        "fault": lambda: dataclasses.replace(grid, fault=(None,)),
+        "fault": lambda: dataclasses.replace(grid, fault=(None,),
+                                             autoscale=(pol,)),
         "telemetry": lambda: tsweep.sweep_simulated(grid, telemetry=object()),
         "mesh_sim": lambda: tsweep.sweep_simulated(grid, mesh=object()),
         "mesh_analytic": lambda: tsweep.sweep_analytical(grid,
                                                          mesh=object()),
     }
-    with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
+    with pytest.raises(exc, match=match):
         calls[what]()
 
 
