@@ -294,20 +294,28 @@ def phase_kernel(card: str) -> dict:
         else:
             ka, kb = ops.maxplus_scan(a, b, impl="cuda")
             pa, pb = ops.maxplus_scan(a, b, impl="torch")
+        # out_a alone (the simulator's FCFS queues): the same out_a
+        oa, none = (ops.maxplus_scan_seeded(*args, impl="cuda", with_b=False)
+                    if seeded else
+                    ops.maxplus_scan(a, b, impl="cuda", with_b=False))
         torch.cuda.synchronize()
         err = max(_rel_err(ka, pa), _rel_err(kb, pb))
         abs_err = float(max((ka - pa).abs().max(), (kb - pb).abs().max()))
+        same = none is None and bool(torch.equal(oa, ka))
         print(f"  {str(shape):14s} {str(dtype):14s} seeded={seeded!s:5s} "
               f"max rel err {err:.3e} max abs err {abs_err:.3e} "
-              f"(rtol {rtol:g})")
-        if not err <= rtol:
+              f"(rtol {rtol:g}); out_a only equal {same}")
+        if not err <= rtol or not same:
             raise AssertionError(f"kernel disagrees with the plain scan at "
-                                 f"{shape} {dtype}: {err} > {rtol}")
+                                 f"{shape} {dtype}: {err} > {rtol}, or its "
+                                 f"out_a-only path with its out_a: {same}")
         if shape == TIMED_SHAPE and dtype == torch.float32:
             main_err = max(main_err, abs_err)
 
     a, b, carry = _inputs(TIMED_SHAPE, torch.float32, gen)
-    ms = _time_ms(lambda: kernel.maxplus_scan_cuda(a, b, carry))
+    both_ms = _time_ms(lambda: kernel.maxplus_scan_cuda(a, b, carry))
+    ms = _time_ms(lambda: kernel.maxplus_scan_cuda(a, b, carry,
+                                                   with_b=False))
     plain_ms = _time_ms(lambda: ops.maxplus_scan_seeded(a, b, carry,
                                                         impl="torch"))
 
@@ -316,16 +324,24 @@ def phase_kernel(card: str) -> dict:
         return big_b + torch.cummax(a - big_b, -1).values
     library_ms = _time_ms(yardstick)
     rows, length = TIMED_SHAPE
-    moved = rows * length * 4 * a.element_size()    # a, b in; out_a, out_b
+    # what the path asks for: a, b in, out_a out (out_b as well: + 4 B)
+    moved = rows * length * 3 * a.element_size()
+    moved_both = rows * length * 4 * a.element_size()
     ops_ms = rows * length * 3 / FP32_OPS_PER_S * 1e3   # add, add, max
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
+    both_bound = max(moved_both / HBM_BYTES_PER_S * 1e3, ops_ms)
     print(f"  at {TIMED_SHAPE} float32, mean of {N_TIMED} launches "
           f"[{card}]:")
-    print(f"    kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  yardstick "
-          f"(cumsum+cummax) {library_ms:.4f} ms  bound {bound_ms:.4f} ms "
-          f"({moved / 1e6:.1f} MB at 3.35 TB/s); kernel at "
+    print(f"    out_a only (the main path's): kernel {ms:.4f} ms  bound "
+          f"{bound_ms:.4f} ms ({moved / 1e6:.1f} MB at 3.35 TB/s), "
+          f"{100 * bound_ms / ms:.1f} %; kernel at "
           f"{moved / (ms * 1e-3) / 1e9:.0f} GB/s")
+    print(f"    both outputs: kernel {both_ms:.4f} ms  bound "
+          f"{both_bound:.4f} ms ({moved_both / 1e6:.1f} MB), "
+          f"{100 * both_bound / both_ms:.1f} %")
+    print(f"    plain {plain_ms:.4f} ms  yardstick (cumsum+cummax) "
+          f"{library_ms:.4f} ms")
     return {"name": "maxplus_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/maxplus_scan/csrc/"
                       "maxplus_scan.cu",
@@ -1988,6 +2004,10 @@ FLEET_R = (R, 16)
 FLEET_FAULT = dict(outages=((0, 500.0, 1500.0),), mtbf_seconds=2000.0,
                    mttr_seconds=200.0)
 FLEET_GAP = 0.5                 # seconds between arrivals, on average
+FLEET_WIDE = 4 * 132            # a slab of four scenarios an SM
+# latency of a dependent FP32 add or max, in SM cycles (assumed: the
+# figure microbenchmarks of Volta through Hopper report; not measured here)
+FLEET_DEP_CYCLES = 4
 # 17b-d: the 16b slab (Table 6 memory 1, p = 100, lam x cpu x disk = 64
 # scenarios, the result cache) under the weekly profile, 168 bins of
 # 1,048,576 / 20 / 168 = 312 s; the profile clamps the chunk to the
@@ -2017,41 +2037,97 @@ def _walled(phase, card: str):
     return out
 
 
-def _fleet_case(r, dtype, what, gen):
-    """Inputs of one fleet-scan call at (N_SCEN, CHUNK): an outage of
-    replica 0 and the MTBF/MTTR chain, and/or the policy (min 1, max r,
-    the queue trigger) fed ~r/2 replicas' worth of demand."""
+def _fleet_case(r, dtype, what, gen, s=N_SCEN, real=False):
+    """Inputs of one fleet-scan call at (s, CHUNK): an outage of replica 0
+    and the MTBF/MTTR chain, and/or the policy (min 1, max r, the queue
+    trigger) fed ~r/2 replicas' worth of demand.  A decision every 20 s
+    at 2 queries a second (one in ~40 queries), or with ``real`` 17b's:
+    one a profile bin (SIM17_BIN_S) at the slab's 20-160 queries a
+    second (one in ~6,000-50,000)."""
     import torch
     from repro_torch.core.faults import FaultSpec
     from repro_torch.launch.elastic import AutoscalePolicy, autoscale_init
-    shape = (N_SCEN, CHUNK)
+    shape = (s, CHUNK)
+    mean_gap = torch.full((s, 1), FLEET_GAP, dtype=dtype, device="cuda")
+    if real:
+        lam = torch.tensor(SIM16_LAM, dtype=dtype, device="cuda")
+        mean_gap = 1.0 / lam.repeat(-(-s // len(SIM16_LAM)))[:s, None]
     gaps = torch.empty(shape, dtype=dtype, device="cuda").exponential_(
-        generator=gen) * FLEET_GAP
+        generator=gen) * mean_gap
     dem = torch.empty(shape, dtype=dtype, device="cuda").exponential_(
-        generator=gen) * (FLEET_GAP * P * 0.7 * r / 2)
+        generator=gen) * (mean_gap * P * 0.7 * r / 2)
     kw = dict(t_arr=torch.cumsum(gaps, -1) + 100.0, demand=dem, p=P, r=r,
               u=torch.rand(shape + (r,), dtype=dtype, device="cuda",
                            generator=gen),
-              up_state=torch.randint(0, 2, (N_SCEN, r), dtype=torch.int32,
+              up_state=torch.randint(0, 2, (s, r), dtype=torch.int32,
                                      device="cuda", generator=gen),
               n_valid=CHUNK - 100)
     if what in ("fault", "both"):
         kw["fault"] = FaultSpec(**FLEET_FAULT)
     if what in ("policy", "both"):
-        pol = AutoscalePolicy(min_r=1, max_r=r, target_utilization=0.7,
-                              decision_interval_seconds=20.0,
-                              stabilization_intervals=2,
-                              queue_trigger_seconds=30.0)
+        pol = AutoscalePolicy(
+            min_r=1, max_r=r, target_utilization=0.7,
+            decision_interval_seconds=SIM17_BIN_S if real else 20.0,
+            stabilization_intervals=2, queue_trigger_seconds=30.0)
         kw.update(policy=pol,
-                  as_state=autoscale_init(pol, N_SCEN, dtype, device="cuda"))
+                  as_state=autoscale_init(pol, s, dtype, device="cuda"))
     return gaps, kw
+
+
+def _max_sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi's clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0].split()[0]) * 1e6
+
+
+def _fleet_exact(case, what_label, check_moved=True) -> float:
+    """The fleet scan against its plain loop on one case: masks, counts
+    and integer carries equal, float carries within 1e-6; one launch.
+    Returns the float carries' max abs error."""
+    import torch
+    from repro_torch.kernels.fleet_scan import ops as fleet_ops
+    gaps, kw = case
+    before = fleet_ops.launch_count()
+    k_up, k_n, k_st, k_as = fleet_ops.fleet_scan(gaps, impl="cuda", **kw)
+    p_up, p_n, p_st, p_as = fleet_ops.fleet_scan(gaps, impl="torch", **kw)
+    torch.cuda.synchronize()
+    if fleet_ops.launch_count() != before + 1:
+        raise AssertionError("the fleet scan did not launch once")
+    same, err, worst, moved = True, 0.0, 0.0, ""
+    if "fault" in kw:
+        same &= bool(torch.equal(k_up, p_up) and torch.equal(k_st, p_st))
+        moved += f"up {float(p_up.float().mean()):.3f} "
+    if "policy" in kw:
+        same &= bool(torch.equal(k_n, p_n))
+        for kt, pt in zip(k_as, p_as):
+            if kt.dtype == torch.int32:
+                same &= bool(torch.equal(kt, pt))
+            else:
+                err = max(err, _rel_err(kt, pt))
+                worst = max(worst, float((kt - pt).abs().max()))
+        moved += (f"n_act {int(p_n.min())}..{int(p_n.max())} (mean "
+                  f"{float(p_n.float().mean()):.2f})")
+    print(f"  {what_label}: masks, counts and integer carries equal {same}; "
+          f"float carries max rel err {err:.1e} (limit 1e-6); {moved}")
+    if not same or not err <= 1e-6:
+        raise AssertionError(f"fleet scan {what_label}: equal {same}, "
+                             f"float carries {err}")
+    if (check_moved and "policy" in kw and kw["r"] > 1
+            and int(p_n.min()) == int(p_n.max())):
+        raise AssertionError(f"fleet scan {what_label}: the policy never "
+                             "moved")
+    return worst
 
 
 def phase_fleet_kernel(card: str) -> dict:
     """17a: the fleet scan against its plain loop at (64, 4096), r = 4
     and 16, float32 and float64, the policy without an up fraction and
-    with the outage mask's (both recurrences at once); then its time
-    three ways (the mask alone as well)."""
+    with the outage mask's (both recurrences at once), and at 17b's
+    decision rate and a 528-scenario slab; then its times: the mask
+    alone, the policy alone and both, at a decision every 20 s and at
+    17b's rate, float64, and 528 scenarios (4 x 132 SMs)."""
     import torch
     from repro_torch.kernels.fleet_scan import ops as fleet_ops
     print("== phase 17a: fleet scan vs plain loop on the card")
@@ -2059,46 +2135,40 @@ def phase_fleet_kernel(card: str) -> dict:
     worst = 0.0
     for r, dtype, what in itertools.product(
             FLEET_R, (torch.float32, torch.float64), ("policy", "both")):
-        gaps, kw = _fleet_case(r, dtype, what, gen)
-        before = fleet_ops.launch_count()
-        k_up, k_n, k_st, k_as = fleet_ops.fleet_scan(gaps, impl="cuda", **kw)
-        p_up, p_n, p_st, p_as = fleet_ops.fleet_scan(gaps, impl="torch",
-                                                     **kw)
-        torch.cuda.synchronize()
-        if fleet_ops.launch_count() != before + 1:
-            raise AssertionError("the fleet scan did not launch once")
-        same, err, moved = True, 0.0, ""
-        if "fault" in kw:
-            same &= bool(torch.equal(k_up, p_up) and torch.equal(k_st, p_st))
-            moved += f"up {float(p_up.float().mean()):.3f} "
-        if "policy" in kw:
-            same &= bool(torch.equal(k_n, p_n))
-            for kt, pt in zip(k_as, p_as):
-                if kt.dtype == torch.int32:
-                    same &= bool(torch.equal(kt, pt))
-                else:
-                    err = max(err, _rel_err(kt, pt))
-                    worst = max(worst, float((kt - pt).abs().max()))
-            moved += (f"n_act {int(p_n.min())}..{int(p_n.max())} (mean "
-                      f"{float(p_n.float().mean()):.2f})")
-        print(f"  r={r:2d} {str(dtype):14s} {what:6s}: masks, counts and "
-              f"integer carries equal {same}; float carries max rel err "
-              f"{err:.1e} (limit 1e-6); {moved}")
-        if not same or not err <= 1e-6:
-            raise AssertionError(f"fleet scan r={r} {dtype} {what}: equal "
-                                 f"{same}, float carries {err}")
-        if "policy" in kw and r > 1 and int(p_n.min()) == int(p_n.max()):
-            raise AssertionError(f"fleet scan r={r} {what}: the policy "
-                                 "never moved")
-    t_both = None
-    for what in ("fault", "policy", "both"):
-        gaps, kw = _fleet_case(R, torch.float32, what, gen)
-        ms = _time_ms(lambda: fleet_ops.fleet_scan(gaps, impl="cuda", **kw),
-                      n=20)
-        print(f"    r={R} float32 {what:6s} [{card}]: {ms:.4f} ms a chunk "
-              f"(mean of 20), {ms * 1e6 / CHUNK:.1f} ns a step")
-        if what == "both":
-            t_both, kw_both, gaps_both = ms, kw, gaps
+        worst = max(worst, _fleet_exact(
+            _fleet_case(r, dtype, what, gen), f"r={r:2d} {str(dtype):14s} "
+            f"{what:6s}"))
+    for s, what in ((N_SCEN, "both"), (FLEET_WIDE, "both")):
+        # at 17b's rate a 4096-query chunk holds at most one decision a
+        # scenario, and the slowest scenarios none: the policy may not move
+        _fleet_exact(_fleet_case(R, torch.float32, what, gen, s=s,
+                                 real=True),
+                     f"S={s} r={R} float32 {what} at 17b's rate",
+                     check_moved=False)
+    clock = _max_sm_clock_hz()
+    times = {}
+    for label, dtype, what, s, real in (
+            ("mask alone", torch.float32, "fault", N_SCEN, False),
+            ("policy alone", torch.float32, "policy", N_SCEN, False),
+            ("both", torch.float32, "both", N_SCEN, False),
+            ("both, float64", torch.float64, "both", N_SCEN, False),
+            ("policy alone, 17b's rate", torch.float32, "policy", N_SCEN,
+             True),
+            ("both, 17b's rate", torch.float32, "both", N_SCEN, True),
+            (f"both, S = {FLEET_WIDE}", torch.float32, "both", FLEET_WIDE,
+             False),
+            (f"policy alone, 17b's rate, S = {FLEET_WIDE}", torch.float32,
+             "policy", FLEET_WIDE, True)):
+        gaps, kw = _fleet_case(R, dtype, what, gen, s=s, real=real)
+        ms = _device_ms(lambda: fleet_ops.fleet_scan(gaps, impl="cuda",
+                                                     **kw), n=20)
+        times[label] = ms
+        print(f"    ({s}, {CHUNK}), r={R} {label:40s} [{card}]: {ms:.4f} ms "
+              f"a chunk (device time, mean of 20), {ms * 1e6 / CHUNK:.1f} "
+              "ns a step")
+        if label == "both":
+            gaps_both, kw_both = gaps, kw
+    t_both = times["both"]
     plain_ms = _time_ms(lambda: fleet_ops.fleet_scan(
         gaps_both, impl="torch", **kw_both), n=1, warm=0)
     el = 4
@@ -2110,11 +2180,16 @@ def phase_fleet_kernel(card: str) -> dict:
     bytes_ms = moved / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / FP32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
+    # the dependency chain: a step's backlog sub, max and add, each waiting
+    # on the one before, FLEET_DEP_CYCLES apiece at the card's top clock
+    chain_ms = CHUNK * 3 * FLEET_DEP_CYCLES / clock * 1e3
     print(f"  at ({N_SCEN}, {CHUNK}, r={R}) float32, both [{card}]: kernel "
-          f"{t_both:.4f} ms  plain loop {plain_ms:.1f} ms  library: none  "
-          f"bound {bound_ms:.4f} ms ({moved / 1e6:.1f} MB at 3.35 TB/s; "
-          f"the chain is {CHUNK} dependent controller steps, "
-          f"{t_both * 1e6 / CHUNK:.1f} ns each)")
+          f"{t_both:.4f} ms  plain loop {plain_ms:.1f} ms  library: none")
+    print(f"    bounds: bytes {bytes_ms:.4f} ms ({moved / 1e6:.1f} MB at "
+          f"3.35 TB/s), operations {ops_ms:.4f} ms; dependency chain "
+          f"{chain_ms:.4f} ms ({CHUNK} steps x 3 dependent ops x "
+          f"{FLEET_DEP_CYCLES} cycles at {clock / 1e6:.0f} MHz); the kernel "
+          f"at {100 * max(bound_ms, chain_ms) / t_both:.1f} % of the larger")
     return {"name": "fleet_scan", "route": "cuda",
             "source": "src/repro_torch/kernels/fleet_scan/csrc/"
                       "fleet_scan.cu",

@@ -160,9 +160,10 @@ def fcfs_completion_times(arrivals: Tensor, services: Tensor,
     a = arrivals + services
     b = services
     if carry is None:
-        out_a, _ = mp_ops.maxplus_scan(a, b, impl=impl)
+        out_a, _ = mp_ops.maxplus_scan(a, b, impl=impl, with_b=False)
     else:
-        out_a, _ = mp_ops.maxplus_scan_seeded(a, b, carry, impl=impl)
+        out_a, _ = mp_ops.maxplus_scan_seeded(a, b, carry, impl=impl,
+                                              with_b=False)
     return out_a
 
 

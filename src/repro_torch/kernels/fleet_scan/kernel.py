@@ -3,8 +3,10 @@
 ``csrc/fleet_scan.cu`` runs the reference's per-query outage-mask and
 autoscaler recurrences (`repro.core.faults.fault_scan`,
 `repro.launch.elastic.autoscale_scan`, both `lax.scan`s; no Pallas
-kernel) as one launch per chunk: a warp a scenario, four scenarios a
-block.  It is built by `repro_torch.kernels._cuda.CudaLibrary` at first
+kernel) as one launch per chunk: a block a scenario, three warps in a
+pipeline over tiles of 32 queries (the MTBF/MTTR chain; the windows, up
+bytes and the controller's operands; the controller's serial step).  It
+is built by `repro_torch.kernels._cuda.CudaLibrary` at first
 use.  ``launches`` counts the launches this process made.
 """
 

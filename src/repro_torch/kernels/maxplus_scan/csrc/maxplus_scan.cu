@@ -12,19 +12,13 @@
 // Seeding is folded into the carry's initial value, so a seeded scan costs
 // nothing extra.
 //
-// What bounds it: memory.  Each element moves 16 B in float32 (a and b
-// read, out_a and out_b written) against a handful of adds and compares, far
-// below the H100's ~20 FLOP/B balance point.  The design streams each
-// element through registers exactly once:
-//
-//   * one block per row, looping over tiles of kTile elements; the carry of
-//     all earlier tiles stays in registers (the TPU's sequential
-//     "arbitrary" grid axis becomes this loop — nothing carries across
-//     blocks);
-//   * in a tile each thread scans kItems consecutive elements in registers,
-//     a __shfl_up_sync scan composes the thread aggregates inside a warp,
-//     and each thread folds the kWarps warp totals from shared memory;
-//   * ragged ends load the identity (-inf, 0), so no padding copy exists.
+// What bounds it: memory.  An element moves 12 B in float32 when only
+// out_a is asked for (a and b read, out_a written: what the simulator's
+// FCFS queues read), 16 B with out_b, against a handful of adds and
+// compares, far below the H100's ~20 FLOP/B balance point.  The design is
+// the segmented scan's (maxplus_common.cuh) without flags: one warp a
+// row, 16-byte loads and stores, the next tile prefetched into registers,
+// no block barrier; a null out_b is never stored.
 //
 // Plain C interface (bound with ctypes): each entry point returns
 // cudaGetLastError() after the launch.
@@ -35,99 +29,72 @@ namespace {
 
 using namespace maxplus;
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, bool kWithB>
+__global__ void __launch_bounds__(kRowThreads)
 maxplus_scan_kernel(const T* __restrict__ a, const T* __restrict__ b,
                     const T* __restrict__ carry_a,
                     const T* __restrict__ carry_b, T* __restrict__ out_a,
-                    T* __restrict__ out_b, int64_t len) {
-  __shared__ T warp_a[kWarps];
-  __shared__ T warp_b[kWarps];
+                    T* __restrict__ out_b, int64_t rows, int64_t len) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * kRowWarps;
+  for (int64_t row = static_cast<int64_t>(blockIdx.x) * kRowWarps +
+                     (threadIdx.x >> 5);
+       row < rows; row += warps) {
+    const T* ra = a + row * len;
+    const T* rb = b + row * len;
+    T* oa = out_a + row * len;
+    T* ob = kWithB ? out_b + row * len : nullptr;
+    uintptr_t bits = reinterpret_cast<uintptr_t>(ra) |
+                     reinterpret_cast<uintptr_t>(rb) |
+                     reinterpret_cast<uintptr_t>(oa);
+    if (kWithB) bits |= reinterpret_cast<uintptr_t>(ob);
+    const bool vec = (bits & 15u) == 0;
 
-  const int64_t row = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const T* ra = a + row * len;
-  const T* rb = b + row * len;
-  T* oa = out_a + row * len;
-  T* ob = out_b + row * len;
-  const Map<T> identity{neg_inf<T>(), T(0)};
-
-  Map<T> carry{carry_a != nullptr ? carry_a[row] : neg_inf<T>(),
-               carry_b != nullptr ? carry_b[row] : T(0)};
-
-  for (int64_t base = 0; base < len; base += kTile) {
-    const int64_t start = base + static_cast<int64_t>(tid) * kItems;
-
-    // 1. this thread's kItems elements, scanned in registers
-    Map<T> v[kItems];
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const int64_t i = start + j;
-      v[j] = i < len ? Map<T>{ra[i], rb[i]} : identity;
+    T ca = carry_a != nullptr ? carry_a[row] : neg_inf<T>();
+    T cb = carry_b != nullptr ? carry_b[row] : T(0);
+    Tile<T> cur, nxt;
+    const int64_t first = static_cast<int64_t>(lane) * kLaneItems;
+    load_tile<T, false>(cur, ra, rb, nullptr, first, len, vec);
+    for (int64_t base = 0; base < len; base += kRowTile) {
+      const int64_t i = base + first;
+      if (base + kRowTile < len)
+        load_tile<T, false>(nxt, ra, rb, nullptr, i + kRowTile, len, vec);
+      scan_tile<T, false>(cur, ca, cb, lane);
+      store_tile<T, kWithB>(cur.a, cur.b, oa, ob, i, len, vec);
+      cur = nxt;
     }
-#pragma unroll
-    for (int j = 1; j < kItems; ++j) v[j] = combine(v[j - 1], v[j]);
-
-    // 2. inclusive warp scan of the thread aggregates
-    Map<T> t = v[kItems - 1];
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const Map<T> up{__shfl_up_sync(kFull, t.a, off),
-                      __shfl_up_sync(kFull, t.b, off)};
-      if (lane >= off) t = combine(up, t);
-    }
-    const Map<T> up1{__shfl_up_sync(kFull, t.a, 1),
-                     __shfl_up_sync(kFull, t.b, 1)};
-    const Map<T> lane_excl = lane == 0 ? identity : up1;
-    if (lane == 31) {
-      warp_a[warp] = t.a;
-      warp_b[warp] = t.b;
-    }
-    __syncthreads();
-
-    // 3. fold the warp totals: everything before this thread, and the
-    //    carry into the next tile (every thread computes the same value)
-    Map<T> prefix = carry;
-    Map<T> next = carry;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const Map<T> wt{warp_a[w], warp_b[w]};
-      if (w < warp) prefix = combine(prefix, wt);
-      next = combine(next, wt);
-    }
-    prefix = combine(prefix, lane_excl);
-
-    // 4. compose and store
-#pragma unroll
-    for (int j = 0; j < kItems; ++j) {
-      const int64_t i = start + j;
-      if (i < len) {
-        const Map<T> r = combine(prefix, v[j]);
-        oa[i] = r.a;
-        ob[i] = r.b;
-      }
-    }
-    carry = next;
-    __syncthreads();  // warp totals are rewritten by the next tile
   }
+}
+
+template <typename T, bool kWithB>
+int launch_typed(const void* a, const void* b, const void* carry_a,
+                 const void* carry_b, void* out_a, void* out_b,
+                 int64_t rows, int64_t len, void* stream) {
+  const int64_t blocks = (rows + kRowWarps - 1) / kRowWarps;  // warp a row
+  maxplus_scan_kernel<T, kWithB>
+      <<<dim3(static_cast<unsigned>(blocks)), kRowThreads, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(a), static_cast<const T*>(b),
+          static_cast<const T*>(carry_a), static_cast<const T*>(carry_b),
+          static_cast<T*>(out_a), static_cast<T*>(out_b), rows, len);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* a, const void* b, const void* carry_a,
            const void* carry_b, void* out_a, void* out_b, int64_t rows,
            int64_t len, void* stream) {
-  maxplus_scan_kernel<T><<<dim3(static_cast<unsigned>(rows)), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(a), static_cast<const T*>(b),
-      static_cast<const T*>(carry_a), static_cast<const T*>(carry_b),
-      static_cast<T*>(out_a), static_cast<T*>(out_b), len);
-  return static_cast<int>(cudaGetLastError());
+  if (out_b == nullptr)
+    return launch_typed<T, false>(a, b, carry_a, carry_b, out_a, out_b,
+                                  rows, len, stream);
+  return launch_typed<T, true>(a, b, carry_a, carry_b, out_a, out_b, rows,
+                               len, stream);
 }
 
 }  // namespace
 
+// carry_a, carry_b and out_b may be null: an unseeded half of the carry,
+// and out_a written alone.
 extern "C" int maxplus_scan_f32(const void* a, const void* b,
                                 const void* carry_a, const void* carry_b,
                                 void* out_a, void* out_b, int64_t rows,

@@ -79,13 +79,16 @@ def _check_carry(c: Optional[Tensor], a: Tensor, name: str) -> None:
 
 def maxplus_scan_cuda(a: Tensor, b: Tensor,
                       carry_a: Optional[Tensor] = None,
-                      carry_b: Optional[Tensor] = None
-                      ) -> tuple[Tensor, Tensor]:
+                      carry_b: Optional[Tensor] = None, *,
+                      with_b: bool = True
+                      ) -> tuple[Tensor, Optional[Tensor]]:
     """Launch the scan on (rows, len) CUDA tensors; returns (out_a, out_b).
 
     ``carry_a`` / ``carry_b`` are optional (rows,) seeds; a missing one is
-    the identity (-inf, 0).  Raises on anything the kernel does not take:
-    no conversion, no fallback.
+    the identity (-inf, 0).  With ``with_b=False`` the kernel writes out_a
+    only and out_b is None (the simulator's FCFS queues read out_a
+    alone).  Raises on anything the kernel does not take: no conversion,
+    no fallback.
     """
     global launches
     _check_pair(a, b, "scan")
@@ -93,7 +96,7 @@ def maxplus_scan_cuda(a: Tensor, b: Tensor,
     _check_carry(carry_b, a, "carry_b")
     rows, length = a.shape
     out_a = torch.empty_like(a)
-    out_b = torch.empty_like(b)
+    out_b = torch.empty_like(b) if with_b else None
     if a.numel() == 0:
         return out_a, out_b
     SCAN_LIB.call(f"maxplus_scan_{_SUFFIX[a.dtype]}", a.device,

@@ -60,7 +60,8 @@ def _rows(x: Tensor, shape: torch.Size) -> Tensor:
 
 
 def _scan_cuda(a: Tensor, b: Tensor, carry_a: Optional[Tensor],
-               carry_b: Optional[Tensor]) -> tuple[Tensor, Tensor]:
+               carry_b: Optional[Tensor], with_b: bool
+               ) -> tuple[Tensor, Optional[Tensor]]:
     shape = torch.broadcast_shapes(a.shape, b.shape)
     rows_shape = shape[:-1]
 
@@ -70,16 +71,22 @@ def _scan_cuda(a: Tensor, b: Tensor, carry_a: Optional[Tensor],
         return c.to(a.dtype).expand(rows_shape).reshape(-1).contiguous()
 
     out_a, out_b = kernel.maxplus_scan_cuda(
-        _rows(a, shape), _rows(b, shape), seed(carry_a), seed(carry_b))
-    return out_a.reshape(shape), out_b.reshape(shape)
+        _rows(a, shape), _rows(b, shape), seed(carry_a), seed(carry_b),
+        with_b=with_b)
+    return out_a.reshape(shape), (out_b.reshape(shape) if with_b else None)
 
 
-def maxplus_scan(a: Tensor, b: Tensor, *, impl: str = "auto"
-                 ) -> tuple[Tensor, Tensor]:
-    """Inclusive (max, +) scan along the last axis; any leading shape."""
+def maxplus_scan(a: Tensor, b: Tensor, *, impl: str = "auto",
+                 with_b: bool = True) -> tuple[Tensor, Optional[Tensor]]:
+    """Inclusive (max, +) scan along the last axis; any leading shape.
+
+    ``with_b=False`` returns ``(out_a, None)``: the kernel then neither
+    allocates nor writes out_b (the plain version computes it and drops
+    it)."""
     if resolve_scan_impl(impl, a.device) == "torch":
-        return ref.maxplus_scan_ref(a, b)
-    return _scan_cuda(a, b, None, None)
+        out_a, out_b = ref.maxplus_scan_ref(a, b)
+        return out_a, (out_b if with_b else None)
+    return _scan_cuda(a, b, None, None, with_b)
 
 
 def maxplus_scan_seeded(
@@ -89,7 +96,8 @@ def maxplus_scan_seeded(
     carry_b: Union[Tensor, float, None] = None,
     *,
     impl: str = "auto",
-) -> tuple[Tensor, Tensor]:
+    with_b: bool = True,
+) -> tuple[Tensor, Optional[Tensor]]:
     """Inclusive (max, +) scan seeded by the carry of everything earlier.
 
     The streaming simulator's chunk entry point: ``(carry_a, carry_b)`` is
@@ -101,19 +109,20 @@ def maxplus_scan_seeded(
         out_a' = max(out_a, carry_a + out_b),   out_b' = carry_b + out_b
 
     The plain path post-composes exactly so; the kernel starts its
-    running carry at the seed instead.
+    running carry at the seed instead.  ``with_b=False`` returns
+    ``(out_a, None)``, as `maxplus_scan`.
     """
     carry_a = torch.as_tensor(carry_a, dtype=a.dtype, device=a.device)
     if carry_b is not None:
         carry_b = torch.as_tensor(carry_b, dtype=a.dtype, device=a.device)
     if resolve_scan_impl(impl, a.device) == "cuda":
-        return _scan_cuda(a, b, carry_a, carry_b)
+        return _scan_cuda(a, b, carry_a, carry_b, with_b)
     out_a, out_b = ref.maxplus_scan_ref(a, b)
     if carry_b is None:
         carry_b = torch.zeros_like(carry_a)
     out_a = torch.maximum(out_a, carry_a[..., None] + out_b)
     out_b = carry_b[..., None] + out_b
-    return out_a, out_b
+    return out_a, (out_b if with_b else None)
 
 
 def _flag_rows(f: Tensor, shape: torch.Size) -> Tensor:

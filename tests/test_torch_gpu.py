@@ -70,19 +70,26 @@ def _assert_rel(x, y, rtol):
 @pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
                                         (torch.float64, 1e-12)])
 @pytest.mark.parametrize("seeded", [False, True])
-def test_kernel_matches_plain_scan(cuda, shape, dtype, rtol, seeded):
+@pytest.mark.parametrize("with_b", [True, False])
+def test_kernel_matches_plain_scan(cuda, shape, dtype, rtol, seeded,
+                                   with_b):
+    """Both outputs within rtol of the plain scan; out_a alone (the
+    simulator's call) bitwise the two-output kernel's out_a."""
     a, b, carry = _inputs(shape, dtype, cuda)
     if seeded:
-        ka, kb = ops.maxplus_scan_seeded(a, b, carry, carry * 0.1,
-                                         impl="cuda")
-        pa, pb = ops.maxplus_scan_seeded(a, b, carry, carry * 0.1,
-                                         impl="torch")
+        args = (a, b, carry, carry * 0.1)
+        ka, kb = ops.maxplus_scan_seeded(*args, impl="cuda")
+        oa, ob = ops.maxplus_scan_seeded(*args, impl="cuda", with_b=with_b)
+        pa, pb = ops.maxplus_scan_seeded(*args, impl="torch")
     else:
         ka, kb = ops.maxplus_scan(a, b, impl="cuda")
+        oa, ob = ops.maxplus_scan(a, b, impl="cuda", with_b=with_b)
         pa, pb = ops.maxplus_scan(a, b, impl="torch")
     torch.cuda.synchronize()
     _assert_rel(ka, pa, rtol)
     _assert_rel(kb, pb, rtol)
+    assert torch.equal(oa, ka)
+    assert (ob is None) if not with_b else torch.equal(ob, kb)
 
 
 def test_auto_launches_the_kernel_once_per_call(cuda):
@@ -347,42 +354,116 @@ def _fleet_inputs(s, n, r, dtype, device, seed):
     return gaps, dem, u, upf
 
 
-# r = 1, 4 and 16 (the lanes a warp carries), n on and off a tile, the
-# four ways the engine calls it: faults alone, the policy alone, both (the
-# controller reading the mask's count), the policy with an explicit up
-# fraction (autoscale_scan's)
-@pytest.mark.parametrize("r,n", [(1, 33), (4, 300), (16, 257)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("what", ["fault", "policy", "both", "upf"])
-def test_fleet_kernel_matches_plain_loop(cuda, r, n, dtype, what):
-    s = 6
-    gaps, dem, u, upf = _fleet_inputs(s, n, r, dtype, cuda, seed=r + n)
+def _tile_windows(t_arr, n):
+    """32 outage windows (replica w of window w, reduced mod r), each from
+    scenario 0's arrival at a tile boundary (start inclusive) to one up
+    to a tile later (end exclusive), with the MTBF/MTTR chain."""
+    t0 = t_arr[0].double().cpu()
+    out = []
+    for w in range(32):
+        i = min(32 * (w % 5), n - 1)
+        j = min(i + 32 * (w % 2) + w, n - 1)
+        start, end = float(t0[i]), float(t0[j])
+        out.append((w, start, end if end > start else start + 0.05))
+    return dataclasses.replace(_FLEET_FAULT, outages=tuple(out))
+
+
+def _fleet_kwargs(what, s, n, r, dtype, device, seed):
+    """gaps and the fleet scan's keywords for one case (see below)."""
+    gaps, dem, u, upf = _fleet_inputs(s, n, r, dtype, device, seed=seed)
     t_arr = torch.cumsum(gaps, -1) + 0.5
-    pol = dataclasses.replace(_FLEET_POLICY, max_r=max(r, 1),
-                              min_r=1) if what != "fault" else None
-    kw = dict(t_arr=t_arr, u=u, demand=dem, n_valid=n - 5,
-              fault=_FLEET_FAULT if what in ("fault", "both") else None,
+    interval = {"every": 1e-30, "never": 1e9}.get(what, 0.4)
+    pol = None if what == "fault" else dataclasses.replace(
+        _FLEET_POLICY, max_r=max(r, 1), min_r=1,
+        decision_interval_seconds=interval)
+    fault = {"fault": _FLEET_FAULT, "both": _FLEET_FAULT,
+             "every": _FLEET_FAULT, "never": _FLEET_FAULT,
+             "windows": _tile_windows(t_arr, n)}.get(what)
+    kw = dict(t_arr=t_arr, u=u, demand=dem, n_valid=n - 5, fault=fault,
               policy=pol, p=8, r=r,
               up_frac=upf if what == "upf" else None,
-              up_state=torch.ones((s, r), dtype=torch.int32, device=cuda),
+              up_state=torch.ones((s, r), dtype=torch.int32, device=device),
               as_state=None if pol is None else autoscale_init(
-                  pol, s, dtype, device=cuda))
-    before = fleet_ops.launch_count()
-    k_up, k_n, k_st, k_as = fleet_ops.fleet_scan(gaps, impl="cuda", **kw)
-    p_up, p_n, p_st, p_as = fleet_ops.fleet_scan(gaps, impl="torch", **kw)
-    torch.cuda.synchronize()
-    assert fleet_ops.launch_count() == before + 1
+                  pol, s, dtype, device=device))
+    return gaps, kw
+
+
+def _fleet_equal(k, pl, kw):
+    """The kernel's result equals the plain loop's: masks, counts and
+    integer carries exactly, float carries to 1e-6."""
+    k_up, k_n, k_st, k_as = k
+    p_up, p_n, p_st, p_as = pl
     if kw["fault"] is not None:
         assert torch.equal(k_up, p_up) and torch.equal(k_st, p_st)
-        assert bool((~p_up).any()) and bool(p_up.any())
-    if pol is not None:
+    if kw["policy"] is not None:
         assert torch.equal(k_n, p_n)
         for kt, pt in zip(k_as, p_as):
             if kt.dtype == torch.int32:
                 assert torch.equal(kt, pt)
             else:
                 _assert_rel(kt, pt, 1e-6)
+
+
+# r = 1, 4 and 16 (the lanes a warp carries) and 3, 8; n on and off a
+# tile of 32 queries, under one (20), a whole number of tiles (128), and
+# n_valid (n - 5) inside the last tile; the ways the engine calls it:
+# faults alone, the policy alone, both (the controller reading the mask's
+# count), the policy with an explicit up fraction (autoscale_scan's); and
+# both with a decision on every step, on none, and under 32 windows whose
+# edges lie on tile boundaries
+@pytest.mark.parametrize("r,n", [(1, 33), (4, 300), (16, 257), (3, 20),
+                                 (8, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("what", ["fault", "policy", "both", "upf", "every",
+                                  "never", "windows"])
+def test_fleet_kernel_matches_plain_loop(cuda, r, n, dtype, what):
+    s = 6
+    gaps, kw = _fleet_kwargs(what, s, n, r, dtype, cuda, seed=r + n)
+    before = fleet_ops.launch_count()
+    k = fleet_ops.fleet_scan(gaps, impl="cuda", **kw)
+    pl = fleet_ops.fleet_scan(gaps, impl="torch", **kw)
+    torch.cuda.synchronize()
+    assert fleet_ops.launch_count() == before + 1
+    _fleet_equal(k, pl, kw)
+    p_up, p_n = pl[0], pl[1]
+    if kw["fault"] is not None:             # (32 windows may down all)
+        assert bool((~p_up).any()) and (what == "windows" or p_up.any())
+    if what == "never":
+        assert bool((p_n == kw["as_state"][0][:, None]).all())
+    elif kw["policy"] is not None and n > 32:   # (20 queries: ~0.4 s)
         assert r == 1 or int(p_n.min()) < int(p_n.max())
+
+
+@pytest.mark.parametrize("r", [4, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("what", ["both", "upf"])
+def test_fleet_kernel_chunks_chain_like_one_call(cuda, r, dtype, what):
+    """Two calls, the second from the first's carries (split inside a
+    tile), equal one call over the whole stream, and the plain loop."""
+    s, n, cut = 6, 300, 150
+    gaps, kw = _fleet_kwargs(what, s, n, r, dtype, cuda, seed=r)
+    whole = fleet_ops.fleet_scan(gaps, impl="cuda", **kw)
+    _fleet_equal(whole, fleet_ops.fleet_scan(gaps, impl="torch", **kw), kw)
+    first = fleet_ops.fleet_scan(
+        gaps[:, :cut], impl="cuda",
+        **{**kw, "t_arr": kw["t_arr"][:, :cut], "u": kw["u"][:, :cut],
+           "demand": kw["demand"][:, :cut], "n_valid": cut,
+           "up_frac": None if kw["up_frac"] is None
+           else kw["up_frac"][:, :cut]})
+    second = fleet_ops.fleet_scan(
+        gaps[:, cut:], impl="cuda",
+        **{**kw, "t_arr": kw["t_arr"][:, cut:], "u": kw["u"][:, cut:],
+           "demand": kw["demand"][:, cut:], "n_valid": n - 5 - cut,
+           "up_frac": None if kw["up_frac"] is None
+           else kw["up_frac"][:, cut:],
+           "up_state": first[2], "as_state": first[3]})
+    torch.cuda.synchronize()
+    if kw["fault"] is not None:
+        assert torch.equal(torch.cat([first[0], second[0]], 1), whole[0])
+        assert torch.equal(second[2], whole[2])
+    assert torch.equal(torch.cat([first[1], second[1]], 1), whole[1])
+    for a, b in zip(second[3], whole[3]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("r,p,n", [(4, 100, 300), (3, 5, 1000), (1, 7, 33),

@@ -85,6 +85,23 @@ def test_seeded_scan_matches_reference(with_b):
     np.testing.assert_allclose(tb.numpy(), fb[:, 1:].numpy(), rtol=RTOL)
 
 
+@pytest.mark.parametrize("seeded", [False, True])
+def test_out_a_only_equals_the_two_output_out_a(seeded):
+    """``with_b=False`` (what the simulator's FCFS queues call) returns
+    the two-output call's out_a and no out_b on the plain path."""
+    a, b = map(torch.from_numpy, _inputs((3, 300), 7))
+    if seeded:
+        carry = torch.linspace(0.0, 40.0, 3)
+        both = t_ops.maxplus_scan_seeded(a, b, carry, 0.5 * carry)
+        only = t_ops.maxplus_scan_seeded(a, b, carry, 0.5 * carry,
+                                         with_b=False)
+    else:
+        both = t_ops.maxplus_scan(a, b)
+        only = t_ops.maxplus_scan(a, b, with_b=False)
+    assert only[1] is None
+    assert torch.equal(only[0], both[0])
+
+
 def test_resolve_scan_impl():
     assert t_ops.resolve_scan_impl("auto", "cpu") == "torch"
     assert t_ops.resolve_scan_impl("auto", "cuda") == "cuda"

@@ -17,6 +17,10 @@ the plain version on the same inputs:
   each warp walking rows), timed in turns at the replicated path's
   server scan, (6400, 4096) float32 and float64 with (64, 4096) flags,
   out_a only and both outputs.
+* ``fleet``: the fleet scan fetching its inputs 1, 2 or 4 tiles ahead,
+  and with 8, 16 or 32 controller steps a branch-free batch, timed in
+  turns at (64, 4096), r = 4, float32: the mask alone, the policy alone
+  and both, at a decision every 20 s and at 17b's rate.
 * ``bag``: the embedding bag with 12, 16 or 20 bytes of a row a lane or
   one unit a lane (at D = 10 bf16: 2, 2, 1 or 5 lanes a bag), without
   its evict-first hints, and with a division for every count, timed in
@@ -27,9 +31,9 @@ the plain version on the same inputs:
   serve_bulk's first 4096 samples' ids folded onto 2^20 rows).
 
 The scan and bag variants are held against the plain version at every
-case before they are timed.  Run from the repo's root on a machine with a
+case before they are timed, the fleet variants on one case.  Run from the repo's root on a machine with a
 card and nvcc: ``python3 tools/kernel_probes.py [redux] [d8] [scan]
-[bag]`` (all by default).  The variants are built under a temporary
+[bag] [fleet]`` (all by default).  The variants are built under a temporary
 directory; full SASS listings go to ``src/repro_torch/kernels/_build/
 probes/`` (beside the built libraries).
 """
@@ -59,26 +63,24 @@ OUT = KERNELS / "_build" / "probes"
 
 def variant(tmp: pathlib.Path, lib: _cuda.CudaLibrary, name: str,
             edits: list[tuple[str, str]]) -> _cuda.CudaLibrary:
-    """``lib``'s source with each (old, new) replaced once, built beside
-    a copy of the shared headers so that its includes resolve."""
-    text = lib.source.read_text()
+    """``lib``'s source and its package's own headers with each (old,
+    new) replaced, built beside a copy of the shared headers so that its
+    includes resolve."""
+    own = [h for h in lib.headers if h.parent == lib.source.parent]
+    texts = {f: f.read_text() for f in (lib.source, *own)}
     for old, new in edits:
-        if text.count(old) < 1:
-            raise AssertionError(f"{name}: {old!r} not in {lib.source.name}")
-        text = text.replace(old, new)
+        if not any(old in t for t in texts.values()):
+            raise AssertionError(f"{name}: {old!r} not in "
+                                 f"{[f.name for f in texts]}")
+        texts = {f: t.replace(old, new) for f, t in texts.items()}
     shared = tmp / "kernels" / "csrc"
     if not shared.exists():
         shutil.copytree(KERNELS / "csrc", shared)
     src = tmp / "kernels" / name / "csrc" / lib.source.name
     src.parent.mkdir(parents=True, exist_ok=True)
-    src.write_text(text)
-    headers = []
-    for h in lib.headers:
-        if h.parent == lib.source.parent:    # the package's own headers
-            shutil.copy(h, src.parent / h.name)
-            headers.append(src.parent / h.name)
-        else:
-            headers.append(h)
+    for f, t in texts.items():
+        (src.parent / f.name).write_text(t)
+    headers = [src.parent / h.name if h in own else h for h in lib.headers]
     out = _cuda.CudaLibrary(src, lib.entries, headers=headers)
     out.load()
     return out
@@ -502,13 +504,66 @@ def probe_bag(tmp: pathlib.Path) -> None:
     kernel.LIB = base
 
 
+FLEET_AHEAD = "constexpr int kAhead = 2;"
+FLEET_BATCH = "constexpr int kBatch = 16;"
+
+
+def probe_fleet(tmp: pathlib.Path) -> None:
+    from chip_smoke import R, SIM17_BIN_S, _fleet_case
+    from repro_torch.kernels.fleet_scan import kernel, ops
+    base = kernel.LIB
+    base.load()
+    variants = {
+        "as is (2 tiles ahead, batch 16)": base,
+        "1 tile ahead": variant(tmp, base, "fleet_a1",
+                                [(FLEET_AHEAD, "constexpr int kAhead = 1;")]),
+        "4 tiles ahead": variant(tmp, base, "fleet_a4",
+                                 [(FLEET_AHEAD,
+                                   "constexpr int kAhead = 4;")]),
+        "batch 8": variant(tmp, base, "fleet_b8",
+                           [(FLEET_BATCH, "constexpr int kBatch = 8;")]),
+        "batch 32": variant(tmp, base, "fleet_b32",
+                            [(FLEET_BATCH, "constexpr int kBatch = 32;")])}
+    print("== fleet: the fleet scan's variants")
+    for tag, lib in variants.items():
+        _ptxas_lines(lib, tag)
+    g = torch.Generator(device="cuda").manual_seed(20)
+    cases = {f"{what}{', 17b rate' if real else ', 20 s'}":
+             _fleet_case(R, torch.float32, what, g, real=real)
+             for what, real in (("fault", False), ("policy", True),
+                                ("policy", False), ("both", False),
+                                ("both", True))}
+    gaps, kw = cases["both, 20 s"]
+    plain = ops.fleet_scan(gaps, impl="torch", **kw)
+    for tag, lib in variants.items():
+        kernel.LIB = lib
+        got = ops.fleet_scan(gaps, impl="cuda", **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], plain[0]) and torch.equal(got[1],
+                                                                plain[1])):
+            raise AssertionError(f"fleet variant {tag} disagrees with the "
+                                 "plain loop")
+    kernel.LIB = base
+    print(f"  every variant equals the plain loop (64 x 4096, r = {R}, "
+          f"both; decision interval 20 s; 17b's is {SIM17_BIN_S:.0f} s)")
+    for what, (gaps, kw) in cases.items():
+        print(f"  {what}: device ms a call")
+
+        def one(lib):
+            kernel.LIB = lib
+            return _device_ms(lambda: ops.fleet_scan(gaps, impl="cuda",
+                                                     **kw), n=20)
+        _in_turns(variants, one)
+    kernel.LIB = base
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    which = argv or ["redux", "d8", "scan", "bag"]
+    which = argv or ["redux", "d8", "scan", "bag", "fleet"]
     probes = {"redux": probe_redux, "d8": probe_d8, "scan": probe_scan,
-              "bag": probe_bag}
+              "bag": probe_bag, "fleet": probe_fleet}
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
