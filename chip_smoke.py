@@ -40,8 +40,17 @@ version on the card, and drives the port's paths:
     the pinned policy bit-identical to static r = 4 (17b); the same slab
     at r = 4 with all four fault channels under the three routings, the
     fault-free identities, a trace (17c); the N+1 plan, a policy axis
-    and a fault axis through `plan_over_grid` (17d).  Kernel launches
-    are asserted and the kernel path is held against the plain path.
+    and a fault axis through `plan_over_grid` (17d); past 16 replicas,
+    the router and the fleet scan at r = 17, 32, 64 and 256 (17a, 17a')
+    and an N+1 plan of more than 16 replicas under random and JSQ
+    routing, held to the CPU's (17e).  Kernel launches are asserted and
+    the kernel path is held against the plain path;
+  * observability (phase 18): telemetry on 16b's slab at r = 1 and 4
+    (base statistics bitwise those without it, counts and busy sums
+    conserved, the operational laws, its cost a chunk and its peak
+    memory), on 17b's and 17c's dispatches (the active, up, spill and
+    degraded channels), card against CPU, a JSQ span trace exported and
+    validated, the kernel profiles and a rendered timeline.
 
 Phases 8 and 14 also print the wgmma kernels' ptxas reports (registers,
 spills, serialisation warnings) and take one tile through the shared
@@ -66,6 +75,7 @@ import math
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -785,13 +795,16 @@ def phase_replicated(card: str) -> tuple[dict, float]:
     return launches, walls["random"]
 
 
-def phase_memory_law(card: str) -> None:
+def phase_memory_law(card: str, telemetry=None) -> dict:
     """Fused peak memory against r: the slope per replica stays under the
-    reference's allowance of 10 S x p x chunk float32 buffers."""
+    reference's allowance of 10 S x p x chunk float32 buffers (with
+    ``telemetry``, phase 18a's run of the same law).  Returns the peaks
+    above baseline by r."""
     import torch
     from repro_torch.core import simulator
     from repro_torch.core.cluster import ClusterSpec
-    print("== phase 7: r-free memory law of the fused engine")
+    print("== phase 7: r-free memory law of the fused engine"
+          + ("" if telemetry is None else f", with telemetry ({telemetry})"))
     lam1, params = _table6_batch()
     peaks = {}
     for r in (2, 4, 8):
@@ -802,7 +815,8 @@ def phase_memory_law(card: str) -> None:
         simulator.simulate_fork_join_batch(
             11, r * lam1, params, 2 * CHUNK, p=P, chunk_size=CHUNK,
             cluster=ClusterSpec(r=r, routing="random",
-                                result_cache=RESULT_CACHE))
+                                result_cache=RESULT_CACHE),
+            telemetry=telemetry)
         torch.cuda.synchronize()
         peaks[r] = torch.cuda.max_memory_allocated() - base
     unit = lam1.shape[0] * P * CHUNK * 4
@@ -815,6 +829,7 @@ def phase_memory_law(card: str) -> None:
     if not slope <= MAX_BUFFERS_PER_R * unit:
         raise AssertionError(f"fused peak memory grows {slope / unit:.2f} "
                              f"S*p*chunk buffers per replica")
+    return peaks
 
 
 # ------------------------------------------------------------ LM serving
@@ -2027,6 +2042,24 @@ SIM17_TRACE_CHUNKS = 128        # the traced dispatch: a quarter of the
 # replica under 300 ms by Eq 7), four loads, 262,144 queries a scenario
 PLANS17_LAM = (10.0, 20.0, 30.0, 40.0)
 PLANS17_QUERIES = 64 * CHUNK
+# past 16 replicas: the wide instances, held exactly on chunks of 512
+# queries (the plain loops step a query at a time) and, at r = 64, masked
+# and float32, on a full chunk of the timed shape; timed at full width
+WIDE_R = (17, 32, 64, 256)
+WIDE_CHECK_N = 512
+WIDE_FULL_R = 64
+WIDE_WINDOWS = 64               # outage windows past the narrow 32
+# 17e: Table 5's hardware at 500 qps needs 19 replicas by Eq 7 (+1 for
+# N+1); 16,384 queries a simulation, on the card and on the CPU
+PLAN17E_RATE = 500.0
+PLAN17E_SLO = 0.9
+PLAN17E_QUERIES = 16_384
+P95_REL_TOL = 1e-6              # card vs CPU p95 on the same draws
+# 18: telemetry, 64 bins over each scenario's horizon, the paper's SLO
+OBS_BINS = 64
+OBS_TRACE_CHUNKS = 8            # the traced runs that count launches
+OBS_CPU_SCEN, OBS_CPU_CHUNKS, OBS_CPU_CHUNK = 4, 8, 1024   # 18c's slab
+OBS_SPANS = 2_000               # 18d's window of queries
 
 
 def _walled(phase, card: str):
@@ -2037,17 +2070,20 @@ def _walled(phase, card: str):
     return out
 
 
-def _fleet_case(r, dtype, what, gen, s=N_SCEN, real=False):
-    """Inputs of one fleet-scan call at (s, CHUNK): an outage of replica 0
+def _fleet_case(r, dtype, what, gen, s=N_SCEN, real=False, n=CHUNK,
+                windows=0):
+    """Inputs of one fleet-scan call at (s, n): an outage of replica 0
     and the MTBF/MTTR chain, and/or the policy (min 1, max r, the queue
     trigger) fed ~r/2 replicas' worth of demand.  A decision every 20 s
     at 2 queries a second (one in ~40 queries), or with ``real`` 17b's:
     one a profile bin (SIM17_BIN_S) at the slab's 20-160 queries a
-    second (one in ~6,000-50,000)."""
+    second (one in ~6,000-50,000).  ``windows`` > 0: that many outage
+    windows (replica 7 w mod r, 10 s each, every 3 s from the start)
+    with the chain."""
     import torch
     from repro_torch.core.faults import FaultSpec
     from repro_torch.launch.elastic import AutoscalePolicy, autoscale_init
-    shape = (s, CHUNK)
+    shape = (s, n)
     mean_gap = torch.full((s, 1), FLEET_GAP, dtype=dtype, device="cuda")
     if real:
         lam = torch.tensor(SIM16_LAM, dtype=dtype, device="cuda")
@@ -2061,9 +2097,15 @@ def _fleet_case(r, dtype, what, gen, s=N_SCEN, real=False):
                            generator=gen),
               up_state=torch.randint(0, 2, (s, r), dtype=torch.int32,
                                      device="cuda", generator=gen),
-              n_valid=CHUNK - 100)
+              n_valid=n - 100)
     if what in ("fault", "both"):
         kw["fault"] = FaultSpec(**FLEET_FAULT)
+        if windows:
+            kw["fault"] = FaultSpec(
+                outages=tuple((7 * w % r, 100.0 + 3.0 * w, 110.0 + 3.0 * w)
+                              for w in range(windows)),
+                mtbf_seconds=FLEET_FAULT["mtbf_seconds"],
+                mttr_seconds=FLEET_FAULT["mttr_seconds"])
     if what in ("policy", "both"):
         pol = AutoscalePolicy(
             min_r=1, max_r=r, target_utilization=0.7,
@@ -2145,6 +2187,23 @@ def phase_fleet_kernel(card: str) -> dict:
                                  real=True),
                      f"S={s} r={R} float32 {what} at 17b's rate",
                      check_moved=False)
+    # past 16 replicas (the wide instance), and past 32 windows
+    for r, dtype, what in itertools.product(
+            WIDE_R, (torch.float32, torch.float64),
+            ("fault", "policy", "both")):
+        worst = max(worst, _fleet_exact(
+            _fleet_case(r, dtype, what, gen, n=WIDE_CHECK_N),
+            f"r={r:3d} {str(dtype):14s} {what:6s} ({WIDE_CHECK_N} queries)"))
+    for r, dtype in itertools.product((R, 64, 256),
+                                      (torch.float32, torch.float64)):
+        _fleet_exact(_fleet_case(r, dtype, "both", gen, n=WIDE_CHECK_N,
+                                 windows=WIDE_WINDOWS),
+                     f"r={r:3d} {str(dtype):14s} both, {WIDE_WINDOWS} "
+                     f"windows ({WIDE_CHECK_N} queries)")
+    worst = max(worst, _fleet_exact(
+        _fleet_case(WIDE_FULL_R, torch.float32, "both", gen),
+        f"r={WIDE_FULL_R:3d} torch.float32  both   ({N_SCEN} x {CHUNK} "
+        "queries, the timed shape)"))
     clock = _max_sm_clock_hz()
     times = {}
     for label, dtype, what, s, real in (
@@ -2168,6 +2227,17 @@ def phase_fleet_kernel(card: str) -> dict:
               "ns a step")
         if label == "both":
             gaps_both, kw_both = gaps, kw
+    print(f"  by replica count at ({N_SCEN}, {CHUNK}) float32, a decision "
+          f"every 20 s (device time, mean of 20) [{card}]:")
+    for r in (R, 16) + WIDE_R:
+        row = []
+        for what in ("fault", "both"):
+            gaps, kw = _fleet_case(r, torch.float32, what, gen)
+            ms = _device_ms(lambda: fleet_ops.fleet_scan(
+                gaps, impl="cuda", **kw), n=20)
+            row.append(f"{'mask alone' if what == 'fault' else what} "
+                       f"{ms:.4f} ms ({ms * 1e6 / CHUNK:.1f} ns a step)")
+        print(f"    r = {r:3d}: " + "; ".join(row))
     t_both = times["both"]
     plain_ms = _time_ms(lambda: fleet_ops.fleet_scan(
         gaps_both, impl="torch", **kw_both), n=1, warm=0)
@@ -2249,6 +2319,65 @@ def phase_masked_jsq(card: str) -> None:
         if not same or not err <= 1e-6:
             raise AssertionError(f"masked JSQ ({what}) disagrees with the "
                                  f"plain loop: equal {same}, tracker {err}")
+    # past 16 replicas: the wide instance, at 80 % utilization a replica
+    def inputs(r, dtype, n):
+        g = torch.Generator(device="cuda").manual_seed(r)
+        w0 = torch.zeros((N_SCEN, r, P), dtype=dtype, device="cuda")
+        gp = torch.empty((N_SCEN, n), dtype=dtype, device="cuda"
+                         ).exponential_(generator=g) * (s_mean / r / 0.8)
+        sv = torch.empty((N_SCEN, P, n), dtype=dtype, device="cuda"
+                         ).exponential_(generator=g) * s_mean
+        lv = (torch.rand((N_SCEN, n), device="cuda", generator=g)
+              >= RESULT_CACHE[0]).to(dtype)
+        w0 = ops.jsq_route(w0, gp, sv, lv, impl="cuda")[1]   # warm state
+        na = torch.randint(1, r + 1, (N_SCEN, n), dtype=torch.int32,
+                           device="cuda", generator=g)
+        u = torch.rand((N_SCEN, n, r), device="cuda", generator=g) < 0.8
+        u[:, 100:120] = False
+        return w0, gp, sv, lv, dict(n_act=na, up=u)
+    for r, dtype in itertools.product(WIDE_R, (torch.float32,
+                                               torch.float64)):
+        w0, gp, sv, lv, masks = inputs(r, dtype, WIDE_CHECK_N)
+        for label, kw in (("unmasked", {}), ("masked", masks)):
+            before = ops.launch_count()
+            k = ops.jsq_route(w0, gp, sv, lv, impl="cuda", **kw)
+            if ops.launch_count() != before + 1:
+                raise AssertionError("the wide JSQ call did not launch once")
+            pl = ops.jsq_route(w0, gp, sv, lv, impl="torch", **kw)
+            torch.cuda.synchronize()
+            same = all(bool(torch.equal(a, b)) for a, b in zip(k, pl))
+            print(f"  r = {r:3d} {str(dtype):14s} {label:8s}: choices, "
+                  f"tracker{' and flags' if kw else ''} equal the plain "
+                  f"loop's exactly: {same} ({WIDE_CHECK_N} queries; "
+                  f"{int(pl[0].max()) + 1} replicas chosen at most)")
+            if not same:
+                raise AssertionError(f"wide JSQ r={r} {dtype} {label} "
+                                     "disagrees with the plain loop")
+    # and a full chunk of the timed shape, masked, float32
+    w0, gp, sv, lv, masks = inputs(WIDE_FULL_R, torch.float32, CHUNK)
+    k = ops.jsq_route(w0, gp, sv, lv, impl="cuda", **masks)
+    pl = ops.jsq_route(w0, gp, sv, lv, impl="torch", **masks)
+    torch.cuda.synchronize()
+    same = all(bool(torch.equal(a, b)) for a, b in zip(k, pl))
+    print(f"  r = {WIDE_FULL_R:3d} torch.float32  masked  at ({N_SCEN}, "
+          f"{WIDE_FULL_R}, {P}, {CHUNK}): choices, tracker and flags equal "
+          f"the plain loop's exactly: {same} ({int(pl[0].max()) + 1} "
+          "replicas chosen at most)")
+    if not same:
+        raise AssertionError(f"wide JSQ r={WIDE_FULL_R} at the timed shape "
+                             "disagrees with the plain loop")
+    print(f"  by replica count at ({N_SCEN}, r, {P}, {CHUNK}) float32, 80 % "
+          f"utilization a replica (mean of 5) [{card}]:")
+    for r in (R, 16) + WIDE_R:
+        w0, gp, sv, lv, masks = inputs(r, torch.float32, CHUNK)
+        t_plain = _time_ms(lambda: kernel.jsq_route_cuda(w0, gp, sv, lv),
+                           n=5, warm=1)
+        t_mask = _time_ms(lambda: kernel.jsq_route_cuda(w0, gp, sv, lv,
+                                                        **masks),
+                          n=5, warm=1)
+        print(f"    r = {r:3d}: unmasked {t_plain:.4f} ms, masked (both) "
+              f"{t_mask:.4f} ms a chunk ({t_plain * 1e6 / CHUNK:.0f} / "
+              f"{t_mask * 1e6 / CHUNK:.0f} ns a step)")
 
 
 def _slab17(lam_axis, speeds):
@@ -2603,6 +2732,373 @@ def phase_plans17(card: str) -> None:
         raise AssertionError("17d: the fault axis' channels are wrong")
 
 
+def phase_plans_wide(card: str) -> None:
+    """17e: plan_capacity(survive_faults=1, simulate=True) on Table 5's
+    hardware at 500 qps, whose N+1 plan needs more than 16 replicas,
+    under random and JSQ routing: the faulted cross-check runs the fleet
+    scan (and the router) past 16 replicas on the card; the replica
+    count equals the CPU's at the same cut query count, and at that count
+    the card's simulated and faulted p95 equal the CPU's on the same
+    draws."""
+    import torch
+    from repro_torch.core import capacity
+    from repro_torch.core.cluster import ClusterSpec
+    print(f"== phase 17e: N+1 plans past 16 replicas ({PLAN17E_RATE:g} qps, "
+          f"SLO {PLAN17E_SLO:g} s, {PLAN17E_QUERIES:,} queries a "
+          "simulation)")
+    for routing in ("random", "jsq"):
+        kw = dict(simulate=True, survive_faults=1, n_queries=PLAN17E_QUERIES,
+                  cluster=ClusterSpec(routing=routing))
+        _reset_counts()
+        t0 = time.perf_counter()
+        card_plan = capacity.plan_capacity(
+            capacity.TABLE5_PARAMS, PLAN17E_RATE, PLAN17E_SLO,
+            device="cuda", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        t0 = time.perf_counter()
+        cpu_plan = capacity.plan_capacity(
+            capacity.TABLE5_PARAMS, PLAN17E_RATE, PLAN17E_SLO, device="cpu",
+            **kw)
+        cpu_wall = time.perf_counter() - t0
+        print(f"  {routing}: {card_plan.n_replicas} replicas x "
+              f"{card_plan.servers_per_replica} (N+{card_plan.survive_faults})"
+              f"; simulated p95 {card_plan.response_simulated_p95_ms:.1f} ms,"
+              f" with 1 replica down {card_plan.response_faulted_p95_ms:.1f}"
+              f" ms; {wall:.2f} s [{card}]; launches {counts}; the CPU's "
+              f"plan {cpu_plan.n_replicas} replicas (faulted p95 "
+              f"{cpu_plan.response_faulted_p95_ms:.1f} ms, {cpu_wall:.2f} s)")
+        if not (card_plan.n_replicas > 16
+                and card_plan.n_replicas == cpu_plan.n_replicas):
+            raise AssertionError(f"17e {routing}: plan {card_plan} vs the "
+                                 f"CPU's {cpu_plan.n_replicas} replicas")
+        if not math.isfinite(card_plan.response_faulted_p95_ms):
+            raise AssertionError(f"17e {routing}: no faulted p95")
+        if counts["fleet_scan"] == 0 or (
+                (counts["jsq_route"] > 0) != (routing == "jsq")):
+            raise AssertionError(f"17e {routing}: launches {counts}")
+        _plan_p95_vs_cpu(card, routing, card_plan.n_replicas)
+
+
+def _plan_p95_vs_cpu(card: str, routing: str, n: int) -> None:
+    """17e's p95s at the plan's replica count, as the plan's last two
+    simulations run them (all up; replica 0 down the whole run), on the
+    card and on the CPU from the same draws: made on the card in float64
+    (so that no JSQ choice or histogram bin turns on the two devices'
+    rounding) and copied."""
+    import torch
+    from repro_torch.core import capacity, simulator
+    from repro_torch.core.cluster import ClusterSpec
+    from repro_torch.core.faults import FaultSpec
+    f64, params = torch.float64, capacity.TABLE5_PARAMS
+    chunk = min(simulator.DEFAULT_CHUNK, PLAN17E_QUERIES)
+    vp = simulator._vec_params(params, torch.device("cuda"), f64)
+    on_card = []
+    for c in range(-(-PLAN17E_QUERIES // chunk)):
+        base = simulator.chunk_random_draws(
+            17, c, 1, chunk, int(params.p), vp, "exponential",
+            device="cuda", dtype=f64)
+        side = simulator.chunk_side_draws(
+            17, c, 1, chunk, route_r=n if routing == "random" else None,
+            device="cuda", dtype=f64)
+        on_card.append((*base, side))
+    on_cpu = [tuple(t.cpu() for t in d[:3])
+              + ({k: v.cpu() for k, v in d[3].items()},) for d in on_card]
+    draws = {"cuda": on_card, "cpu": on_cpu}
+    horizon = 2.0 * PLAN17E_QUERIES / PLAN17E_RATE
+    row = []
+    for label, fault in (("all up", None),
+                         ("1 down", FaultSpec(outages=((0, 0.0, horizon),)))):
+        cl = ClusterSpec(r=n, routing=routing, fault=fault)
+        p95 = {dev: float(simulator.simulate_fork_join(
+            17, PLAN17E_RATE, PLAN17E_QUERIES, params, cluster=cl,
+            draws=lambda c, dev=dev: draws[dev][c], device=dev,
+            dtype=f64).quantile(0.95)) * 1e3 for dev in draws}
+        err = abs(p95["cuda"] - p95["cpu"]) / p95["cpu"]
+        row.append(f"{label} card {p95['cuda']:.3f} ms, CPU "
+                   f"{p95['cpu']:.3f} ms (rel diff {err:.1e})")
+        if not err <= P95_REL_TOL:
+            raise AssertionError(f"17e {routing} r={n} {label}: p95 card "
+                                 f"{p95['cuda']} vs CPU {p95['cpu']}")
+    print(f"    r = {n}, same float64 draws, p95 [{card}]: "
+          + "; ".join(row) + f" (limit {P95_REL_TOL:g} relative)")
+
+
+# ------------------------------------------------------------ observability
+def _trace_busy(run) -> tuple[float, int]:
+    """(device busy ms, kernel launches) of one ``run()`` under the
+    profiler (after a discarded warm-up step, as `phase_profile`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+                 ) as prof:
+        warm = torch.ones(1, device="cuda")
+        for _ in range(8):
+            warm.add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        run()
+        torch.cuda.synchronize()
+        prof.step()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and not e.key.startswith("ProfilerStep")]
+    return (sum(e.self_device_time_total for e in kernels) / 1e3,
+            sum(e.count for e in kernels))
+
+
+def _busy_totals(seed, lam, params, n, cache):
+    """Each scenario's summed effective server and broker service seconds
+    (misses only) over the first ``n`` queries, from the engine's own
+    draws in float64: what the timeline's busy tallies must add up to."""
+    import torch
+    from repro_torch.core import simulator
+    vp = simulator._vec_params(params, torch.device("cuda"), torch.float32)
+    n_scen = lam.shape[0]
+    hit = torch.full((n_scen,), cache[0], device="cuda")
+    srv = torch.zeros(n_scen, dtype=torch.float64, device="cuda")
+    brk = torch.zeros_like(srv)
+    for c in range(-(-n // CHUNK)):
+        _, u_brk, svc = simulator.chunk_random_draws(
+            seed, c, n_scen, CHUNK, P, vp, "exponential", device="cuda")
+        side = simulator.chunk_side_draws(seed, c, n_scen, CHUNK,
+                                          cache_hit=hit, device="cuda")
+        miss = 1.0 - side["cache_hit"].to(torch.float32)
+        srv += (svc * miss[:, None, :]).sum((1, 2), dtype=torch.float64)
+        brk += (u_brk * vp.s_broker[:, None] * miss).sum(
+            1, dtype=torch.float64)
+    return srv, brk
+
+
+def phase_observability(card: str, mem7: dict) -> None:
+    """18: the telemetry layer on the card.  (a) 16b's 64-scenario slab
+    at r = 1 and r = 4 (random, JSQ), one dispatch each with and without
+    telemetry; (b) 17b's autoscaled and 17c's faulted dispatches, first
+    128 chunks; (c) card against CPU on a small slab; (d) a JSQ span
+    trace; (e) the kernel profiles; (f) a rendered timeline."""
+    import dataclasses
+    import warnings
+
+    import torch
+    from repro_torch.core import simulator
+    from repro_torch.core.arrivals import ArrivalProcess
+    from repro_torch.core.cluster import ClusterSpec
+    from repro_torch.core.faults import FaultSpec
+    from repro_torch.launch.elastic import AutoscalePolicy
+    from repro_torch.obs import TelemetrySpec
+    from repro_torch.obs import profile as obs_profile
+    from repro_torch.obs import report as obs_report
+    from repro_torch.obs import trace_export
+    spec = TelemetrySpec(n_bins=OBS_BINS, slo_seconds=ANSWER_SLO)
+    lam, params = _slab17(SIM16_LAM, SIM16_SPEEDS)
+    n_scen, n = lam.shape[0], SIM16_QUERIES
+    print(f"== phase 18a: telemetry on 16b's slab ({n_scen} scenarios x "
+          f"{n:,} queries, result cache {RESULT_CACHE}), {spec}")
+    srv_tot, brk_tot = _busy_totals(18, lam, params, n, RESULT_CACHE)
+    shown = None
+    for r, routing in ((1, "round_robin"), (R, "random"), (R, "jsq")):
+        cluster = ClusterSpec(r=r, routing=routing,
+                              result_cache=RESULT_CACHE)
+
+        def run(tel, n=n):
+            return simulator.simulate_fork_join_batch(
+                18, lam, params, n, p=P, chunk_size=CHUNK, cluster=cluster,
+                telemetry=tel)
+        run(None, CHUNK)                                      # warm-up
+        run(spec, CHUNK)
+        walls, res = {}, {}
+        for key, tel in (("off", None), ("on", spec)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[key] = run(tel)
+            torch.cuda.synchronize()
+            walls[key] = time.perf_counter() - t0
+        _bit_identical(res["off"], res["on"], f"18a r={r} {routing}")
+        tl = res["on"].timeline
+        if not bool((tl.count.sum(-1) == float(n)).all()) or not bool(
+                (tl.replica_count.sum((-2, -1)) == float(n)).all()):
+            raise AssertionError(f"18a r={r} {routing}: counts do not sum "
+                                 f"to {n}")
+        busy_err = max(
+            _rel_err(tl.busy_server.double().sum((1, 2, 3)), srv_tot),
+            _rel_err(tl.busy_broker.double().sum((1, 2)), brk_tot))
+        worst = max(obs_report.oplaw_check(tl.map(lambda x, i=i: x[i]))[1]
+                    for i in range(n_scen))
+        m = OBS_TRACE_CHUNKS
+        off_ms, off_k = _trace_busy(lambda: run(None, m * CHUNK))
+        on_ms, on_k = _trace_busy(lambda: run(spec, m * CHUNK))
+        print(f"  r = {r} {routing}: base statistics bit-identical with and "
+              f"without telemetry; counts sum to {n:,} in every scenario; "
+              f"busy sums vs the draws' effective service max rel err "
+              f"{busy_err:.1e} (limit 1e-5); operational laws worst per-bin "
+              f"deviation {worst:.1e} (limit 1e-6)")
+        print(f"    wall {walls['off']:.3f} s without, {walls['on']:.3f} s "
+              f"with telemetry [{card}]; over {m} chunks the device is busy "
+              f"{off_ms:.2f} / {on_ms:.2f} ms in {off_k} / {on_k} launches: "
+              f"+{(on_ms - off_ms) / m:.3f} ms and +{(on_k - off_k) / m:.1f} "
+              f"launches a chunk")
+        if not busy_err <= 1e-5 or not worst <= 1e-6:
+            raise AssertionError(f"18a r={r} {routing}: busy {busy_err}, "
+                                 f"laws {worst}")
+        if r == R and routing == "jsq":
+            shown = tl.map(lambda x: x[n_scen - 1])
+    peaks = phase_memory_law(card, telemetry=spec)
+    print(f"  peak above baseline at r = {R}: {peaks[R] / 2**20:.1f} MiB "
+          f"with telemetry, {mem7[R] / 2**20:.1f} MiB without (phase 7) "
+          f"[{card}]")
+
+    # (b) the cluster under change, every query counted (no warmup)
+    profile, arrival, chunk = _profile17(lam)
+    n17 = SIM17_TRACE_CHUNKS * chunk
+    pol = AutoscalePolicy(**SIM17_POLICY)
+    fault = _fault17(profile)
+    print(f"== phase 18b: telemetry under change, 17b's and 17c's JSQ "
+          f"dispatches cut to {SIM17_TRACE_CHUNKS} chunks ({n17:,} queries"
+          f" a scenario), warmup 0")
+    for label, cl in (("autoscaled", dict(autoscale=pol)),
+                      ("faulted", dict(r=R, fault=fault))):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            t0 = time.perf_counter()
+            res = simulator.simulate_fork_join_batch(
+                SIM17_SEED, arrival, params, n17, p=P, chunk_size=CHUNK,
+                warmup_fraction=0.0, telemetry=spec,
+                cluster=ClusterSpec(routing="jsq",
+                                    result_cache=RESULT_CACHE, **cl))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        tl = res.timeline
+        cnt = tl.count.sum(-1)
+        if not bool((cnt == float(n17)).all()):
+            raise AssertionError(f"18b {label}: counts {cnt}")
+        if label == "autoscaled":
+            act = tl.active_sum.sum(-1) / cnt
+            tw = res.replica_seconds / res.elapsed_seconds
+            bins = tl.active_replicas[tl.count > 0]
+            ok = bool(((bins >= pol.min_r - 1e-6)
+                       & (bins <= pol.max_r + 1e-6)).all())
+            print(f"  autoscaled: active replicas a bin "
+                  f"{float(bins.min()):.2f}..{float(bins.max()):.2f} within "
+                  f"[{pol.min_r}, {pol.max_r}]: {ok}; arrival-weighted mean "
+                  f"{float(act.min()):.3f}..{float(act.max()):.3f} beside "
+                  f"SimResult's time-weighted {float(tw.min()):.3f}.."
+                  f"{float(tw.max()):.3f}; {wall:.2f} s [{card}]")
+            if not ok or float(bins.max()) <= float(bins.min()):
+                raise AssertionError("18b: the active trajectory is wrong")
+        else:
+            spill = tl.spill_sum.double().sum(-1)
+            degr = tl.degraded_sum.double().sum(-1)
+            up = tl.up_sum.double().sum(-1)
+            avail = cnt.double() - res.unavail_count.double()
+            same = (bool(torch.equal(spill, res.spill_count.double()))
+                    and bool(torch.equal(degr, res.degraded_count.double())))
+            bounded = bool(((up >= avail) & (up <= R * cnt.double())).all())
+            print(f"  faulted: spill and degraded sums equal SimResult's "
+                  f"spill_count and degraded_count: {same} (spill "
+                  f"{float(spill.sum()):.0f}, degraded "
+                  f"{float(degr.sum()):.0f}); up-replica sums within "
+                  f"[available queries, {R} x count]: {bounded}, mean up "
+                  f"{float((up / cnt).min()):.3f}.."
+                  f"{float((up / cnt).max()):.3f}; {wall:.2f} s [{card}]")
+            if not same or not bounded or not float(spill.sum()) > 0:
+                raise AssertionError("18b: the fault channels disagree")
+
+    # (c) card against CPU on the same draws, in float64 (so that no
+    # arrival's bin depends on the two cumulative sums' rounding)
+    s_c, f64 = OBS_CPU_SCEN, torch.float64
+
+    def params_on(dev):
+        return type(params)(p=P, **{
+            f.name: getattr(params, f.name)[:s_c].to(dev, f64)
+            for f in dataclasses.fields(params) if f.name != "p"})
+    small = FaultSpec(outages=((0, 20.0, 200.0),), mtbf_seconds=2000.0,
+                      mttr_seconds=200.0, broker_timeout_seconds=0.25,
+                      quorum_k=P - 1)
+    cl = ClusterSpec(r=R, routing="jsq", result_cache=RESULT_CACHE,
+                     fault=small)
+    vp = simulator._vec_params(params_on("cuda"), torch.device("cuda"), f64)
+    hit = torch.full((s_c,), RESULT_CACHE[0], dtype=f64, device="cuda")
+    per_chunk = []
+    for c in range(OBS_CPU_CHUNKS):
+        base = simulator.chunk_random_draws(18, c, s_c, OBS_CPU_CHUNK, P, vp,
+                                            "exponential", device="cuda",
+                                            dtype=f64)
+        side = simulator.chunk_side_draws(18, c, s_c, OBS_CPU_CHUNK,
+                                          cache_hit=hit, fault_r=R,
+                                          device="cuda", dtype=f64)
+        per_chunk.append((*base, side))
+    cpu_chunks = [tuple(t.cpu() for t in d[:3])
+                  + ({k: v.cpu() for k, v in d[3].items()},)
+                  for d in per_chunk]
+    n_c = OBS_CPU_CHUNKS * OBS_CPU_CHUNK
+    spec_c = TelemetrySpec(n_bins=16)
+    on_card = simulator.simulate_fork_join_batch(
+        18, lam[:s_c].to(f64), params_on("cuda"), n_c, p=P,
+        chunk_size=OBS_CPU_CHUNK, cluster=cl, telemetry=spec_c,
+        draws=lambda c: per_chunk[c], dtype=f64).timeline
+    on_cpu = simulator.simulate_fork_join_batch(
+        18, lam[:s_c].to("cpu", f64), params_on("cpu"), n_c, p=P,
+        chunk_size=OBS_CPU_CHUNK, cluster=cl, telemetry=spec_c,
+        draws=lambda c: cpu_chunks[c], device="cpu", dtype=f64).timeline
+    worst = 0.0
+    for f in dataclasses.fields(on_card):
+        a, b = getattr(on_card, f.name), getattr(on_cpu, f.name)
+        if a is None:
+            continue
+        a, b = a.cpu().double(), b.double()
+        if f.name in ("count", "replica_count", "up_sum", "spill_sum"):
+            if not torch.equal(a, b):
+                raise AssertionError(f"18c: {f.name} differs card vs CPU")
+            continue
+        err = float(((a - b).abs() / (b.abs() + b.abs().max() + 1e-300)
+                     ).max())
+        worst = max(worst, err)
+    print(f"== phase 18c: card vs CPU timelines on the same draws ({s_c} "
+          f"scenarios x {n_c:,} queries, r = {R}, JSQ, cache, faults, "
+          f"float64): counts, routing, up and spill sums equal; float sums "
+          f"max error {worst:.1e} of the bin plus the largest bin (limit "
+          f"1e-12)")
+    if not worst <= 1e-12:
+        raise AssertionError(f"18c: card vs CPU {worst}")
+
+    # (d) a span trace through the router and the segmented scan
+    horizon = OBS_SPANS / (24.0 * 1.6)
+    flash = ArrivalProcess.flash_crowd(
+        24.0, burst_starts=0.35 * horizon, burst_seconds=0.2 * horizon,
+        burst_multiplier=4.0, period_seconds=horizon,
+        bin_seconds=horizon / 64, device="cuda")
+    from repro_torch.core import capacity
+    _reset_counts()
+    t0 = time.perf_counter()
+    spans = trace_export.simulate_spans(0, flash, OBS_SPANS,
+                                        capacity.TABLE5_PARAMS, r=R,
+                                        routing="jsq", device="cuda")
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = trace_export.export_chrome_trace(
+            spans, pathlib.Path(tmp) / "phase18_spans.json")
+        checked = trace_export.validate_chrome_trace(path)
+    print(f"== phase 18d: span trace, {OBS_SPANS} queries of a flash crowd, "
+          f"r = {R}, JSQ: launches {counts}; {checked['X']} service spans, "
+          f"{checked['async_pairs']} lifetimes, {checked['lanes']} lanes, "
+          f"schema OK; {wall:.2f} s [{card}]")
+    if counts["jsq_route"] != 1 or counts["maxplus_segment_scan"] != 2:
+        raise AssertionError(f"18d: launches {counts}")
+
+    # (e) the kernel profiles, (f) one rendered timeline
+    print("== phase 18e: kernel profiles (first call, CUDA-event median of "
+          f"3, peak memory) [{card}]")
+    print(obs_report.render_profiles(obs_profile.profile_kernels(
+        device="cuda")))
+    print("== phase 18f: a rendered timeline")
+    print(obs_report.render_timeline(
+        shown, f"16b slab's last scenario, r = {R}, JSQ, {n:,} queries"))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2640,7 +3136,7 @@ def main() -> int:
         f"phase 6b: device time by kernel, replicated path (random, r = {R},"
         " result cache)")
     _kernel_share(traced, "maxplus_segment_scan_kernel", "segmented scan")
-    phase_memory_law(card)
+    mem7 = phase_memory_law(card)
     flash = phase_flash_kernel(card)
     decode = phase_decode_kernel(card)
     lm = phase_lm_server(card)
@@ -2683,7 +3179,11 @@ def main() -> int:
     fleet["launches"] = elastic["jsq"]["counts"]["fleet_scan"]
     _walled(phase_faulted_fleet, card)
     _walled(phase_plans17, card)
+    _walled(phase_plans_wide, card)
     print(f"== phase 17: {time.perf_counter() - t17:.1f} s [{card}]")
+    t18 = time.perf_counter()
+    phase_observability(card, mem7)
+    print(f"== phase 18: {time.perf_counter() - t18:.1f} s [{card}]")
     print(json.dumps({"kernels": [scan, segment, jsq, flash, decode, bag,
                                   cin, fleet]}))
     print(card)

@@ -7,8 +7,8 @@ not peak replicas.  This example sweeps `AutoscalePolicy` configs —
 axis over a diurnal + flash-crowd week and extracts the cheapest policy
 whose p95 survives, then cross-checks it against the static-r plan the
 paper would buy: the autoscaled fleet must meet the same SLO with fewer
-replica-seconds.  It mirrors examples/autoscale_sweep.py, without its
-telemetry trajectory (the port has no timelines yet).
+replica-seconds.  It mirrors examples/autoscale_sweep.py, the winning
+policy's active-replica trajectory (a telemetry `Timeline`) included.
 
 The "week" is time-compressed (a few seconds per hourly bin) so the
 whole diurnal + crowd shape fits in a tractable query budget; policy
@@ -25,6 +25,7 @@ from repro_torch.core.arrivals import ArrivalProcess
 from repro_torch.core.cluster import ClusterSpec
 from repro_torch.core.queueing import ServerParams
 from repro_torch.launch.elastic import AutoscalePolicy
+from repro_torch.obs import TelemetrySpec
 from repro_torch.workloadgen import loadgen
 
 ap = argparse.ArgumentParser()
@@ -97,7 +98,7 @@ for i, lam in enumerate(LAM):
           f"static r={stat:.0f} -> {saved:.0f}% replica-seconds saved "
           f"[{verdict}]")
 
-# -- the winning policy, run alone through the week ----------------------
+# -- the winning policy's trajectory through the week -------------------
 i = len(LAM) - 1
 winner = frontier.autoscale[i]
 if winner is not None:
@@ -105,10 +106,25 @@ if winner is not None:
                                        device=dev)
     res = simulator.simulate_fork_join(
         11, arrival, N_Q, PARAMS, chunk_size=CHUNK,
-        cluster=ClusterSpec(routing="jsq", autoscale=winner), device=dev)
-    print(f"\n== The winner alone (lam={LAM[i]:g}, policy "
+        cluster=ClusterSpec(routing="jsq", autoscale=winner),
+        telemetry=TelemetrySpec(n_bins=28), device=dev)
+    tl = res.timeline
+    act = tl.active_replicas.where(tl.count > 0, float("nan"))
+    print(f"\n== Active-replica trajectory (lam={LAM[i]:g}, policy "
           f"{winner.min_r}..{winner.max_r}@{winner.target_utilization:.0%},"
           f" stab={winner.stabilization_intervals}) ==")
+    blocks = " .:-=+*#"
+    lo, hi = 1.0, float(winner.max_r)
+    cells = []
+    for v in act.tolist():
+        if v != v:                        # NaN: bin saw no arrivals
+            cells.append(" ")
+            continue
+        t = (v - lo) / max(hi - lo, 1e-9)
+        cells.append(blocks[min(len(blocks) - 1,
+                                max(0, int(t * (len(blocks) - 1) + 0.5)))])
+    print("  fleet  |" + "".join(cells) + f"|  ({lo:.0f}..{hi:.0f} "
+          "replicas)")
     print(f"  mean active {float(res.mean_active_replicas):.2f} of "
           f"{winner.max_r} provisioned; replica-seconds "
           f"{float(res.replica_seconds):.0f} over "

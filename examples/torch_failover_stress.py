@@ -5,13 +5,13 @@ The paper sizes a fleet for peak load (Section 6) assuming every replica
 stays up; a real vertical deployment loses machines, and the capacity
 question becomes N+k: does the p95 SLO hold while k replicas are down
 and failover routing spills their share onto the survivors?  This
-example stresses exactly that, as examples/failover_stress.py does
-(without its timeline rendering; the port has no timelines yet):
+example stresses exactly that, as examples/failover_stress.py does:
 
   1. a diurnal + flash-crowd week is replayed against a fixed r-replica
      fleet, fault-free, for the baseline p95;
   2. the same week is replayed with one replica DOWN for the hours
-     around the flash crowd (a deterministic `FaultSpec` outage window);
+     around the flash crowd (a deterministic `FaultSpec` outage window),
+     and its telemetry timeline shows the dip and the spill;
   3. a `SweepGrid` fault axis compares graceful-degradation knobs at
      equal load: full fork-join vs k-of-p partial-quorum merging under
      a broker timeout, with and without the outage;
@@ -29,6 +29,8 @@ from repro_torch.core.arrivals import ArrivalProcess
 from repro_torch.core.cluster import ClusterSpec
 from repro_torch.core.faults import FaultSpec
 from repro_torch.core.queueing import ServerParams
+from repro_torch.obs import TelemetrySpec
+from repro_torch.obs.report import render_timeline
 from repro_torch.workloadgen import loadgen
 
 ap = argparse.ArgumentParser()
@@ -59,12 +61,13 @@ arrival = ArrivalProcess.piecewise(LAM * profile, BIN_S, device=dev)
 # the outage covers the crowd and the hours around it — the worst window
 down_t0, down_t1 = (crowd_hour - 2) * BIN_S, (crowd_hour + 4) * BIN_S
 outage = FaultSpec(outages=((0, down_t0, down_t1),))
+tele = TelemetrySpec(n_bins=28)
 
 
 def run(spec, seed=23):
     return simulator.simulate_fork_join(
         seed, arrival, N_Q, PARAMS, chunk_size=CHUNK, cluster=spec,
-        device=dev)
+        telemetry=tele, device=dev)
 
 
 print(f"== failover stress: r={R}, lam={LAM:g} qps avg, flash crowd "
@@ -84,6 +87,8 @@ print(f"  1 replica down p95 {p95_hit * MS:7.1f} ms  "
       f"availability {float(hit.availability) * 100:.2f}%")
 print(f"  -> survivors {'HOLD' if ok else 'VIOLATE'} the p95 SLO "
       f"during the outage ({p95_hit * MS:.0f} ms vs {SLO * MS:.0f} ms)")
+print()
+print(render_timeline(hit.timeline, "outage week (1 of 3 down at peak)"))
 
 # -- graceful degradation: full fork-join vs k-of-p quorum --------------
 # Under a broker timeout the merge returns with the k fastest servers'

@@ -81,7 +81,13 @@ with ``side`` a dict holding the enabled streams (see
 `chunk_side_draws`); tests feed the reference's own draws through it
 (`repro_torch.interop.draws_from_numpy`).
 
-Not ported yet: telemetry (ROADMAP queue 1 item 10).
+Telemetry (``telemetry=TelemetrySpec(...)``, see `repro_torch.obs`)
+bins every query by its arrival time on the absolute clock and tallies,
+per bin, arrivals, response-seconds, broker and server busy-seconds per
+replica, routing counts, cache hits, SLO misses and, under change, the
+active, up, spilled and degraded counts; the result gains ``timeline``.
+It draws no random numbers, so ``telemetry=None`` runs the program
+without it op for op.
 """
 
 from __future__ import annotations
@@ -105,6 +111,7 @@ from repro_torch.kernels.jsq_route import ops as jsq_ops
 from repro_torch.launch.elastic import AutoscalePolicy, autoscale_init
 from repro_torch.kernels.maxplus_scan import ops as mp_ops
 from repro_torch.kernels.maxplus_scan.ref import maxplus_combine
+from repro_torch.obs.timeline import TelemetrySpec, Timeline, segment_sums
 
 Tensor = torch.Tensor
 Draws = Callable[[int], tuple]
@@ -117,6 +124,8 @@ __all__ = [
     "ClusterSpec",
     "AutoscalePolicy",
     "FaultSpec",
+    "TelemetrySpec",
+    "Timeline",
     "SimResult",
     "simulate_fork_join",
     "simulate_fork_join_batch",
@@ -274,6 +283,11 @@ class SimResult:
     carried a `FaultSpec`: post-warmup queries re-routed off a down
     replica, queries with no surviving replica to route to, and k-of-p
     results cut short by the broker timeout.
+
+    ``timeline`` is the opt-in per-time-bin telemetry of
+    `repro_torch.obs.timeline`: None unless the run passed a
+    ``TelemetrySpec``.  Unlike every other field it counts warmup
+    queries too (transients are what it is for).
     """
 
     count: Tensor           # post-warmup samples per scenario
@@ -286,6 +300,7 @@ class SimResult:
     hist_log_lo: Tensor     # (...,) ln(lowest bin edge, seconds)
     hist_log_step: Tensor   # (...,) ln(bin edge ratio)
     tap_response: Tensor    # (..., tap_size) reservoir sample of responses
+    timeline: Optional[Timeline] = None       # per-bin telemetry (obs)
     replica_seconds: Optional[Tensor] = None  # integral of active r dt
     elapsed_seconds: Optional[Tensor] = None  # integral of dt (valid)
     spill_count: Optional[Tensor] = None      # failover-spilled queries
@@ -293,11 +308,14 @@ class SimResult:
     degraded_count: Optional[Tensor] = None   # k-of-p partial results
 
     def map(self, fn: Callable[[Tensor], Tensor]) -> "SimResult":
-        """A result with ``fn`` applied to every field that is set."""
-        return SimResult(**{
-            f.name: None if getattr(self, f.name) is None
-            else fn(getattr(self, f.name))
-            for f in dataclasses.fields(self)})
+        """A result with ``fn`` applied to every field that is set (and
+        to every field of the timeline)."""
+        def apply(x):
+            if x is None:
+                return None
+            return x.map(fn) if isinstance(x, Timeline) else fn(x)
+        return SimResult(**{f.name: apply(getattr(self, f.name))
+                            for f in dataclasses.fields(self)})
 
     @property
     def tap_size(self) -> int:
@@ -663,6 +681,7 @@ def _simulate_stream(
     replica_impl: str = "fused",
     autoscale: Optional[AutoscalePolicy] = None,
     fault: Optional[FaultSpec] = None,
+    telemetry: Optional[TelemetrySpec] = None,
 ) -> SimResult:
     """The chunked engine behind every entry point.
 
@@ -678,7 +697,8 @@ def _simulate_stream(
     carries and side streams only when present, so ``None`` runs the
     program without them op for op.  Each sub-feature of a `FaultSpec`
     gates its own ops, so an all-up spec keeps every branch (the fused
-    fast path included) of the fault-free program.  The chunk loop issues
+    fast path included) of the fault-free program.  ``telemetry`` adds
+    its tallies the same way, and draws nothing.  The chunk loop issues
     device work only: no host sync, no branch on a tensor value.
     """
     dtype = proc.rates.dtype
@@ -772,6 +792,32 @@ def _simulate_stream(
         # the profile's period; outages must not)
         f_tabs = zeros()
         s_spill, s_unav, s_degr = zeros(), zeros(), zeros()
+    if telemetry is not None:
+        tl_bins = telemetry.n_bins
+        if telemetry.horizon_seconds is not None:
+            tl_horizon = torch.full((n_scen,), telemetry.horizon_seconds,
+                                    dtype=dtype, device=device)
+        else:
+            tl_horizon = (n_queries / torch.clamp_min(
+                proc.mean_rate.to(dtype), 1e-30)).expand(n_scen)
+        tl_bin_w = tl_horizon / tl_bins
+        tl_edges = tl_bin_w[:, None] * torch.arange(
+            tl_bins, dtype=dtype, device=device)[None, :]       # (S, B)
+        tl_slo = (math.inf if telemetry.slo_seconds is None
+                  else telemetry.slo_seconds)
+        tl_keys = torch.arange(tl_bins * r + 1, device=device).expand(
+            n_scen, -1).contiguous()             # the run keys' edges
+        # the absolute clock the bins read (t_origin wraps with the
+        # profile's period; telemetry must not)
+        t_abs = zeros()
+        # the per-bin channels, stacked (S, k, B), and the busy ones, the
+        # broker's then the p servers' per (bin, replica) run
+        tl_chan = (["resp", "slo"] + ["hit"] * has_cache + ["act"] * elastic
+                   + (["up"] + ["spill"] * (f_outage and r > 1)
+                      + ["degr"] * f_quorum if faulty else []))
+        tm_count, tm_rc = zeros(tl_bins), zeros(tl_bins, r)
+        tm_chan = zeros(len(tl_chan), tl_bins)
+        tm_busy = zeros(p + 1, tl_bins * r)
 
     def quorum_join(completions: Tensor, fork_base: Tensor, dim: int):
         """Fork-join merge: full quorum, or k-of-p past the timeout.
@@ -854,6 +900,16 @@ def _simulate_stream(
             gaps_v = gaps * (gidx < n_queries).to(dtype)[None, :]
             rep_secs = rep_secs + torch.sum(n_act.to(dtype) * gaps_v, -1)
             elapsed = elapsed + torch.sum(gaps_v, -1)
+
+        if telemetry is not None:
+            # chunk-order captures BEFORE the branches below permute or
+            # rescale anything: arrival offsets and each query's
+            # EFFECTIVE demand (cache hits never reach broker or servers)
+            tm_arr = arrivals
+            tm_svc = services * miss_f[:, None, :] if has_cache else services
+            tm_brk = s_broker_c * miss_f if has_cache else s_broker_c
+            tm_hit_c = is_hit.to(dtype) if has_cache else None
+            tm_gidx = gidx
 
         degr = None
         spill_q = unav_q = None
@@ -1090,6 +1146,75 @@ def _simulate_stream(
             tap_pri = top.values[:, :tap_size]
             tap_val = torch.gather(cat_val, -1, top.indices[:, :tap_size])
 
+        if telemetry is not None:
+            # Timeline tallies (no random numbers).  Bin by arrival time
+            # on the absolute clock, warmup included, the padded tail
+            # excluded.  Arrivals are nondecreasing within a chunk, so a
+            # bin is a contiguous run of the chunk; with r > 1 a stable
+            # sort by (bin, replica) makes every (bin, replica) pair one
+            # run.  A channel's per-run sums are differences of one
+            # cumulative sum read at the run edges: an ordered reduction
+            # over (S, [p,] chunk), so the busy tally of the servers
+            # never builds the (S, r, p, chunk) product of the
+            # replica mask and the services.
+            t_arr = t_abs[:, None] + tm_arr                # (S, chunk)
+            t_bin = torch.clamp_min(torch.searchsorted(
+                tl_edges, t_arr, right=True) - 1, 0)
+            key = t_bin if r == 1 else t_bin * r + assign
+            # the padded tail (gidx >= n_queries) past every run
+            key = torch.where(tm_gidx < n_queries, key, tl_bins * r)
+            if r == 1:
+                tl_order = None                  # already sorted
+                key_s = key
+            else:
+                key_s, tl_order = torch.sort(key, dim=-1, stable=True)
+            pos = torch.searchsorted(key_s, tl_keys)          # (S, Br+1)
+            # the sort only permutes within a bin, so a bin's run has the
+            # same edges in chunk order: per-bin channels need no gather
+            pos_bin = pos[:, ::r]                               # (S, B+1)
+
+            tm_count = tm_count + (pos_bin[:, 1:]
+                                   - pos_bin[:, :-1]).to(dtype)
+            tm_rc = tm_rc + (pos[:, 1:] - pos[:, :-1]).to(dtype).view(
+                n_scen, tl_bins, r)
+            busy = torch.cat([tm_brk.expand(n_scen, chunk)[:, None],
+                              tm_svc.expand(n_scen, p, chunk)], 1)
+            if tl_order is not None:
+                busy = torch.gather(busy, -1, tl_order[:, None].expand(
+                    busy.shape))
+            tm_busy = tm_busy + segment_sums(busy, pos[:, None])
+            del busy            # S x p x chunk: not into the next chunk
+            # response-side channels live in the engine's layout: bring
+            # them back to chunk order through the inverse permutation
+            if perm is not None:
+                src = perm(col[None, :])
+                resp_c = torch.empty_like(response.expand(n_scen, chunk)
+                                          ).scatter_(-1, src, response)
+            else:
+                resp_c = response
+            chans = [resp_c, (resp_c > tl_slo).to(dtype)]
+            if has_cache:
+                chans.append(tm_hit_c)
+            if elastic:
+                chans.append(n_act.to(dtype))
+            if faulty:
+                # the up count and spills are in chunk order; the
+                # degraded flag rides the same inverse as the responses
+                chans.append(torch.sum(up_q.to(dtype), dim=-1) if f_outage
+                             else torch.full((n_scen, chunk), float(r),
+                                             dtype=dtype, device=device))
+                if f_outage and r > 1:
+                    chans.append(spill_q.to(dtype))
+                if f_quorum:
+                    dg = degr.to(dtype).expand(n_scen, chunk)
+                    if perm is not None:
+                        dg = torch.empty_like(dg).scatter_(-1, src, dg)
+                    chans.append(dg)
+            tm_chan = tm_chan + segment_sums(
+                torch.stack([c.expand(n_scen, chunk) for c in chans], 1),
+                pos_bin[:, None])
+            t_abs = t_abs + last_arrival
+
         shift = last_arrival
         c_brk = c_brk_new - shift[:, None]
         c_srv = c_srv_new - shift[:, None, None]
@@ -1114,6 +1239,18 @@ def _simulate_stream(
     if faulty:
         extra.update(spill_count=s_spill, unavail_count=s_unav,
                      degraded_count=s_degr)
+    if telemetry is not None:
+        ch = {k: v.contiguous() for k, v in zip(tl_chan, tm_chan.unbind(1))}
+        busy = tm_busy.view(n_scen, p + 1, tl_bins, r)
+        extra["timeline"] = Timeline(  # staticcheck: disable=RPR005  (the engine's own output)
+            bin_seconds=tl_bin_w, count=tm_count, resp_sum=ch["resp"],
+            busy_broker=busy[:, 0].contiguous(),
+            busy_server=busy[:, 1:].permute(0, 2, 3, 1).contiguous(),
+            replica_count=tm_rc, hit_count=ch.get("hit", zeros(tl_bins)),
+            slo_count=ch["slo"], active_sum=ch.get("act"),
+            up_sum=ch.get("up"),
+            spill_sum=ch.get("spill", zeros(tl_bins) if faulty else None),
+            degraded_sum=ch.get("degr", zeros(tl_bins) if faulty else None))
     return SimResult(
         count=count, sum_response=s_resp, sumsq_response=ss_resp,
         sum_broker=s_br, sum_cluster=s_cl, sum_server=s_sv,
@@ -1135,6 +1272,7 @@ def simulate_fork_join_batch(
     hist_bins: int = DEFAULT_HIST_BINS,
     tap_size: int = 0,
     cluster: Optional[ClusterSpec] = None,
+    telemetry: Optional[TelemetrySpec] = None,
     draws: Optional[Draws] = None,
     device: DeviceLike = DEFAULT_DEVICE,
     dtype: torch.dtype = torch.float32,
@@ -1150,7 +1288,9 @@ def simulate_fork_join_batch(
     per queue level.  ``tap_size > 0`` carries a reservoir sample of
     responses.  ``draws`` replaces the port's own RNG plan (see the
     module docstring); it is called with the chunk chosen here, after
-    the profile clamp.
+    the profile clamp.  ``telemetry=TelemetrySpec(...)`` streams the
+    per-time-bin `repro_torch.obs.timeline.Timeline` onto the result
+    (None, the default, is the program without it).
 
     Peak memory of the fused replicated engine is S x p x chunk values,
     independent of ``n_queries`` and of r; the carries grow with r, at
@@ -1199,7 +1339,8 @@ def simulate_fork_join_batch(
                             warmup_fraction, hist_bins, tap_size, r=r,
                             routing=spec.routing, cache=cache,
                             replica_impl=spec.replica_impl,
-                            autoscale=spec.autoscale, fault=spec.fault)
+                            autoscale=spec.autoscale, fault=spec.fault,
+                            telemetry=telemetry)
 
 
 def simulate_fork_join(
@@ -1216,6 +1357,7 @@ def simulate_fork_join(
     hist_bins: int = DEFAULT_HIST_BINS,
     tap_size: int = 0,
     cluster: Optional[ClusterSpec] = None,
+    telemetry: Optional[TelemetrySpec] = None,
     draws: Optional[Draws] = None,
     device: DeviceLike = DEFAULT_DEVICE,
     dtype: torch.dtype = torch.float32,
@@ -1232,16 +1374,17 @@ def simulate_fork_join(
     at each replica's broker, an autoscaler (the result gains
     ``replica_seconds`` / ``elapsed_seconds``) and injected faults (the
     result gains ``spill_count`` / ``unavail_count`` /
-    ``degraded_count``).  Streams through ``chunk_size`` query chunks; warmup queries
-    are discarded from the returned statistics, whose fields are 0-dim
-    (``tap_response`` is (tap_size,)).
+    ``degraded_count``).  ``telemetry=TelemetrySpec(...)`` adds the
+    per-time-bin ``timeline``.  Streams through ``chunk_size`` query
+    chunks; warmup queries are discarded from the returned statistics,
+    whose fields are 0-dim (``tap_response`` is (tap_size,)).
     """
     p = int(params.p) if p is None else p
     res = simulate_fork_join_batch(
         seed, lam, params, n_queries, p=p, mode=mode, impl=impl,
         warmup_fraction=warmup_fraction, chunk_size=chunk_size,
-        hist_bins=hist_bins, tap_size=tap_size, cluster=cluster, draws=draws,
-        device=device, dtype=dtype)
+        hist_bins=hist_bins, tap_size=tap_size, cluster=cluster,
+        telemetry=telemetry, draws=draws, device=device, dtype=dtype)
     return res.map(lambda x: x[0])
 
 

@@ -51,6 +51,7 @@ from repro_torch.core.cluster import ClusterSpec
 from repro_torch.core.faults import FaultSpec
 from repro_torch.core.queueing import ServerParams
 from repro_torch.launch.elastic import AutoscalePolicy
+from repro_torch.obs.timeline import TelemetrySpec, Timeline
 
 Tensor = torch.Tensor
 TensorLike = Union[Tensor, Sequence[float], float]
@@ -410,26 +411,38 @@ def _static_count(x: float, axis_name: str) -> int:
     return v
 
 
-def _stack(results: Sequence[simulator.SimResult], dim: int
-           ) -> simulator.SimResult:
-    """Stack every set tensor field of ``results`` along ``dim``."""
+def _stack(results: Sequence, dim: int):
+    """Stack every set tensor field of ``results`` (SimResults, or
+    Timelines) along ``dim``."""
+    cls = type(results[0])
+
     def field(name):
         vals = [getattr(res, name) for res in results]
-        return None if vals[0] is None else torch.stack(vals, dim=dim)
-    return simulator.SimResult(**{
-        f.name: field(f.name)
-        for f in dataclasses.fields(simulator.SimResult)})
+        if vals[0] is None:
+            return None
+        if isinstance(vals[0], Timeline):
+            return _stack(vals, dim)
+        return torch.stack(vals, dim=dim)
+    return cls(**{f.name: field(f.name) for f in dataclasses.fields(cls)})
 
 
-def _fill_fault_channels(res: simulator.SimResult) -> simulator.SimResult:
+def _fill_fault_channels(res: simulator.SimResult, r: int
+                         ) -> simulator.SimResult:
     """Zero fault channels for a fault axis's ``None`` baseline cell, so
     that its result stacks with the FaultSpec cells': nothing spilled,
-    unavailable or degraded."""
+    unavailable or degraded, and (with a timeline) every replica up for
+    every arrival."""
     if res.spill_count is not None:
         return res
     z = torch.zeros_like(res.count)
-    return dataclasses.replace(res, spill_count=z, unavail_count=z,
-                               degraded_count=z)
+    kw = dict(spill_count=z, unavail_count=z, degraded_count=z)
+    tl = res.timeline
+    if tl is not None and tl.up_sum is None:
+        kw["timeline"] = dataclasses.replace(
+            tl, up_sum=tl.count * float(r),
+            spill_sum=torch.zeros_like(tl.count),
+            degraded_sum=torch.zeros_like(tl.count))
+    return dataclasses.replace(res, **kw)
 
 
 def sweep_simulated(
@@ -446,7 +459,7 @@ def sweep_simulated(
     profile: Optional[TensorLike] = None,
     profile_bin_seconds: float = 3600.0,
     cluster: Optional[ClusterSpec] = None,
-    telemetry=None,
+    telemetry: Optional[TelemetrySpec] = None,
     mesh=None,
     draws: Optional[DispatchDraws] = None,
     dtype: torch.dtype = torch.float32,
@@ -491,11 +504,12 @@ def sweep_simulated(
     ``draws``, if given, maps k to that dispatch's per-chunk draws
     callable (the simulator's ``draws=``), or None for the port's own
     RNG; tests feed the reference's per-dispatch draws through it.
-    ``dtype`` is the simulation's float type.  ``telemetry`` and
-    ``mesh`` are not ported yet.
+    ``dtype`` is the simulation's float type.  ``telemetry`` streams
+    every cell's `repro_torch.obs.timeline.Timeline` onto
+    ``stats.timeline``, the grid's shape in front; on a policy axis every
+    policy needs the same ``max_r`` (the timelines stack a per-replica
+    axis).  ``mesh`` is not ported yet.
     """
-    if telemetry is not None:
-        raise _not_ported("sweep_simulated(telemetry=...)", 10)
     if mesh is not None:
         raise _not_ported("sweep_simulated(mesh=...)", 12)
     spec = ClusterSpec() if cluster is None else cluster
@@ -517,6 +531,13 @@ def sweep_simulated(
             "keep exactly one")
     cache = (spec.result_cache if spec.result_cache is not None
              else grid.result_cache)
+    if telemetry is not None and grid.autoscale is not None:
+        max_rs = {pol.max_r for pol in grid.autoscale}
+        if len(max_rs) > 1:
+            raise ValueError(
+                "telemetry timelines stack a per-replica axis across "
+                "policy cells, so every policy needs the same max_r; "
+                f"got {sorted(max_rs)}")
     shape = grid.shape
     dev = grid.device
     lam_full, params_full = grid.broadcast_full()
@@ -565,10 +586,11 @@ def sweep_simulated(
                 n_queries, p=p, mode=mode, impl=impl,
                 warmup_fraction=warmup_fraction, chunk_size=chunk_size,
                 hist_bins=hist_bins, tap_size=tap_size, cluster=cell,
+                telemetry=telemetry,
                 draws=None if draws is None else draws(k), device=dev,
                 dtype=dtype)
             if grid.fault is not None:
-                res = _fill_fault_channels(res)
+                res = _fill_fault_channels(res, cell.r)
             cfg_slabs.append(res.map(
                 lambda x: x.reshape(slab_shape + x.shape[1:])))
         # stack the replica / policy / fault axis behind (L,C,D,H) -> 4

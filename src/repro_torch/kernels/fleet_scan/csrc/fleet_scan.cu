@@ -58,6 +58,15 @@
 // spread it over 16), and a slab of several hundred scenarios puts
 // several pipelines on each SM to hide each other.
 //
+// Past 16 replicas, or 32 outage windows, the wide instance
+// (`kWide`, r <= 256): the same pipeline, the mask warp scanning the
+// r replicas' chains as ceil(r / 32) groups of 32-bit 2-state maps one
+// after another (each group's carry held in lane g), the tile warp
+// keeping a query's up bits as ceil(r / 32) words in shared memory and
+// reading the windows from a table in device memory (any number); the
+// up bytes leave as 4-byte words where r is a multiple of 4.  The
+// arithmetic of a step is the narrow instance's.
+//
 // Rounding: nvcc contracts a*b+c into an FMA by default, and the plain
 // loop rounds the product and the sum apart.  Every product, quotient
 // and sum of the recurrences is written with the _rn intrinsics (never
@@ -79,6 +88,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kTile = 32;        // queries a tile: one a lane
 constexpr int kMaxWindows = 32;  // outage windows a launch takes
 constexpr int kMaxReplicas = 16; // replicas: bits of a lane's words
+constexpr int kMaxGroups = 8;    // the wide instance: 32 replicas a group
 constexpr int kBatch = 16;       // chain steps run without a branch
 constexpr int kAhead = 2;        // tiles of inputs in flight ahead
 
@@ -351,6 +361,151 @@ struct TileWarp {
   }
 };
 
+// The wide instance's mask warp: the chain of the replicas 32 g .. 32 g
+// + 31, group after group; the carry of group g lives in lane g.  Lane t
+// loads its query's uniforms of a group (a strided row) and forms the
+// group's two 32-bit maps itself.
+template <typename T>
+struct MaskWarpWide {
+  const T *g_row, *u_row;
+  int64_t n;
+  int r, groups, lane;
+  unsigned chain;    // lane g: group g's packed state
+
+  // Tile `tile`'s chain states of group g into states[g * kTile + lane]
+  __device__ __forceinline__ void tile(const Params<T>& P, int64_t tile,
+                                       unsigned* states) {
+    const int64_t i = tile * kTile + lane;
+    const bool in = i < n;
+    T p_fail = T(0), p_fix = T(0);
+    if (in) {
+      const T gap = __ldcs(g_row + i);
+      p_fail = sub_rn(T(1), exp_(div_rn(-gap, P.mtbf)));
+      p_fix = sub_rn(T(1), exp_(div_rn(-gap, P.mttr)));
+    }
+#pragma unroll 1
+    for (int g = 0; g < groups; ++g) {
+      const int j0 = 32 * g;
+      const int width = r - j0 < 32 ? r - j0 : 32;
+      const unsigned gmask = width == 32 ? kFull : (1u << width) - 1u;
+      unsigned f1 = gmask, f0 = 0;   // past the end of the chunk the identity
+      if (in) {
+        const T* up = u_row + i * r + j0;
+        f1 = 0;
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          if (j < width) {
+            const T x = __ldcs(up + j);
+            f1 |= x >= p_fail ? 1u << j : 0u;
+            f0 |= x < p_fix ? 1u << j : 0u;
+          }
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < kTile; off <<= 1) {
+        const unsigned g0 = __shfl_up_sync(kFull, f0, off);
+        const unsigned g1 = __shfl_up_sync(kFull, f1, off);
+        if (lane >= off) {
+          const unsigned h0 = (g0 & f1) | (~g0 & f0);
+          const unsigned h1 = (g1 & f1) | (~g1 & f0);
+          f0 = h0;
+          f1 = h1;
+        }
+      }
+      const unsigned c = __shfl_sync(kFull, chain, g);
+      const unsigned state = ((c & f1) | (~c & f0)) & gmask;
+      const unsigned last = __shfl_sync(kFull, state, kTile - 1);
+      if (lane == g) chain = last;
+      states[g * kTile + lane] = state;
+    }
+  }
+};
+
+// The wide instance's tile warp: a query's up bits as `groups` words in
+// shared memory (`upw`, kMaxGroups x kTile), the windows from a table in
+// device memory, the up bytes, the controller's operands.
+template <typename T>
+struct TileWarpWide {
+  const T *g_row, *t_row, *d_row, *f_row;
+  const int* w_rep;
+  const T *w_start, *w_end;
+  bool* up_row;      // the scenario's up bytes, null without a mask
+  unsigned* upw;
+  int64_t n, n_valid;
+  int r, groups, lane;
+  bool up_words;     // 4-byte stores of four up bytes
+
+  __device__ __forceinline__ void tile(const Params<T>& P, int64_t tile,
+                                       const unsigned* states,
+                                       Step<T>* steps) {
+    const int64_t base = tile * kTile;
+    const int64_t i = base + lane;
+    const bool in = i < n;
+    const int cols = static_cast<int>(n - base < kTile ? n - base : kTile);
+    T gap = T(0), tq = T(0), dem = T(0), uf = T(0);
+    if (in) {
+      gap = __ldcs(g_row + i);
+      if (t_row) tq = __ldcs(t_row + i);
+      if (d_row) dem = __ldcs(d_row + i);
+      if (f_row) uf = __ldcs(f_row + i);
+    }
+    int count = 0;
+#pragma unroll 1
+    for (int g = 0; g < groups; ++g) {
+      const int width = r - 32 * g < 32 ? r - 32 * g : 32;
+      const unsigned gmask = width == 32 ? kFull : (1u << width) - 1u;
+      upw[g * kTile + lane] = states ? states[g * kTile + lane] : gmask;
+    }
+    if (P.windows > 0 && in) {
+#pragma unroll 1
+      for (int w = 0; w < P.windows; ++w) {
+        if (tq >= __ldg(w_start + w) && tq < __ldg(w_end + w)) {
+          const int k = __ldg(w_rep + w);
+          upw[(k >> 5) * kTile + lane] &= ~(1u << (k & 31));
+        }
+      }
+    }
+#pragma unroll 1
+    for (int g = 0; g < groups; ++g) count += __popc(upw[g * kTile + lane]);
+    if (up_row) {
+      __syncwarp();
+      bool* out = up_row + base * r;
+      const int bytes = cols * r;
+      if (up_words) {
+        // byte k is query k / r's replica k % r; four bytes from one word
+        for (int k = 4 * lane; k < bytes; k += 4 * kTile) {
+          const int q = k / r;
+          const int j = k - q * r;
+          const unsigned b4 = (upw[(j >> 5) * kTile + q] >> (j & 31)) & 0xfu;
+          *reinterpret_cast<uint32_t*>(out + k) =
+              (b4 * 0x00204081u) & 0x01010101u;
+        }
+      } else {
+        for (int k = lane; k < bytes; k += kTile) {
+          const int q = k / r;
+          const int j = k - q * r;
+          out[k] = (upw[(j >> 5) * kTile + q] >> (j & 31)) & 1u;
+        }
+      }
+      __syncwarp();   // every lane done with upw before the next tile
+    }
+    if (steps) {
+      const bool valid = i < n_valid;
+      Step<T> st;
+      st.gv = valid ? gap : T(0);
+      st.dv = valid ? dem : T(0);
+      st.upf = T(1);
+      st.q = st.dv;
+      if (P.upf_mode != 0) {
+        const T upf = P.upf_mode == 1 ? div_rn(T(count), T(r)) : uf;
+        st.upf = tmax(upf, P.floor_upf);
+        st.q = div_rn(st.dv, st.upf);
+      }
+      steps[lane] = st;
+    }
+  }
+};
+
 // The chain warp: the controller's state, in every lane alike
 template <typename T>
 struct ChainWarp {
@@ -457,8 +612,9 @@ struct ChainWarp {
 // (1) and the chain warp (2, with a policy).  In round j the mask warp
 // runs tile j's chain, the tile warp finishes tile j - 1, the chain warp
 // runs tile j - 2's controller steps; two-slot rings in shared memory
-// hand tiles on, one __syncthreads() a round.
-template <typename T, bool kUpf>
+// hand tiles on, one __syncthreads() a round.  `kWide`: the wide
+// instance's mask and tile warps, and the window table.
+template <typename T, bool kUpf, bool kWide>
 __global__ void __launch_bounds__(3 * kTile)
 fleet_scan_kernel(const __grid_constant__ Params<T> P,
                   const T* __restrict__ gaps,
@@ -472,16 +628,19 @@ fleet_scan_kernel(const __grid_constant__ Params<T> P,
                   int* __restrict__ n_act, int* __restrict__ chain_out,
                   int* __restrict__ n_out, T* __restrict__ te_out,
                   T* __restrict__ we_out, int* __restrict__ stab_out,
-                  T* __restrict__ bk_out, int64_t n, int r,
+                  T* __restrict__ bk_out, const int* __restrict__ w_rep,
+                  const T* __restrict__ w_start,
+                  const T* __restrict__ w_end, int64_t n, int r,
                   int64_t n_valid) {
-  __shared__ unsigned states[2][kTile];
+  constexpr int kGroups = kWide ? kMaxGroups : 1;
+  __shared__ unsigned states[2][kGroups * kTile];
   __shared__ Step<T> steps[2][kTile];
   const int64_t s = blockIdx.x;
   const int lane = threadIdx.x & (kTile - 1);
   const int role = threadIdx.x / kTile;
   const int64_t tiles = (n + kTile - 1) / kTile;
   const int64_t rounds = tiles + (P.policy_on ? 2 : 1);
-  const unsigned rmask = (1u << r) - 1u;
+  const unsigned rmask = r < 32 ? (1u << r) - 1u : kFull;
 
   if (role == 2) {                       // the chain warp
     ChainWarp<T> c;
@@ -510,6 +669,71 @@ fleet_scan_kernel(const __grid_constant__ Params<T> P,
       bk_out[s] = c.bk;
     }
     return;
+  }
+
+  if constexpr (kWide) {
+    if (role == 1) {                       // the wide tile warp
+      __shared__ unsigned upw[kGroups * kTile];
+      TileWarpWide<T> w;
+      w.g_row = gaps + s * n;
+      w.t_row = P.windows > 0 ? t_arr + s * n : nullptr;
+      w.d_row = P.policy_on ? demand + s * n : nullptr;
+      w.f_row = P.upf_mode == 2 ? upf_in + s * n : nullptr;
+      w.w_rep = w_rep;
+      w.w_start = w_start;
+      w.w_end = w_end;
+      w.up_row = (P.windows > 0 || P.mtbf_on) ? up_out + s * n * r : nullptr;
+      w.upw = upw;
+      w.n = n;
+      w.n_valid = n_valid;
+      w.r = r;
+      w.groups = (r + 31) / 32;
+      w.lane = lane;
+      w.up_words =
+          r % 4 == 0 && (reinterpret_cast<uintptr_t>(up_out) & 3u) == 0;
+      for (int64_t j = 0; j < rounds; ++j) {
+        const int64_t k = j - 1;
+        if (k >= 0 && k < tiles)
+          w.tile(P, k, P.mtbf_on ? states[k & 1] : nullptr,
+                 P.policy_on ? steps[k & 1] : nullptr);
+        __syncthreads();
+      }
+      return;
+    }
+
+    {                                      // the wide mask warp
+      MaskWarpWide<T> m;
+      m.g_row = gaps + s * n;
+      m.u_row = P.mtbf_on ? u + s * n * r : nullptr;
+      m.n = n;
+      m.r = r;
+      m.groups = (r + 31) / 32;
+      m.lane = lane;
+      m.chain = 0;
+      if (P.mtbf_on) {
+        for (int g = 0; g < m.groups; ++g) {
+          const int k = 32 * g + lane;
+          const unsigned b =
+              __ballot_sync(kFull, k < r && chain_in[s * r + k] > 0);
+          if (lane == g) m.chain = b;
+        }
+      }
+      for (int64_t j = 0; j < rounds; ++j) {
+        if (P.mtbf_on && j < tiles) m.tile(P, j, states[j & 1]);
+        __syncthreads();
+      }
+      if (P.mtbf_on) {
+        for (int g = 0; g < m.groups; ++g) {
+          const int k = 32 * g + lane;
+          const unsigned c = __shfl_sync(kFull, m.chain, g);
+          if (k < r)
+            chain_out[s * r + k] = tiles > 0
+                                       ? static_cast<int>((c >> lane) & 1u)
+                                       : chain_in[s * r + k];
+        }
+      }
+      return;
+    }
   }
 
   if (role == 1) {                       // the tile warp
@@ -570,7 +794,10 @@ fleet_scan_kernel(const __grid_constant__ Params<T> P,
 // iargs: windows, mtbf_on, policy_on, upf_mode, p, lo, hi, step_up,
 // step_down, stab_n, trigger_on, then the windows' replicas;
 // fargs: mtbf, mttr, target, interval, trigger, then the windows' starts,
-// then their ends.  Both in host memory.
+// then their ends.  Both in host memory.  The wide instance (r > 16 or
+// more than kMaxWindows windows) reads the windows from the table
+// w_rep / w_start / w_end in device memory (the same values, the bounds
+// rounded to T), which the narrow one does not take.
 constexpr int kIargs = 11;
 constexpr int kFargs = 5;
 
@@ -580,9 +807,10 @@ int launch(const void* gaps, const void* t_arr, const void* u,
            const void* n_in, const void* te_in, const void* we_in,
            const void* stab_in, const void* bk_in, void* up_out, void* n_act,
            void* chain_out, void* n_out, void* te_out, void* we_out,
-           void* stab_out, void* bk_out, int64_t scenarios, int64_t n,
-           int64_t r, int64_t n_valid, const int64_t* iargs, int64_t n_i,
-           const double* fargs, int64_t n_f, void* stream) {
+           void* stab_out, void* bk_out, const void* w_rep,
+           const void* w_start, const void* w_end, int64_t scenarios,
+           int64_t n, int64_t r, int64_t n_valid, const int64_t* iargs,
+           int64_t n_i, const double* fargs, int64_t n_f, void* stream) {
   if (n_i < kIargs || n_f < kFargs) return cudaErrorInvalidValue;
   Params<T> P{};
   P.windows = static_cast<int>(iargs[0]);
@@ -596,10 +824,12 @@ int launch(const void* gaps, const void* t_arr, const void* u,
   P.step_down = static_cast<int>(iargs[8]);
   P.stab_n = static_cast<int>(iargs[9]);
   P.trigger_on = static_cast<int>(iargs[10]);
-  if (P.windows < 0 || P.windows > kMaxWindows ||
-      n_i != kIargs + P.windows || n_f != kFargs + 2 * P.windows || r < 1 ||
-      r > kMaxReplicas || (P.policy_on && P.hi < 1) ||
-      (P.upf_mode == 1 && !(P.windows > 0 || P.mtbf_on)))
+  const bool wide = r > kMaxReplicas || P.windows > kMaxWindows;
+  if (P.windows < 0 || n_i != kIargs + P.windows ||
+      n_f != kFargs + 2 * P.windows || r < 1 || r > 32 * kMaxGroups ||
+      (P.policy_on && P.hi < 1) ||
+      (P.upf_mode == 1 && !(P.windows > 0 || P.mtbf_on)) ||
+      (wide && P.windows > 0 && !(w_rep && w_start && w_end)))
     return cudaErrorInvalidValue;
   P.mtbf = static_cast<T>(fargs[0]);
   P.mttr = static_cast<T>(fargs[1]);
@@ -610,18 +840,23 @@ int launch(const void* gaps, const void* t_arr, const void* u,
   P.hi_f = static_cast<T>(P.hi);
   P.floor_upf = static_cast<T>(P.hi >= 1 ? 1.0 / P.hi : 1.0);
   for (int w = 0; w < P.windows; ++w) {
-    P.rep[w] = static_cast<int>(iargs[kIargs + w]);
-    if (P.rep[w] < 0 || P.rep[w] >= r) return cudaErrorInvalidValue;
-    P.start[w] = static_cast<T>(fargs[kFargs + w]);
-    P.end[w] = static_cast<T>(fargs[kFargs + P.windows + w]);
+    const int64_t rep = iargs[kIargs + w];
+    if (rep < 0 || rep >= r) return cudaErrorInvalidValue;
+    if (w < kMaxWindows) {
+      P.rep[w] = static_cast<int>(rep);
+      P.start[w] = static_cast<T>(fargs[kFargs + w]);
+      P.end[w] = static_cast<T>(fargs[kFargs + P.windows + w]);
+    }
   }
   if (scenarios == 0) return 0;
   if (scenarios > 0x7fffffff) return cudaErrorInvalidValue;
   const int threads = P.policy_on ? 3 * kTile : 2 * kTile;
   const dim3 grid(static_cast<unsigned>(scenarios));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto kernel = P.upf_mode != 0 ? fleet_scan_kernel<T, true>
-                                : fleet_scan_kernel<T, false>;
+  auto kernel = wide ? (P.upf_mode != 0 ? fleet_scan_kernel<T, true, true>
+                                        : fleet_scan_kernel<T, false, true>)
+                     : (P.upf_mode != 0 ? fleet_scan_kernel<T, true, false>
+                                        : fleet_scan_kernel<T, false, false>);
   kernel<<<grid, threads, 0, st>>>(
       P, static_cast<const T*>(gaps), static_cast<const T*>(t_arr),
       static_cast<const T*>(u), static_cast<const T*>(demand),
@@ -632,7 +867,9 @@ int launch(const void* gaps, const void* t_arr, const void* u,
       static_cast<int*>(n_act), static_cast<int*>(chain_out),
       static_cast<int*>(n_out), static_cast<T*>(te_out),
       static_cast<T*>(we_out), static_cast<int*>(stab_out),
-      static_cast<T*>(bk_out), n, static_cast<int>(r), n_valid);
+      static_cast<T*>(bk_out), static_cast<const int*>(w_rep),
+      static_cast<const T*>(w_start), static_cast<const T*>(w_end), n,
+      static_cast<int>(r), n_valid);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -646,13 +883,15 @@ extern "C" int fleet_scan_f32(
     const void* te_in, const void* we_in, const void* stab_in,
     const void* bk_in, void* up_out, void* n_act, void* chain_out,
     void* n_out, void* te_out, void* we_out, void* stab_out, void* bk_out,
+    const void* w_rep, const void* w_start, const void* w_end,
     int64_t scenarios, int64_t n, int64_t r, int64_t n_valid,
     const int64_t* iargs, int64_t n_i, const double* fargs, int64_t n_f,
     void* stream) {
   return launch<float>(gaps, t_arr, u, demand, upf_in, chain_in, n_in, te_in,
                        we_in, stab_in, bk_in, up_out, n_act, chain_out, n_out,
-                       te_out, we_out, stab_out, bk_out, scenarios, n, r,
-                       n_valid, iargs, n_i, fargs, n_f, stream);
+                       te_out, we_out, stab_out, bk_out, w_rep, w_start,
+                       w_end, scenarios, n, r, n_valid, iargs, n_i, fargs,
+                       n_f, stream);
 }
 
 extern "C" int fleet_scan_f64(
@@ -661,12 +900,13 @@ extern "C" int fleet_scan_f64(
     const void* te_in, const void* we_in, const void* stab_in,
     const void* bk_in, void* up_out, void* n_act, void* chain_out,
     void* n_out, void* te_out, void* we_out, void* stab_out, void* bk_out,
+    const void* w_rep, const void* w_start, const void* w_end,
     int64_t scenarios, int64_t n, int64_t r, int64_t n_valid,
     const int64_t* iargs, int64_t n_i, const double* fargs, int64_t n_f,
     void* stream) {
   return launch<double>(gaps, t_arr, u, demand, upf_in, chain_in, n_in,
                         te_in, we_in, stab_in, bk_in, up_out, n_act,
                         chain_out, n_out, te_out, we_out, stab_out, bk_out,
-                        scenarios, n, r, n_valid, iargs, n_i, fargs, n_f,
-                        stream);
+                        w_rep, w_start, w_end, scenarios, n, r, n_valid,
+                        iargs, n_i, fargs, n_f, stream);
 }

@@ -5,14 +5,17 @@ autoscaler recurrences (`repro.core.faults.fault_scan`,
 `repro.launch.elastic.autoscale_scan`, both `lax.scan`s; no Pallas
 kernel) as one launch per chunk: a block a scenario, three warps in a
 pipeline over tiles of 32 queries (the MTBF/MTTR chain; the windows, up
-bytes and the controller's operands; the controller's serial step).  It
-is built by `repro_torch.kernels._cuda.CudaLibrary` at first
-use.  ``launches`` counts the launches this process made.
+bytes and the controller's operands; the controller's serial step).
+Past 16 replicas or 32 outage windows the wide instance runs (r <= 256,
+the windows from a table in device memory).  It is built by
+`repro_torch.kernels._cuda.CudaLibrary` at first use.  ``launches``
+counts the launches this process made.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import pathlib
 from typing import Any, Optional
 
@@ -27,14 +30,15 @@ _I = ctypes.c_int64
 
 LIB = CudaLibrary(
     pathlib.Path(__file__).resolve().parent / "csrc" / "fleet_scan.cu",
-    {name: [_P] * 19 + [_I] * 4
+    {name: [_P] * 22 + [_I] * 4
      + [ctypes.POINTER(_I), _I, ctypes.POINTER(ctypes.c_double), _I, _P]
      for name in ("fleet_scan_f32", "fleet_scan_f64")})
-MAX_REPLICAS = 16       # kMaxReplicas: lanes of a warp that carry a replica
-MAX_WINDOWS = 32        # kMaxWindows: outage windows a launch takes
+MAX_REPLICAS = 256      # the wide instance: kMaxGroups groups of 32
+NARROW_REPLICAS = 16    # kMaxReplicas: bits of the narrow instance's words
+NARROW_WINDOWS = 32     # kMaxWindows: windows the narrow instance holds
 
-__all__ = ["LIB", "MAX_REPLICAS", "MAX_WINDOWS", "fleet_args",
-           "fleet_scan_cuda"]
+__all__ = ["LIB", "MAX_REPLICAS", "NARROW_REPLICAS", "NARROW_WINDOWS",
+           "fleet_args", "fleet_scan_cuda", "is_wide", "window_table"]
 
 launches = 0          # kernel launches in this process
 
@@ -50,10 +54,8 @@ def fleet_args(windows: tuple, mtbf: Optional[float], mttr: float,
     count, 2 an input), p, min_r, max_r, up step, down step,
     stabilization intervals, trigger_on, then each window's replica;
     fargs: MTBF, MTTR, target, interval, trigger, then the windows'
-    starts, then their ends."""
-    if len(windows) > MAX_WINDOWS:
-        raise ValueError(f"the CUDA fleet scan takes up to {MAX_WINDOWS} "
-                         f"outage windows; got {len(windows)}")
+    starts, then their ends.  Any number of windows: past NARROW_WINDOWS
+    the wide instance reads them from `window_table`."""
     pol = policy
     trigger = None if pol is None else pol.queue_trigger_seconds
     iargs = [len(windows), int(mtbf is not None), int(pol is not None),
@@ -71,6 +73,23 @@ def fleet_args(windows: tuple, mtbf: Optional[float], mttr: float,
     fargs += [float(s) for _, s, _ in windows]
     fargs += [float(e) for _, _, e in windows]
     return iargs, fargs
+
+
+def is_wide(r: int, n_windows: int) -> bool:
+    """Whether (r, windows) takes the wide instance."""
+    return r > NARROW_REPLICAS or n_windows > NARROW_WINDOWS
+
+
+@functools.lru_cache(maxsize=64)
+def window_table(windows: tuple, dtype: torch.dtype, device: torch.device
+                 ) -> tuple[Tensor, Tensor, Tensor]:
+    """The wide instance's windows in device memory: (replica int32,
+    start, end), the bounds rounded to ``dtype`` as the plain loop's
+    comparisons round them.  Made once a spec, not once a chunk."""
+    reps = torch.tensor([int(i) for i, _, _ in windows], dtype=torch.int32)
+    starts = torch.tensor([float(a) for _, a, _ in windows], dtype=dtype)
+    ends = torch.tensor([float(b) for _, _, b in windows], dtype=dtype)
+    return tuple(t.to(device) for t in (reps, starts, ends))
 
 
 def fleet_scan_cuda(gaps: Tensor, *, n_valid: int, t_arr: Optional[Tensor],
@@ -121,7 +140,8 @@ def fleet_scan_cuda(gaps: Tensor, *, n_valid: int, t_arr: Optional[Tensor],
                         "and its integer carries are int32")
     if not 1 <= r <= MAX_REPLICAS:
         raise ValueError(f"the CUDA fleet scan takes 1..{MAX_REPLICAS} "
-                         f"replicas; got r={r}")
+                         f"replicas (kMaxGroups groups of 32 up bits); "
+                         f"got r={r}")
     n_scen, n = gaps.shape
     shapes = {"t_arr": (n_scen, n), "u": (n_scen, n, r),
               "demand": (n_scen, n), "up_frac": (n_scen, n),
@@ -145,6 +165,8 @@ def fleet_scan_cuda(gaps: Tensor, *, n_valid: int, t_arr: Optional[Tensor],
         new_as = tuple(torch.empty_like(t) for t in as_state)
     if mtbf is not None:
         chain_out = torch.empty_like(up_state)
+    table = ((None,) * 3 if not (windows and is_wide(r, len(windows)))
+             else window_table(windows, gaps.dtype, dev))
     c_as = (None,) * 5 if policy is None else as_state
     o_as = (None,) * 5 if new_as is None else new_as
     LIB.call(f"fleet_scan_{_SUFFIX[gaps.dtype]}", dev, ptr(gaps),
@@ -153,7 +175,8 @@ def fleet_scan_cuda(gaps: Tensor, *, n_valid: int, t_arr: Optional[Tensor],
              ptr(demand if policy is not None else None), ptr(up_frac),
              ptr(up_state if mtbf is not None else None),
              *(ptr(t) for t in c_as), ptr(up), ptr(n_act), ptr(chain_out),
-             *(ptr(t) for t in o_as), n_scen, n, r, int(n_valid),
+             *(ptr(t) for t in o_as), *(ptr(t) for t in table), n_scen, n,
+             r, int(n_valid),
              (_I * len(iargs))(*iargs), len(iargs),
              (ctypes.c_double * len(fargs))(*fargs), len(fargs))
     launches += 1

@@ -59,6 +59,20 @@
 // down and moves is a `spill`.  Both masks are staged with the tile, off
 // the chain.
 //
+// Past 16 replicas (`jsq_wide_kernel`, r <= 256): a lane can no longer
+// carry every replica's maximum.  Lane l carries those of replicas l,
+// l + 32, ... (RPL = ceil(r / 32) of them), drains them, takes a
+// lane-local argmin and then a 5-step xor-shuffle argmin over (value,
+// index), first index on ties; the tracker (r, p) lies in shared memory,
+// lane l the servers l, l + 32, ... of every replica.  Only the chosen
+// replica's maximum after the deposit is computed (one warp max), and the
+// drain of the tracker skips the replicas whose carried maximum is 0
+// before the step (a ballot a group of 32): every server of such a
+// replica is 0 already, and draining leaves it so; kDrain busy
+// replicas' servers are loaded before any is stored back.  The up mask is
+// ceil(r / 32) int32 words a query (word q, bit b: replica 32 q + b).
+// The same products, sums and drains in the same order: the same bits.
+//
 // Plain C interface (bound with ctypes): each entry point returns
 // cudaGetLastError() after the launch.
 
@@ -465,9 +479,216 @@ jsq_smem_kernel(const T* __restrict__ w_in, const T* __restrict__ gaps,
   for (int i = lane; i < rp; i += 32) w_out[s * rp + i] = ws[i];
 }
 
+// The wide instance (r > 16): lane l carries the maxima of replicas
+// l + 32 q, q < rpl (kMaxRpl = 8: r <= 256); the tracker (r, p) in
+// shared memory.  MASKED stages an active count and `rpl` words of up
+// bits a query with each tile.
+constexpr int kMaxRpl = 8;
+constexpr int kDrain = 4;     // busy replicas drained at a time
+
+// The (value, index) argmin over the warp, first index on ties; every
+// lane returns the winner's index
+template <typename T>
+__device__ __forceinline__ int warp_argmin(T v, int i) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const T ov = __shfl_xor_sync(kFull, v, off);
+    const int oi = __shfl_xor_sync(kFull, i, off);
+    if (ov < v || (ov == v && oi < i)) {
+      v = ov;
+      i = oi;
+    }
+  }
+  return i;
+}
+
+// The lane-local argmin over the replicas a lane carries (ascending
+// indices: strict less keeps the first), then the warp's
+template <typename T>
+__device__ __forceinline__ int wide_argmin(const T (&d)[kMaxRpl], int rpl,
+                                           int lane) {
+  T v = d[0];
+  int idx = lane;
+#pragma unroll
+  for (int q = 1; q < kMaxRpl; ++q)
+    if (q < rpl && d[q] < v) {
+      v = d[q];
+      idx = lane + 32 * q;
+    }
+  return warp_argmin(v, idx);
+}
+
+// Queue the copies of a tile's masks: the active counts (`tile` ints),
+// then `words` up words a query (`tile * words` ints)
+__device__ __forceinline__ void stage_masks_wide(int* buf, const int* a_row,
+                                                 const int* b_row,
+                                                 int64_t n, int64_t base,
+                                                 int tile, int words,
+                                                 int lane) {
+  const int64_t left = n - base;
+  const int cols = left < tile ? static_cast<int>(left) : tile;
+  for (int c = lane; c < cols; c += 32)
+    __pipeline_memcpy_async(&buf[c], &a_row[base + c], sizeof(int));
+  for (int c = lane; c < cols * words; c += 32)
+    __pipeline_memcpy_async(&buf[tile + c], &b_row[base * words + c],
+                            sizeof(int));
+}
+
+template <typename T, bool MASKED>
+__global__ void __launch_bounds__(32)
+jsq_wide_kernel(const T* __restrict__ w_in, const T* __restrict__ gaps,
+                const T* __restrict__ services, const T* __restrict__ live,
+                const int* __restrict__ n_act,
+                const int* __restrict__ up_bits, int64_t* __restrict__ choice,
+                T* __restrict__ w_out, bool* __restrict__ spill,
+                bool* __restrict__ unavail, int r, int p, int64_t n,
+                int tile) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int64_t s = blockIdx.x;
+  const int lane = threadIdx.x;
+  const int stride = tile + 1;
+  const int buf_len = (p + 2) * stride;
+  const int rp = r * p;
+  const int rpl = (r + 31) / 32;            // replicas a lane carries
+  const int mlen = tile * (1 + rpl);        // a tile's mask ints
+  T* ws = reinterpret_cast<T*>(smem);       // (r, p)
+  T* bufs = ws + rp;                        // 2 x (p + 2, tile + 1)
+  int* mbufs = reinterpret_cast<int*>(bufs + 2 * buf_len);  // MASKED
+  const T* g_row = gaps + s * n;
+  const T* l_row = live + s * n;
+  const T* s_rows = services + s * static_cast<int64_t>(p) * n;
+  int64_t* c_row = choice + s * n;
+  const int* a_row = MASKED ? n_act + s * n : nullptr;
+  const int* b_row = MASKED ? up_bits + s * n * rpl : nullptr;
+
+  // the tracker clamped at 0 as it lands: the first drain clamps it
+  // anyway, and the skip of idle replicas needs no negative server
+  for (int i = lane; i < rp; i += 32) ws[i] = max0(w_in[s * rp + i]);
+  __syncwarp();
+  T m[kMaxRpl];
+#pragma unroll
+  for (int q = 0; q < kMaxRpl; ++q) {
+    const int k = lane + 32 * q;
+    T loc = -INFINITY;
+    if (q < rpl && k < r)
+      for (int j = 0; j < p; ++j) loc = tmax(loc, ws[k * p + j]);
+    m[q] = (q < rpl && k < r) ? loc : T(INFINITY);
+  }
+
+  if constexpr (MASKED)
+    stage_masks_wide(mbufs, a_row, b_row, n, 0, tile, rpl, lane);
+  stage(bufs, s_rows, g_row, l_row, p, n, 0, tile, lane);
+  for (int64_t base = 0, it = 0; base < n; base += tile, ++it) {
+    const int cols = static_cast<int>(n - base < tile ? n - base : tile);
+    const T* cur = bufs + (it & 1) * buf_len;
+    const int* mcur = mbufs + (it & 1) * mlen;
+    if constexpr (MASKED)
+      stage_masks_wide(mbufs + ((it + 1) & 1) * mlen, a_row, b_row, n,
+                       base + tile, tile, rpl, lane);
+    stage(bufs + ((it + 1) & 1) * buf_len, s_rows, g_row, l_row, p, n,
+          base + tile, tile, lane);
+    __pipeline_wait_prior(1);
+    __syncwarp();
+    const T* cg = cur + p * stride;
+    const T* cl = cg + stride;
+    for (int t = 0; t < cols; ++t) {
+      const T gap = cg[t];
+      const T lv = cl[t];
+      // the replicas with work before the drain: a ballot a group
+      unsigned busy[kMaxRpl];
+      T d[kMaxRpl];
+#pragma unroll
+      for (int q = 0; q < kMaxRpl; ++q) {
+        busy[q] = __ballot_sync(kFull, q < rpl && lane + 32 * q < r &&
+                                           m[q] > T(0));
+        d[q] = max0(m[q] - gap);
+      }
+      // drain the tracker of every busy replica (an idle one is all 0),
+      // kDrain replicas x 4 servers a lane at a time: every load before
+      // any store, so that the loads are in flight together
+#pragma unroll
+      for (int q = 0; q < kMaxRpl; ++q) {
+        for (unsigned b = busy[q]; b != 0u;) {
+          int rows[kDrain];
+#pragma unroll
+          for (int u = 0; u < kDrain; ++u) {
+            rows[u] = b != 0u ? (32 * q + __ffs(b) - 1) * p : -1;
+            b &= b - 1u;
+          }
+          for (int j0 = lane; j0 < p; j0 += 128) {
+            T v[kDrain][4];
+#pragma unroll
+            for (int u = 0; u < kDrain; ++u)
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                v[u][c] = rows[u] >= 0 && j0 + 32 * c < p
+                              ? ws[rows[u] + j0 + 32 * c]
+                              : T(0);
+#pragma unroll
+            for (int u = 0; u < kDrain; ++u)
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                if (rows[u] >= 0 && j0 + 32 * c < p)
+                  ws[rows[u] + j0 + 32 * c] = max0(v[u][c] - gap);
+          }
+        }
+      }
+      int best;
+      int flags = 0;
+      if constexpr (MASKED) {
+        const int act = mcur[t];
+        const int* words = mcur + tile + t * rpl;
+        T da[kMaxRpl], du[kMaxRpl];
+        bool mine_up = false;
+#pragma unroll
+        for (int q = 0; q < kMaxRpl; ++q) {
+          const int k = lane + 32 * q;
+          const bool a = q < rpl && k < act;
+          const bool u = a && ((words[q < rpl ? q : 0] >> lane) & 1);
+          da[q] = a ? d[q] : T(INFINITY);
+          du[q] = u ? d[q] : T(INFINITY);
+          mine_up |= u;
+        }
+        const int raw = wide_argmin(da, rpl, lane);
+        const bool any_up = __any_sync(kFull, mine_up);
+        best = any_up ? wide_argmin(du, rpl, lane) : raw;
+        const bool raw_up = (words[raw >> 5] >> (raw & 31)) & 1;
+        flags = (static_cast<int>(any_up && !raw_up) << 8) |
+                (static_cast<int>(!any_up) << 9);
+      } else {
+        best = wide_argmin(d, rpl, lane);
+      }
+      // the deposit on the chosen replica, and its new maximum
+      T* wb = ws + best * p;
+      T loc = -INFINITY;
+      for (int j = lane; j < p; j += 32) {
+        const T v = add_rn(wb[j], mul_rn(lv, cur[j * stride + t]));
+        wb[j] = v;
+        loc = tmax(loc, v);
+      }
+      __syncwarp();
+      const T mx = warp_max(loc);
+#pragma unroll
+      for (int q = 0; q < kMaxRpl; ++q)
+        m[q] = lane + 32 * q == best ? mx : d[q];
+      if (lane == 0) {
+        c_row[base + t] = best;
+        if constexpr (MASKED) {
+          spill[s * n + base + t] = (flags >> 8) & 1;
+          unavail[s * n + base + t] = (flags >> 9) & 1;
+        }
+      }
+    }
+    __syncwarp();
+  }
+  __pipeline_wait_prior(0);
+  __syncwarp();
+  for (int i = lane; i < rp; i += 32) w_out[s * rp + i] = ws[i];
+}
+
 // The launch plan (kernels/jsq_route/kernel.py `JsqPlan.args`): variant
-// (0 registers, 1 shared), KC, PER, tile, shared bytes, masked (0 / 1).
-// A block is one warp, one scenario.
+// (0 registers, 1 shared, 2 wide), KC, PER, tile, shared bytes, masked
+// (0 / 1).  A block is one warp, one scenario.
 constexpr int kPlanLen = 6;
 
 template <typename Kernel>
@@ -572,12 +793,36 @@ int launch_masked(const Args& a, int64_t scenarios, int64_t r, int64_t p,
   }
 }
 
+template <typename T, bool MASKED>
+int launch_wide(const Args& a, int64_t scenarios, int64_t r, int64_t p,
+                int64_t n, const int64_t* plan, void* stream) {
+  if (r > 32 * kMaxRpl) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = set_smem(jsq_wide_kernel<T, MASKED>, plan[4]);
+  if (err != 0) return err;
+  jsq_wide_kernel<T, MASKED><<<dim3(static_cast<unsigned>(scenarios)), 32,
+                               plan[4], static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(a.w_in), static_cast<const T*>(a.gaps),
+      static_cast<const T*>(a.services), static_cast<const T*>(a.live),
+      static_cast<const int*>(a.n_act), static_cast<const int*>(a.up_bits),
+      static_cast<int64_t*>(a.choice), static_cast<T*>(a.w_out),
+      static_cast<bool*>(a.spill), static_cast<bool*>(a.unavail),
+      static_cast<int>(r), static_cast<int>(p), n, static_cast<int>(plan[3]));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const Args& a, int64_t scenarios, int64_t r, int64_t p, int64_t n,
            const int64_t* plan, int64_t plan_len, void* stream) {
   if (plan_len != kPlanLen || r < 1 || r > plan[1] || plan[3] < 1 ||
       32 * plan[2] < p || scenarios > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (plan[0] == 2) {
+    if (plan[5] == 0)
+      return launch_wide<T, false>(a, scenarios, r, p, n, plan, stream);
+    if (!a.n_act || !a.up_bits || !a.spill || !a.unavail)
+      return static_cast<int>(cudaErrorInvalidValue);
+    return launch_wide<T, true>(a, scenarios, r, p, n, plan, stream);
+  }
   if (plan[5] != 0) {
     if (!a.n_act || !a.up_bits || !a.spill || !a.unavail)
       return static_cast<int>(cudaErrorInvalidValue);

@@ -4,7 +4,8 @@
 (`repro.core.simulator._jsq_route`, a `lax.scan`; no Pallas kernel) as one
 launch per chunk, on one carried maximum per replica.  Its launch plan
 (tracker in registers or in shared memory, tile width, shared bytes) is
-`jsq_plan`, pure Python so that the CPU tests reach it.  With the
+`jsq_plan`, pure Python so that the CPU tests reach it.  Past 16
+replicas the wide instance carries ceil(r / 32) maxima a lane.  With the
 autoscaler's active counts and the fault injector's up mask it takes
 replicas out of the argmin (the `MASKED` instances).  It is built by
 `repro_torch.kernels._cuda.CudaLibrary` at first use.  ``launches``
@@ -33,14 +34,16 @@ LIB = CudaLibrary(
     pathlib.Path(__file__).resolve().parent / "csrc" / "jsq_route.cu",
     {name: [_P] * 10 + [_I] * 4 + [ctypes.POINTER(_I), _I, _P]
      for name in ("jsq_route_f32", "jsq_route_f64")})
-MAX_REPLICAS = 16                  # the largest KC bucket in the source
+MAX_REPLICAS = 256                 # the wide instance: kMaxRpl x 32
+NARROW_REPLICAS = 16               # the largest KC bucket in the source
 KC_BUCKETS = (2, 4, 8, 16)         # replicas a lane carries (>= r)
 PER_BUCKETS = (1, 2, 4, 8, 16)     # servers of each replica a lane holds
 REG_BUDGET = 64                    # kRegBudget: 32-bit registers a lane
                                    # gives the tracker
 TILES = (32, 16, 8, 4, 2, 1)       # queries a staged tile, widest first
 
-__all__ = ["LIB", "MAX_REPLICAS", "JsqPlan", "jsq_plan", "jsq_route_cuda"]
+__all__ = ["LIB", "MAX_REPLICAS", "JsqPlan", "jsq_plan", "jsq_route_cuda",
+           "up_words"]
 
 launches = 0          # kernel launches in this process
 
@@ -56,13 +59,22 @@ class JsqPlan:
     ``tile`` queries at a time, double-buffered, in rows of tile + 1
     (and, with the tracker in registers, the choices of a tile as
     int32).  ``masked``: the instances that read an active count and a
-    word of up bits a query, staged with the tile (4 x tile int32 more)."""
+    word of up bits a query, staged with the tile (4 x tile int32 more).
+    ``wide`` (r > 16): the tracker in shared memory, lane l the maxima
+    of replicas l, l + 32, ... (``kc`` = 32 x ``words``), and a masked
+    query's up bits in ``words`` int32."""
     registers: bool
     kc: int
     per: int
     tile: int
     smem_bytes: int
     masked: bool = False
+    wide: bool = False
+
+    @property
+    def words(self) -> int:
+        """int32 words of up bits a query."""
+        return self.kc // 32 if self.wide else 1
 
     def servers(self, lane: int, p: int) -> list[int]:
         """The servers (of every replica) lane ``lane`` holds."""
@@ -71,8 +83,9 @@ class JsqPlan:
     @functools.cached_property
     def args(self) -> ctypes.Array:
         """The plan as the C entry point reads it (kPlanLen int64)."""
-        return int64_array([0 if self.registers else 1, self.kc, self.per,
-                            self.tile, self.smem_bytes, int(self.masked)])
+        variant = 2 if self.wide else (0 if self.registers else 1)
+        return int64_array([variant, self.kc, self.per, self.tile,
+                            self.smem_bytes, int(self.masked)])
 
 
 def _bucket(x: int, buckets: tuple[int, ...]) -> int | None:
@@ -83,13 +96,25 @@ def _bucket(x: int, buckets: tuple[int, ...]) -> int | None:
 def jsq_plan(r: int, p: int, itemsize: int, masked: bool = False
              ) -> JsqPlan:
     """The plan for (r, p) in a float of ``itemsize`` bytes: the tracker
-    in registers where KC x PER fits REG_BUDGET, else in shared memory;
-    the widest tile whose buffers (and, ``masked``, mask rows) fit a
-    block's shared memory."""
-    kc = _bucket(r, KC_BUCKETS)
-    if kc is None or r < 1:
+    in registers where KC x PER fits REG_BUDGET, else in shared memory
+    (past 16 replicas, the wide instance's); the widest tile whose
+    buffers (and, ``masked``, mask rows) fit a block's shared memory."""
+    if not 1 <= r <= MAX_REPLICAS:
         raise ValueError(f"the CUDA JSQ router takes 1..{MAX_REPLICAS} "
                          f"replicas; got r={r}")
+    if r > NARROW_REPLICAS:
+        words = -(-r // 32)
+        for tile in TILES:
+            smem = ((r * p + 2 * (p + 2) * (tile + 1)) * itemsize
+                    + 8 * (1 + words) * tile * masked)
+            if smem <= SMEM_LIMIT:
+                return JsqPlan(False, 32 * words, -(-p // 32), tile, smem,
+                               masked, wide=True)
+        raise ValueError(
+            f"r={r}, p={p} needs {smem} B of shared memory at a one-query "
+            f"tile (the tracker alone {r * p * itemsize} B); a block has "
+            f"{SMEM_LIMIT}")
+    kc = _bucket(r, KC_BUCKETS)
     per = _bucket(-(-p // 32), PER_BUCKETS)
     if per is not None and kc * per * (itemsize // 4) <= REG_BUDGET:
         for tile in TILES:
@@ -108,6 +133,20 @@ def jsq_plan(r: int, p: int, itemsize: int, masked: bool = False
                      f"{SMEM_LIMIT}")
 
 
+def up_words(up: Optional[Tensor], n_scen: int, n: int, words: int,
+             device) -> Tensor:
+    """(S, n, r) bool -> (S, n, words) int32, word q bit b replica 32 q +
+    b (every bit set without a mask; bits past r are never read)."""
+    if up is None:
+        return torch.full((n_scen, n, words), -1, dtype=torch.int32,
+                          device=device)
+    r = up.shape[-1]
+    pad = torch.nn.functional.pad(up.to(torch.int32), (0, 32 * words - r))
+    shift = torch.arange(32, dtype=torch.int32, device=device)
+    return (pad.view(n_scen, n, words, 32) << shift).sum(
+        -1, dtype=torch.int32).contiguous()
+
+
 def jsq_route_cuda(w: Tensor, gaps: Tensor, services: Tensor, live: Tensor,
                    n_act: Optional[Tensor] = None,
                    up: Optional[Tensor] = None):
@@ -118,7 +157,8 @@ def jsq_route_cuda(w: Tensor, gaps: Tensor, services: Tensor, live: Tensor,
     CUDA tensors of one float dtype.  n_act: (S, n) int32 active counts;
     up: (S, n, r) bool up mask.  Either mask launches the masked
     instance (the other then takes every replica); the up mask goes to
-    the kernel as one int32 of bits a query.  Raises on anything the
+    the kernel as ``plan.words`` int32 of bits a query (one up to 16
+    replicas).  Raises on anything the
     kernel does not take: no conversion, no fallback.
     """
     global launches
@@ -162,7 +202,9 @@ def jsq_route_cuda(w: Tensor, gaps: Tensor, services: Tensor, live: Tensor,
         if n_act is None:
             n_act = torch.full((n_scen, n), r, dtype=torch.int32,
                                device=w.device)
-        if up is None:
+        if plan.wide:
+            bits = up_words(up, n_scen, n, plan.words, w.device)
+        elif up is None:
             bits = torch.full((n_scen, n), (1 << r) - 1, dtype=torch.int32,
                               device=w.device)
         else:

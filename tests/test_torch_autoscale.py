@@ -11,10 +11,9 @@ refusals; the policy grid axis and its replica-second frontier; and the
 `plan_capacity` cross-check.
 
 Not mirrored: the two legacy-keyword tests (tests/test_autoscale.py:157
-and :189), because the port takes ``cluster=`` only, and the telemetry
-half of :118 (the active-replica trajectory on a `Timeline`, ROADMAP
-queue 1 item 10).  The policy validation, `for_slo` and the chunking
-property of `autoscale_scan` are in tests/test_torch_elastic.py.
+and :189), because the port takes ``cluster=`` only.  The policy
+validation, `for_slo` and the chunking property of `autoscale_scan` are
+in tests/test_torch_elastic.py.
 
 Against the reference, on its own draws (the canonical chunk draws and
 the ``"route"`` / ``"route_u"`` uniforms random routing reads, built as
@@ -45,6 +44,7 @@ from repro_torch.core import simulator as tsim
 from repro_torch.core import sweep as tsweep
 from repro_torch.core.cluster import ClusterSpec
 from repro_torch.launch.elastic import AutoscalePolicy
+from repro_torch.obs import TelemetrySpec
 from test_torch_faults import (assert_matches_reference, both_batch,
                                dispatch_draws, reference_draws)
 
@@ -127,17 +127,26 @@ def test_active_policy_fused_matches_masked():
 def test_replica_seconds_bounds():
     """replica_seconds integrates the active count over valid time, so
     min_r * elapsed <= replica_seconds <= max_r * elapsed, and 60 qps on
-    one Table-5 replica makes the policy scale out."""
+    one Table-5 replica makes the policy scale out; telemetry's
+    active_replicas exposes the trajectory, within [min_r, max_r], and
+    it reacts to load (tests/test_autoscale.py:118)."""
     pol = AutoscalePolicy(min_r=1, max_r=4, target_utilization=0.6,
                           decision_interval_seconds=0.4,
                           stabilization_intervals=2)
     res = tsim.simulate_fork_join(
         2, 60.0, 12_000, T5, chunk_size=1024,
-        cluster=ClusterSpec(routing="jsq", autoscale=pol), device=CPU)
+        cluster=ClusterSpec(routing="jsq", autoscale=pol),
+        telemetry=TelemetrySpec(n_bins=16), device=CPU)
     rs, el = float(res.replica_seconds), float(res.elapsed_seconds)
     assert 0.0 < el
     assert pol.min_r * el <= rs <= pol.max_r * el * (1 + 1e-6)
     assert 1.5 <= float(res.mean_active_replicas) <= 4.0
+    act = res.timeline.active_replicas.numpy()
+    live = res.timeline.count.numpy() > 0
+    assert live.any()
+    assert np.all(act[live] >= pol.min_r - 1e-6)
+    assert np.all(act[live] <= pol.max_r + 1e-6)
+    assert act[live].max() > 1.5
 
 
 def test_static_run_has_no_elastic_fields():
@@ -250,6 +259,23 @@ def test_active_policy_matches_reference(x64, routing, impl):
                              extra=("replica_seconds", "elapsed_seconds"))
     active = port.mean_active_replicas
     assert bool((active > 1.5).all()) and bool((active <= 3.0).all())
+
+
+def test_active_policy_timeline_matches_reference(x64):
+    """The autoscaler's trajectory on a `Timeline` (JSQ, the cache)
+    against the reference's on its draws: the active-replica sums beside
+    the base channels; no fault channel."""
+    from test_torch_obs import assert_timelines_match
+    pol = AutoscalePolicy(**_LIVE)
+    ref, port = both_batch("jsq", cache=(0.25, 2e-3), policy=pol,
+                           jpolicy=_jpolicy(pol), lam=2.0, n=2_048,
+                           chunk=256, tap=0,
+                           telemetry=TelemetrySpec(n_bins=6))
+    tl = port.timeline
+    assert_timelines_match(tl, ref.timeline)
+    assert tl.up_sum is None and tl.spill_sum is None
+    act = tl.active_replicas.numpy()
+    assert act.min() >= 1.0 and act.max() <= 3.0 and act.max() > 1.5
 
 
 def test_single_replica_policy_matches_reference(x64):

@@ -36,6 +36,7 @@ from repro.core import simulator as jsim
 from repro.core import sweep as jsweep
 from repro.core.arrivals import ArrivalProcess as JArrival
 from repro.core.cluster import ClusterSpec as JCluster
+from repro.obs.timeline import TelemetrySpec as JTelemetry
 from repro_torch import interop
 from repro_torch.core import capacity as tcap
 from repro_torch.core import planner as tplanner
@@ -139,9 +140,10 @@ def params_np(s, p):
 
 def both_batch(routing, *, r=3, cache=None, fault=None, policy=None,
                jpolicy=None, impl="fused", n=4000, s=2, p=4, chunk=512,
-               mode="cache", tap=16, lam=None, seed=0):
+               mode="cache", tap=16, lam=None, seed=0, telemetry=None):
     """The reference and the port, batch entry points, on the reference's
-    draws in float64; returns (ref, port)."""
+    draws in float64; returns (ref, port).  ``telemetry``: the port's
+    `TelemetrySpec`, given to both (the reference's with its fields)."""
     pj = params_np(s, p)
     params_j = jq.ServerParams(**{k: jnp.asarray(v) for k, v in pj.items()})
     rr = policy.max_r if policy is not None else r
@@ -152,6 +154,8 @@ def both_batch(routing, *, r=3, cache=None, fault=None, policy=None,
     ref = jsim.simulate_fork_join_batch(
         key, JArrival.stationary(jnp.asarray(rates)), params_j, n, p=p,
         mode=mode, impl="xla", chunk_size=chunk, tap_size=tap,
+        telemetry=None if telemetry is None else JTelemetry(
+            **dataclasses.asdict(telemetry)),
         cluster=JCluster(r=jr, autoscale=jpolicy,
                          fault=None if fault is None else _spec(fault),
                          **topo))
@@ -164,7 +168,7 @@ def both_batch(routing, *, r=3, cache=None, fault=None, policy=None,
         interop.server_params_from_numpy(pj, device=CPU, dtype=F64), n,
         p=p, mode=mode, chunk_size=chunk, tap_size=tap,
         cluster=ClusterSpec(r=jr, autoscale=policy, fault=fault, **topo),
-        device=CPU, dtype=F64,
+        telemetry=telemetry, device=CPU, dtype=F64,
         draws=interop.draws_from_numpy(per_chunk, device=CPU, dtype=F64))
     return ref, port
 
@@ -376,6 +380,30 @@ def test_faulted_run_matches_reference(x64, routing, impl):
     assert float(port.degraded_count.min()) > 0
 
 
+@pytest.mark.parametrize("routing,r", [("jsq", 3), ("round_robin", 1)])
+def test_faulted_timeline_matches_reference(x64, routing, r):
+    """The fault trajectory on a `Timeline` (all four channels, the
+    result cache) against the reference's on its draws: the up, spill
+    and degraded sums beside the base channels, each summing to its
+    `SimResult` total over the post-warmup bins' arrivals."""
+    from repro_torch.obs import TelemetrySpec
+    from test_torch_obs import assert_timelines_match
+    fault = FaultSpec(**ALL_FOUR)
+    spec = TelemetrySpec(n_bins=6, slo_seconds=0.2)
+    ref, port = both_batch(routing, r=r, cache=(0.25, 2e-3), fault=fault,
+                           telemetry=spec, n=2_048, chunk=256, tap=0)
+    tl = port.timeline
+    assert_timelines_match(tl, ref.timeline)
+    assert tl.active_sum is None
+    # every replica up outside the outages: the up count dips below r
+    assert float(tl.up_replicas.min()) < r <= float(tl.up_sum.max())
+    # warmup included: the channels bound the post-warmup totals
+    assert bool((tl.degraded_sum.sum(-1) >= port.degraded_count).all())
+    assert bool((tl.spill_sum.sum(-1) >= port.spill_count).all())
+    assert float(tl.degraded_sum.sum()) > 0
+    assert (float(tl.spill_sum.sum()) > 0) == (r > 1)
+
+
 def test_faulted_single_replica_matches_reference(x64):
     """r = 1 through `simulate_fork_join`: a down replica means an
     unavailable query."""
@@ -515,6 +543,68 @@ def test_plan_survive_faults_matches_reference():
 
 
 # ------------------------------------------------ hypothesis: carry chaining
+
+@pytest.mark.parametrize("r", [17, 32])
+def test_fault_scan_past_16_replicas_matches_reference(x64, r):
+    """The plain fleet loop (the CUDA fleet scan's oracle) against the
+    reference's `fault_scan` at r = 17 and 32, with 40 outage windows
+    (past the narrow instance's 32) and the MTBF/MTTR chain, in float64:
+    the masks and the chain's carry exact."""
+    from repro_torch.kernels.fleet_scan import ops as fleet_ops
+    rng = np.random.default_rng(r)
+    s, n = 2, 160
+    gaps = rng.exponential(0.03, (s, n))
+    t_arr = np.cumsum(gaps, axis=1)
+    u = rng.random((s, n, r))
+    outages = tuple((int(w * 7) % (r + 3), float(rng.uniform(0, 3)),
+                     float(rng.uniform(3, 5))) for w in range(40))
+    spec = FaultSpec(outages=outages, mtbf_seconds=1.5, mttr_seconds=0.4)
+    init = jfaults.fault_init(  # staticcheck: disable=RPR007  (the oracle under test)
+        _spec(spec), s, r)
+    carry, ref_up = jfaults.fault_scan(  # staticcheck: disable=RPR007  (the oracle under test)
+        _spec(spec), r, init, jnp.asarray(t_arr), jnp.asarray(gaps),
+        jnp.asarray(u))
+    up, _, state, _ = fleet_ops.fleet_scan(
+        torch.from_numpy(gaps), t_arr=torch.from_numpy(t_arr),
+        u=torch.from_numpy(u),
+        up_state=torch.ones((s, r), dtype=torch.int32), fault=spec, r=r,
+        impl="torch")
+    np.testing.assert_array_equal(up.numpy(), np.asarray(ref_up))
+    np.testing.assert_array_equal(state.numpy(), np.asarray(carry[0]))
+    assert up.any() and not up.all()
+    assert bool((~up[:, :, 16:]).any())          # past the narrow range
+
+
+def test_fleet_args_take_any_window_count_and_wide_replicas():
+    """The fleet scan's spec layout holds any number of windows (past 32
+    the wide instance reads them from a table in device memory, the
+    bounds rounded to the run's dtype), and the wide instance takes r
+    past 16 up to 256 or windows past 32."""
+    from repro_torch.kernels.fleet_scan import kernel as fleet_kernel
+    windows = tuple((w % 40, 0.1 * w, 0.1 * w + 0.35) for w in range(300))
+    iargs, fargs = fleet_kernel.fleet_args(windows, 2.0, 0.5, None, 8, 0)
+    assert iargs[0] == 300 and len(iargs) == 11 + 300
+    assert iargs[11:] == [w % 40 for w in range(300)]
+    assert len(fargs) == 5 + 600 and fargs[5] == 0.0
+    assert fargs[5 + 300 + 7] == 0.1 * 7 + 0.35
+    assert fleet_kernel.is_wide(17, 0) and fleet_kernel.is_wide(4, 33)
+    assert not fleet_kernel.is_wide(16, 32)
+    assert fleet_kernel.MAX_REPLICAS == 256
+    for dtype in (torch.float32, torch.float64):
+        reps, starts, ends = fleet_kernel.window_table(
+            windows, dtype, torch.device("cpu"))
+        assert reps.dtype == torch.int32 and starts.dtype == dtype
+        assert reps.tolist() == [w % 40 for w in range(300)]
+        assert torch.equal(starts, torch.tensor(
+            [0.1 * w for w in range(300)], dtype=dtype))
+        assert torch.equal(ends, torch.tensor(
+            [0.1 * w + 0.35 for w in range(300)], dtype=dtype))
+    # made once a spec
+    assert fleet_kernel.window_table(windows, torch.float32,
+                                     torch.device("cpu"))[0] is \
+        fleet_kernel.window_table(windows, torch.float32,
+                                  torch.device("cpu"))[0]
+
 
 try:
     from hypothesis import given, settings, strategies as st

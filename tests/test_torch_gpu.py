@@ -501,6 +501,160 @@ def test_masked_jsq_kernel_matches_plain_loop(cuda, r, p, n, dtype, masks):
         assert bool(pl[2].any()) and bool(pl[3].any())
 
 
+# past 16 replicas: the wide instances (r = 17, 32, 64, 256 at p = 100;
+# 256 x 100 in float64 fills most of a block's shared memory)
+@pytest.mark.parametrize("r,n", [(17, 300), (32, 257), (64, 129),
+                                 (256, 70)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("masks", [None, "n_act", "up", "both"])
+def test_wide_jsq_kernel_matches_plain_loop(cuda, r, n, dtype, masks):
+    g = torch.Generator(device=cuda).manual_seed(r * 31 + n)
+    s, p = 4, 100
+    w = torch.rand((s, r, p), dtype=dtype, device=cuda, generator=g)
+    w[0] = 0.0                                 # idle: ties everywhere
+    w[1, ::3] = 0.0                            # some replicas idle
+    gaps = torch.empty((s, n), dtype=dtype, device=cuda).exponential_(
+        generator=g) * 0.05 / r
+    svc = torch.empty((s, p, n), dtype=dtype, device=cuda).exponential_(
+        generator=g)
+    live = (torch.rand((s, n), device=cuda, generator=g) > 0.2).to(dtype)
+    n_act = up = None
+    if masks in ("n_act", "both"):
+        n_act = torch.randint(1, r + 1, (s, n), generator=g, device=cuda,
+                              dtype=torch.int32)
+    if masks in ("up", "both"):
+        up = torch.rand((s, n, r), device=cuda, generator=g) < 0.7
+        up[1, : n // 3] = False                # no replica up: unavailable
+    before = jsq_ops.launch_count()
+    k = jsq_ops.jsq_route(w, gaps, svc, live, n_act=n_act, up=up,
+                          impl="cuda")
+    pl = jsq_ops.jsq_route(w, gaps, svc, live, n_act=n_act, up=up,
+                           impl="torch")
+    torch.cuda.synchronize()
+    assert jsq_ops.launch_count() == before + 1
+    for kt, pt in zip(k, pl):
+        assert torch.equal(kt, pt)
+    assert int(pl[0].max()) >= 16             # past the narrow range
+    if up is not None:
+        assert bool(pl[2].any()) and bool(pl[3].any())
+
+
+def _many_windows(t_arr, n, count):
+    """``count`` outage windows (replica 5 w + 1, reduced mod r), each
+    from scenario 0's arrival at a tile boundary to one up to a tile
+    later."""
+    t0 = t_arr[0].double().cpu()
+    out = []
+    for w in range(count):
+        i = min(32 * (w % 7), n - 1)
+        j = min(i + 32 * (w % 2) + w % 29, n - 1)
+        start, end = float(t0[i]), float(t0[j])
+        out.append((5 * w + 1, start, end if end > start else start + 0.05))
+    return dataclasses.replace(_FLEET_FAULT, outages=tuple(out))
+
+
+# r = 17, 32, 64, 256 (one to eight groups of 32), and r = 4 with 64
+# windows (the wide instance for its windows alone); the ways the engine
+# calls it, and 64 windows at every r
+@pytest.mark.parametrize("r,n", [(17, 300), (32, 257), (64, 129),
+                                 (256, 70), (4, 300)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("what", ["fault", "policy", "both", "upf",
+                                  "windows"])
+def test_wide_fleet_kernel_matches_plain_loop(cuda, r, n, dtype, what):
+    s = 6
+    gaps, kw = _fleet_kwargs("both" if what == "windows" else what, s, n,
+                             r, dtype, cuda, seed=r + n)
+    if what == "windows" or r == 4:
+        kw["fault"] = _many_windows(kw["t_arr"], n, 64)
+    before = fleet_ops.launch_count()
+    k = fleet_ops.fleet_scan(gaps, impl="cuda", **kw)
+    pl = fleet_ops.fleet_scan(gaps, impl="torch", **kw)
+    torch.cuda.synchronize()
+    assert fleet_ops.launch_count() == before + 1
+    _fleet_equal(k, pl, kw)
+    if kw["fault"] is not None:
+        assert bool((~pl[0]).any()) and bool(pl[0].any())
+
+
+@pytest.mark.parametrize("routing", ["random", "jsq"])
+def test_plan_capacity_past_16_replicas(cuda, routing):
+    """plan_capacity(survive_faults=1, simulate=True) at 500 qps on Table
+    5's hardware needs 19 + 1 replicas: the faulted cross-check runs the
+    fleet scan (and, under JSQ, the router) at r >= 20 on the card."""
+    from repro_torch.kernels.fleet_scan import kernel as fleet_kernel
+    fleet_ops.reset_launch_count()
+    jsq_ops.reset_launch_count()
+    plan = capacity.plan_capacity(
+        capacity.TABLE5_PARAMS, 500.0, 0.9, simulate=True,
+        survive_faults=1, cluster=ClusterSpec(routing=routing),
+        n_queries=20_000)
+    assert plan.n_replicas > fleet_kernel.NARROW_REPLICAS
+    assert plan.response_faulted_p95_ms is not None
+    assert np.isfinite(plan.response_faulted_p95_ms)
+    assert fleet_ops.launch_count() > 0
+    assert (jsq_ops.launch_count() > 0) == (routing == "jsq")
+
+
+@pytest.mark.parametrize("routing,r", [("round_robin", 1), ("jsq", 3),
+                                       ("random", 3)])
+def test_telemetry_on_the_card_matches_the_cpu(cuda, routing, r):
+    """A telemetry run on the card against the same run on the CPU, on
+    the same draws in float64 (the result cache and all fault channels
+    at r > 1): counts and routing exact, float sums to 1e-12 of the bin
+    plus the largest bin; the base statistics unchanged by telemetry."""
+    from repro_torch.obs import TelemetrySpec
+    params = dataclasses.replace(capacity.TABLE5_PARAMS, p=16)
+    n_scen, chunk, n_chunks, f64 = 3, 1024, 4, torch.float64
+    fault = (FaultSpec(outages=((0, 5.0, 40.0),), mtbf_seconds=20.0,
+                       mttr_seconds=4.0, broker_timeout_seconds=0.5,
+                       quorum_k=15) if r > 1 else None)
+    cl = ClusterSpec(r=r, routing=routing, result_cache=(0.2, 2e-3),
+                     fault=fault)
+    vp = simulator._vec_params(params, cuda, f64)
+    hit = torch.full((n_scen,), 0.2, dtype=f64, device=cuda)
+    per_chunk = []
+    for c in range(n_chunks):
+        base = simulator.chunk_random_draws(7, c, n_scen, chunk, 16, vp,
+                                            "exponential", device=cuda,
+                                            dtype=f64)
+        side = simulator.chunk_side_draws(
+            7, c, n_scen, chunk, cache_hit=hit, device=cuda, dtype=f64,
+            route_r=r if routing == "random" else None,
+            fault_r=r if fault is not None else None)
+        per_chunk.append((*base, side))
+    on_cpu = [tuple(t.cpu() for t in d[:3])
+              + ({k: v.cpu() for k, v in d[3].items()},) for d in per_chunk]
+    lam = torch.tensor([20.0, 40.0, 60.0], dtype=f64) * r
+    spec = TelemetrySpec(n_bins=8)
+    kw = dict(p=16, chunk_size=chunk, cluster=cl, dtype=f64)
+    card = simulator.simulate_fork_join_batch(
+        7, lam.to(cuda), params, n_chunks * chunk, telemetry=spec,
+        draws=lambda c: per_chunk[c], device=cuda, **kw)
+    plain = simulator.simulate_fork_join_batch(
+        7, lam.to(cuda), params, n_chunks * chunk,
+        draws=lambda c: per_chunk[c], device=cuda, **kw)
+    host = simulator.simulate_fork_join_batch(
+        7, lam, params, n_chunks * chunk, telemetry=spec,
+        draws=lambda c: on_cpu[c], device="cpu", **kw)
+    torch.cuda.synchronize()
+    for f in ("count", "sum_response", "hist"):
+        assert torch.equal(getattr(card, f), getattr(plain, f))
+    for f in dataclasses.fields(card.timeline):
+        a, b = getattr(card.timeline, f.name), getattr(host.timeline, f.name)
+        assert (a is None) == (b is None), f.name
+        if a is None:
+            continue
+        a = a.cpu()
+        if f.name in ("count", "replica_count", "up_sum", "spill_sum"):
+            assert torch.equal(a, b), f.name
+        else:
+            floor = 1e-12 * float(b.abs().max())
+            assert bool(((a - b).abs() <= 1e-12 * b.abs() + floor).all()), \
+                f.name
+    assert float(card.timeline.count.sum()) == n_scen * n_chunks * chunk
+
+
 @pytest.mark.parametrize("routing", ["round_robin", "random", "jsq"])
 def test_elastic_faulted_engine_goes_through_the_fleet_scan(cuda, routing):
     """An autoscaled, faulted run on the card: one fleet scan a chunk,

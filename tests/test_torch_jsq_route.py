@@ -154,7 +154,7 @@ def test_plan_takes_every_shape_the_previous_kernel_took():
                 assert t_kernel.jsq_plan(r, p, itemsize).smem_bytes \
                     <= SMEM_LIMIT
     with pytest.raises(ValueError, match="replicas"):
-        t_kernel.jsq_plan(17, 10, 4)
+        t_kernel.jsq_plan(257, 10, 4)
 
 
 # ------------------------------------------------------------ masks
@@ -268,3 +268,147 @@ def test_masked_plan_stages_the_masks():
                                          masked.kc, masked.per, tile,
                                          expect, 1]
             assert list(plain.args)[5] == 0
+
+
+# ------------------------------------------------------------ past 16
+
+def _wide_route(w, gaps, services, live, n_act=None, up=None):
+    """The wide kernel's recurrence (r > 16): the tracker clamped at 0 as
+    it lands, the carried maxima drained, only the replicas whose maximum
+    was > 0 before the step drained (an idle replica's servers are all
+    0), the masked argmin over the drained maxima, the deposit into the
+    chosen replica and its new maximum."""
+    rows = torch.arange(w.shape[0])
+    r = w.shape[1]
+    k = torch.arange(r)
+    w = torch.clamp_min(w, 0.0)
+    m = w.amax(dim=-1)
+    choices, spills, unavails = [], [], []
+    for i in range(gaps.shape[1]):
+        gap = gaps[:, i, None]
+        busy = m > 0
+        w = torch.where(busy[..., None],
+                        torch.clamp_min(w - gap[..., None], 0.0), w)
+        d = torch.clamp_min(m - gap, 0.0)
+        act = (k < (r if n_act is None else n_act[:, i, None]))
+        da = torch.where(act, d, torch.inf)
+        best = raw = torch.argmin(da, dim=-1)
+        if up is not None:
+            ok = act & up[:, i]
+            any_up = ok.any(dim=-1)
+            best = torch.where(any_up, torch.argmin(
+                torch.where(ok, d, torch.inf), dim=-1), raw)
+            spills.append(any_up & ~up[rows, i, raw])
+            unavails.append(~any_up)
+        w[rows, best] = w[rows, best] + live[:, i, None] * services[:, :, i]
+        m = d.clone()
+        m[rows, best] = w[rows, best].amax(dim=-1)
+        choices.append(best)
+    out = (torch.stack(choices, dim=-1), w)
+    if up is None:
+        return out
+    return out + (torch.stack(spills, dim=-1), torch.stack(unavails, dim=-1))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("r", [17, 32, 40])
+@pytest.mark.parametrize("masks", [None, "both"])
+def test_wide_recurrence_equals_plain_loop(dtype, r, masks):
+    """Skipping idle replicas and carrying the maxima changes no bit: the
+    choices, flags and tracker equal the plain loop's."""
+    s, p, n = 3, 9, 160
+    arrays = _inputs(s, r, p, n, dtype, seed=r)
+    arrays[0][2, ::2] = 0.0                       # idle replicas at start
+    w, gaps, svc, live = (torch.from_numpy(a) for a in arrays)
+    n_act = up = None
+    if masks:
+        n_act, up = (torch.from_numpy(a) for a in _masks(s, r, n, seed=r))
+    k = _wide_route(w.clone(), gaps, svc, live, n_act=n_act, up=up)
+    pl = t_ref.jsq_route_ref(w.clone(), gaps, svc, live, n_act=n_act, up=up)
+    assert len(k) == len(pl)
+    for a, b in zip(k, pl):
+        assert torch.equal(a, b)
+    assert bool((pl[0] >= 16).any())             # past the narrow range
+
+
+@pytest.mark.parametrize("r", [17, 32])
+def test_plain_loop_past_16_matches_reference(x64, r):
+    """The plain loop against the reference's `_jsq_route` in float64 at
+    r = 17 and 32, unmasked and under both masks: choices and flags
+    exact, the tracker to 1e-12."""
+    rng = np.random.default_rng(r)
+    s, p, n = 2, 5, 200
+    w = rng.exponential(size=(s, r, p)) * 0.5
+    gaps = rng.exponential(size=(s, n)) * 0.3 / r
+    svc = rng.exponential(size=(s, p, n))
+    live = (rng.random((s, n)) > 0.3).astype(np.float64)
+    n_act, up = _masks(s, r, n, seed=r + 1)
+    for masked in (False, True):
+        kw_j = dict(n_act=jnp.asarray(n_act), up=jnp.asarray(up)) \
+            if masked else {}
+        kw_t = dict(n_act=torch.from_numpy(n_act),
+                    up=torch.from_numpy(up)) if masked else {}
+        ref = jsim._jsq_route(jnp.asarray(w), jnp.asarray(gaps),
+                              jnp.asarray(svc), jnp.asarray(live), r,
+                              jnp.float64, **kw_j)
+        port = t_ref.jsq_route_ref(torch.from_numpy(w),
+                                   torch.from_numpy(gaps),
+                                   torch.from_numpy(svc),
+                                   torch.from_numpy(live), **kw_t)
+        np.testing.assert_array_equal(port[0].numpy(), np.asarray(ref[0]))
+        np.testing.assert_allclose(port[1].numpy(), np.asarray(ref[1]),
+                                   rtol=1e-12)
+        if masked:
+            np.testing.assert_array_equal(port[2].numpy(),
+                                          np.asarray(ref[2]))
+            np.testing.assert_array_equal(port[3].numpy(),
+                                          np.asarray(ref[3]))
+        assert int(port[0].max()) >= 16
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("masked", [False, True])
+def test_wide_plan_past_16_replicas(itemsize, masked):
+    """r = 17..256 at p = 100 take the wide instance: the tracker and two
+    staged tiles (and, masked, an active count and ceil(r / 32) up words
+    a query) in shared memory, variant 2 to the entry point; r = 256,
+    p = 100 fits in float64 too.  Past 256 replicas, or a tracker past a
+    block's shared memory, is refused with the bytes named."""
+    for r in (17, 31, 32, 33, 64, 65, 128, 200, 256):
+        plan = t_kernel.jsq_plan(r, 100, itemsize, masked)
+        words = -(-r // 32)
+        assert plan.wide and not plan.registers and plan.masked == masked
+        assert (plan.kc, plan.words, plan.per) == (32 * words, words, 4)
+        held = [j for lane in range(32) for j in plan.servers(lane, 100)]
+        assert sorted(held) == list(range(100))
+        expect = ((r * 100 + 2 * 102 * (plan.tile + 1)) * itemsize
+                  + 8 * (1 + words) * plan.tile * masked)
+        assert plan.smem_bytes == expect <= SMEM_LIMIT
+        wider = [t for t in t_kernel.TILES if t > plan.tile]
+        if wider:                       # the widest tile that fits
+            t = min(wider)
+            assert ((r * 100 + 2 * 102 * (t + 1)) * itemsize
+                    + 8 * (1 + words) * t * masked) > SMEM_LIMIT
+        assert list(plan.args) == [2, 32 * words, 4, plan.tile, expect,
+                                   int(masked)]
+    # r <= 16 keeps its narrow plan
+    assert not t_kernel.jsq_plan(16, 100, itemsize, masked).wide
+    with pytest.raises(ValueError, match="replicas"):
+        t_kernel.jsq_plan(257, 100, itemsize, masked)
+    with pytest.raises(ValueError, match=r"\d+ B of shared memory"):
+        t_kernel.jsq_plan(256, 300, itemsize, masked)
+
+
+@pytest.mark.parametrize("r", [17, 32, 33, 256])
+def test_up_words_pack_32_replicas_a_word(r):
+    """The wide instance's up mask: word q, bit b is replica 32 q + b;
+    without a mask every bit is set."""
+    rng = np.random.default_rng(r)
+    up = torch.from_numpy(rng.random((2, 5, r)) < 0.5)
+    words = t_kernel.up_words(up, 2, 5, -(-r // 32), "cpu")
+    assert words.shape == (2, 5, -(-r // 32)) and words.dtype == torch.int32
+    bits = (words[..., :, None] >> torch.arange(32, dtype=torch.int32)) & 1
+    assert torch.equal(bits.reshape(2, 5, -1)[..., :r].bool(), up)
+    assert bool((bits.reshape(2, 5, -1)[..., r:] == 0).all())
+    full = t_kernel.up_words(None, 2, 5, 3, "cpu")
+    assert bool((full == -1).all()) and full.shape == (2, 5, 3)

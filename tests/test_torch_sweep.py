@@ -39,6 +39,7 @@ from repro_torch.core import capacity as tcap
 from repro_torch.core import sweep as tsweep
 from repro_torch.core.cluster import ClusterSpec
 from repro_torch.launch.elastic import AutoscalePolicy
+from repro_torch.obs import TelemetrySpec
 
 CPU = "cpu"
 F64 = torch.float64
@@ -441,21 +442,25 @@ def test_sweep_replica_impl_passthrough():
 @pytest.mark.parametrize("what,exc,match", [
     ("autoscale", TypeError, "AutoscalePolicy"),
     ("fault", ValueError, "6th axis"),
-    ("telemetry", NotImplementedError, "queue 1 item 10"),
+    ("telemetry", ValueError, "same max_r"),
     ("mesh_sim", NotImplementedError, "queue 1 item 12"),
     ("mesh_analytic", NotImplementedError, "queue 1 item 12")])
 def test_not_ported_inputs_raise(what, exc, match):
-    """Telemetry and scenario sharding still raise, naming their ROADMAP
-    items; the policy and fault axes, now ported, refuse what the
-    reference's grid refuses: a value that is not a policy, and a policy
-    axis and a fault axis together (both claim the 6th dimension)."""
+    """Scenario sharding still raises, naming its ROADMAP item; the
+    policy and fault axes and telemetry, now ported, refuse what the
+    reference refuses: a value that is not a policy, a policy axis and a
+    fault axis together (both claim the 6th dimension), and telemetry
+    over policies whose max_r differ (src/repro/core/sweep.py:586)."""
     _, grid = _grids(lam=[10.0], p=[4.0], base=T5)
     pol = AutoscalePolicy(min_r=1, max_r=2)
     calls = {
         "autoscale": lambda: dataclasses.replace(grid, autoscale=("p",)),
         "fault": lambda: dataclasses.replace(grid, fault=(None,),
                                              autoscale=(pol,)),
-        "telemetry": lambda: tsweep.sweep_simulated(grid, telemetry=object()),
+        "telemetry": lambda: tsweep.sweep_simulated(
+            dataclasses.replace(grid, autoscale=(
+                pol, AutoscalePolicy(min_r=1, max_r=3))),
+            telemetry=TelemetrySpec(n_bins=4)),
         "mesh_sim": lambda: tsweep.sweep_simulated(grid, mesh=object()),
         "mesh_analytic": lambda: tsweep.sweep_analytical(grid,
                                                          mesh=object()),

@@ -21,6 +21,13 @@ the plain version on the same inputs:
   and with 8, 16 or 32 controller steps a branch-free batch, timed in
   turns at (64, 4096), r = 4, float32: the mask alone, the policy alone
   and both, at a decision every 20 s and at 17b's rate.
+* ``fleet_wide``: the wide fleet scan's mask warp in its other design
+  (``FLEET_MASK_OTHER``: a group's 32 query rows in coalesced loads,
+  turned into each query's maps by ballots, where the kernel's lane
+  loads its own query's strided row), held against the plain loop at
+  r = 20, 24 and 64 and timed in turns with the kernel as it is at (64,
+  4096) float32, r = 17, 20, 24 (the N+1 plans' counts), 32, 64 and
+  256, the mask alone and both.
 * ``bag``: the embedding bag with 12, 16 or 20 bytes of a row a lane or
   one unit a lane (at D = 10 bf16: 2, 2, 1 or 5 lanes a bag), without
   its evict-first hints, and with a division for every count, timed in
@@ -33,13 +40,14 @@ the plain version on the same inputs:
 The scan and bag variants are held against the plain version at every
 case before they are timed, the fleet variants on one case.  Run from the repo's root on a machine with a
 card and nvcc: ``python3 tools/kernel_probes.py [redux] [d8] [scan]
-[bag] [fleet]`` (all by default).  The variants are built under a temporary
+[bag] [fleet] [fleet_wide]`` (all by default).  The variants are built under a temporary
 directory; full SASS listings go to ``src/repro_torch/kernels/_build/
 probes/`` (beside the built libraries).
 """
 
 from __future__ import annotations
 
+import itertools
 import pathlib
 import re
 import shutil
@@ -557,13 +565,123 @@ def probe_fleet(tmp: pathlib.Path) -> None:
     kernel.LIB = base
 
 
+# the wide mask warp in the source, and its other design
+FLEET_MASK_WIDE = re.compile(r"// The wide instance's mask warp:.*?\n};\n",
+                             re.S)
+FLEET_MASK_OTHER = """\
+// The wide instance's mask warp: the chain of the replicas 32 g .. 32 g
+// + 31, group after group; the carry of group g lives in lane g.  A
+// group's uniforms arrive in 32 coalesced row loads (lane j replica
+// j0 + j) and leave as each query's two 32-bit maps by ballots.
+template <typename T>
+struct MaskWarpWide {
+  const T *g_row, *u_row;
+  int64_t n;
+  int r, groups, lane;
+  unsigned chain;    // lane g: group g's packed state
+
+  // Tile `tile`'s chain states of group g into states[g * kTile + lane]
+  __device__ __forceinline__ void tile(const Params<T>& P, int64_t tile,
+                                       unsigned* states) {
+    const int64_t i = tile * kTile + lane;
+    const bool in = i < n;
+    T p_fail = T(0), p_fix = T(0);
+    if (in) {
+      const T gap = __ldcs(g_row + i);
+      p_fail = sub_rn(T(1), exp_(div_rn(-gap, P.mtbf)));
+      p_fix = sub_rn(T(1), exp_(div_rn(-gap, P.mttr)));
+    }
+    const int64_t base = tile * kTile;
+    const int rows = n - base < kTile ? static_cast<int>(n - base) : kTile;
+#pragma unroll 1
+    for (int g = 0; g < groups; ++g) {
+      const int j0 = 32 * g;
+      const int width = r - j0 < 32 ? r - j0 : 32;
+      const unsigned gmask = width == 32 ? kFull : (1u << width) - 1u;
+      // the tile's (32 queries x 32 replicas) uniforms, a query's row a
+      // load, lane j replica j0 + j (coalesced); then query t's words of
+      // bits are two ballots over the lanes, kept by lane t
+      const bool col = lane < width;
+      T x[kTile];
+#pragma unroll
+      for (int t = 0; t < kTile; ++t)
+        x[t] = col && t < rows ? __ldcs(u_row + (base + t) * r + j0 + lane)
+                               : T(0);
+      unsigned f1 = gmask, f0 = 0;   // past the end of the chunk the identity
+#pragma unroll
+      for (int t = 0; t < kTile; ++t) {
+        const T pf = __shfl_sync(kFull, p_fail, t);
+        const T px = __shfl_sync(kFull, p_fix, t);
+        const unsigned w1 = __ballot_sync(kFull, col && x[t] >= pf);
+        const unsigned w0 = __ballot_sync(kFull, col && x[t] < px);
+        if (lane == t && in) {
+          f1 = w1;
+          f0 = w0;
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < kTile; off <<= 1) {
+        const unsigned g0 = __shfl_up_sync(kFull, f0, off);
+        const unsigned g1 = __shfl_up_sync(kFull, f1, off);
+        if (lane >= off) {
+          const unsigned h0 = (g0 & f1) | (~g0 & f0);
+          const unsigned h1 = (g1 & f1) | (~g1 & f0);
+          f0 = h0;
+          f1 = h1;
+        }
+      }
+      const unsigned c = __shfl_sync(kFull, chain, g);
+      const unsigned state = ((c & f1) | (~c & f0)) & gmask;
+      const unsigned last = __shfl_sync(kFull, state, kTile - 1);
+      if (lane == g) chain = last;
+      states[g * kTile + lane] = state;
+    }
+  }
+};
+"""
+FLEET_WIDE_R = (17, 20, 24, 32, 64, 256)
+
+
+def probe_fleet_wide(tmp: pathlib.Path) -> None:
+    from chip_smoke import WIDE_CHECK_N, _fleet_case, _fleet_exact
+    from repro_torch.kernels.fleet_scan import kernel, ops
+    base = kernel.LIB
+    base.load()
+    kept = FLEET_MASK_WIDE.search(base.source.read_text()).group(0)
+    variants = {"as is": base,
+                "other design": variant(tmp, base, "fleet_wide",
+                                        [(kept, FLEET_MASK_OTHER)])}
+    print("== fleet_wide: the wide fleet scan's mask warp, two designs")
+    for tag, lib in variants.items():
+        _ptxas_lines(lib, tag)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    for tag, lib in variants.items():
+        kernel.LIB = lib
+        for r, what in itertools.product((20, 24, 64), ("fault", "both")):
+            _fleet_exact(_fleet_case(r, torch.float32, what, g,
+                                     n=WIDE_CHECK_N),
+                         f"{tag}: r={r} {what} ({WIDE_CHECK_N} queries)")
+    for r, what in itertools.product(FLEET_WIDE_R, ("fault", "both")):
+        gaps, kw = _fleet_case(r, torch.float32, what, g)
+        print(f"  r = {r}, {'mask alone' if what == 'fault' else what}, "
+              f"({gaps.shape[0]}, {gaps.shape[1]}) float32: device ms a call")
+
+        def one(lib):
+            kernel.LIB = lib
+            return _device_ms(lambda: ops.fleet_scan(gaps, impl="cuda",
+                                                     **kw), n=20)
+        _in_turns(variants, one)
+    kernel.LIB = base
+
+
 def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    which = argv or ["redux", "d8", "scan", "bag", "fleet"]
+    which = argv or ["redux", "d8", "scan", "bag", "fleet", "fleet_wide"]
     probes = {"redux": probe_redux, "d8": probe_d8, "scan": probe_scan,
-              "bag": probe_bag, "fleet": probe_fleet}
+              "bag": probe_bag, "fleet": probe_fleet,
+              "fleet_wide": probe_fleet_wide}
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
