@@ -50,7 +50,18 @@ version on the card, and drives the port's paths:
     conserved, the operational laws, its cost a chunk and its peak
     memory), on 17b's and 17c's dispatches (the active, up, spill and
     degraded channels), card against CPU, a JSQ span trace exported and
-    validated, the kernel profiles and a rendered timeline.
+    validated, the kernel profiles and a rendered timeline;
+  * the calibration loop (phase 19): the toy search engine at Table 5's
+    layout (8 index servers over a 400,000-page collection, TodoBR
+    queries), its scorer against the CPU and its stacked 8-shard search
+    against one index (19a); measure -> fit -> plan on the engine at
+    three Poisson rates, the fit's replay through the (max,+) scan and
+    its tangent with the scan's launches asserted (19b); the 60,000-query
+    Table 5 round trip of examples/calibrate_and_plan.py, held-out
+    validation with a replicated JSQ column, card against CPU (19c); the
+    scan's forward-mode rule on the kernel against the plain path, the
+    scan's times at the calibration's shapes, and a profile of the fit
+    (19d).
 
 Phases 8 and 14 also print the wgmma kernels' ptxas reports (registers,
 spills, serialisation warnings) and take one tile through the shared
@@ -3099,6 +3110,373 @@ def phase_observability(card: str, mem7: dict) -> None:
         shown, f"16b slab's last scenario, r = {R}, JSQ, {n:,} queries"))
 
 
+# -- phase 19: the calibration loop ------------------------------------------
+
+ENGINE_CORPUS = dict(n_docs=400_000, vocab_size=50_000, mean_doc_len=150,
+                     seed=0)           # 50,000 pages a server (Table 5: 1.25 M)
+ENGINE_P = 8                    # Table 5's index servers
+ENGINE_K = 10                   # local top-k, the broker's k
+ENGINE_BATCH = 64
+ENGINE_QUERIES = 128 * ENGINE_BATCH     # 8,192 queries a measured run
+ENGINE_WARM = 16 * ENGINE_BATCH         # the warm pass that sets the rates
+ENGINE_RHO = (0.3, 0.5, 0.7)
+ENGINE_WINDOWS = 15             # 5 a run
+ENGINE_TARGET_QPS = 200.0
+CAL_SLO = 0.300
+SCORE_RTOL = 1e-6               # card vs CPU scores, tests/test_torch_engine
+T5_QUERIES = 60_000             # calibrate_and_plan.py's trace, nothing cut
+T5_CROWD = dict(burst_starts=[900.0], burst_seconds=450.0,
+                burst_multiplier=2.2, period_seconds=1800.0,
+                bin_seconds=60.0)
+T5_WINDOWS, T5_HOLDOUT, T5_SIM_QUERIES = 24, 0.25, 40_000
+T5_TARGET_QPS = 120.0
+CAL_RTOL = 1e-5                 # card vs CPU fit on the same trace
+SCAN_RTOL = {"torch.float32": 1e-5, "torch.float64": 1e-12}   # phase 2's
+# float32 tangents are held outside busy periods that hold a near-tie: an
+# arrival within this many ulps of its server going idle, where the two
+# paths' rounding may take opposite sides of the max
+TIE_ULPS = 16
+
+
+def _same_topk(card_out, cpu_out, what: str) -> None:
+    import torch
+    (cs, cd), (ps, pd) = ((x.cpu() for x in o) for o in (card_out, cpu_out))
+    if not torch.equal(cd, pd):
+        raise AssertionError(f"{what}: top-k ids differ from the CPU's")
+    if not torch.equal(torch.isneginf(cs), torch.isneginf(ps)):
+        raise AssertionError(f"{what}: -inf padding differs from the CPU's")
+    fin = torch.isfinite(ps)
+    err = _rel_err(cs[fin], ps[fin]) if bool(fin.any()) else 0.0
+    if not err <= SCORE_RTOL:
+        raise AssertionError(f"{what}: scores differ by {err} > "
+                             f"{SCORE_RTOL}")
+    print(f"  {what}: ids equal, scores max rel err {err:.2e} "
+          f"(rtol {SCORE_RTOL:g}), {int((~fin).sum())} -inf entries")
+
+
+def phase_engine(card: str) -> dict:
+    """19a: the toy engine at Table 5's layout, card against CPU."""
+    import dataclasses
+    import torch
+    from repro_torch.engine import corpus as corpus_lib
+    from repro_torch.engine import distributed, partition, server
+    from repro_torch.engine import index as index_lib
+    from repro_torch.workloadgen import querygen
+    print(f"== phase 19a: the toy engine, p = {ENGINE_P} index servers")
+    t0 = time.perf_counter()
+    corp = corpus_lib.generate_corpus(corpus_lib.CorpusConfig(
+        **ENGINE_CORPUS))
+    t1 = time.perf_counter()
+    part = partition.partition_documents(corp, ENGINE_P)
+    t2 = time.perf_counter()
+    shards = [server.IndexServer(ix, k_local=ENGINE_K, device="cuda")
+              for ix in part.shards]
+    uni = querygen.build_universe(dataclasses.replace(
+        querygen.TODOBR, vocab_size=ENGINE_CORPUS["vocab_size"]))
+    n_q = ENGINE_WARM + len(ENGINE_RHO) * ENGINE_QUERIES
+    _, qterms = querygen.sample_query_stream(uni, n_q, seed=1)
+    t3 = time.perf_counter()
+    budgets = [s.budget for s in shards]
+    print(f"  corpus {corp.n_docs:,} docs, {corp.n_postings:,} postings "
+          f"({t1 - t0:.1f} s, host); {ENGINE_P} shards of "
+          f"{part.shards[0].n_docs:,}-{max(s.n_docs for s in part.shards):,}"
+          f" docs, budgets {min(budgets):,}-{max(budgets):,} ({t2 - t1:.1f}"
+          f" s); TodoBR queries, {n_q:,} ({t3 - t2:.1f} s)")
+
+    batch = torch.as_tensor(qterms[:ENGINE_BATCH], device="cuda")
+    _same_topk(shards[0].process(batch),
+               server.IndexServer(part.shards[0], k_local=ENGINE_K,
+                                  device="cpu").process(qterms[:ENGINE_BATCH]),
+               f"shard 0, one batch of {ENGINE_BATCH}, card vs CPU")
+    t0 = time.perf_counter()
+    whole = server.IndexServer(index_lib.build_index(corp), k_local=ENGINE_K,
+                               device="cuda")
+    single_s, single_d = whole.process(batch)
+    dist_s, dist_d = distributed.make_search_fn(
+        None, distributed.stack_shards(part, device="cuda"),
+        k=ENGINE_K)(batch)
+    fin = torch.isfinite(single_s)
+    if not torch.equal(fin, torch.isfinite(dist_s)):
+        raise AssertionError("stacked search: -inf entries differ from the "
+                             "single index's")
+    err = _rel_err(dist_s[fin], single_s[fin])
+    same_ids = float((dist_d == single_d)[fin].float().mean())
+    if not err <= 1e-4:                     # the reference test's rtol
+        raise AssertionError(f"stacked 8-shard search vs single index: "
+                             f"scores differ by {err} > 1e-4")
+    print(f"  stacked 8-shard search == single index ({whole.budget:,} "
+          f"budget): scores max rel err {err:.2e} (rtol 1e-4), ids equal "
+          f"at {100 * same_ids:.1f} % of the finite entries "
+          f"({time.perf_counter() - t0:.1f} s with the host build)")
+    del whole, single_s, single_d, dist_s, dist_d
+    torch.cuda.empty_cache()
+
+    ms = _time_ms(lambda: shards[0].process(batch), n=20)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    shards[0].process(batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"  scorer: {ms:.3f} ms a batch of {ENGINE_BATCH} at budget "
+          f"{shards[0].budget:,} (one shard), peak {peak / 2**20:.0f} MiB "
+          f"above the index [{card}]")
+    phase_profile(card, _wall(lambda: shards[0].process(batch)),
+                  lambda: shards[0].process(batch),
+                  "phase 19a: device time by kernel, one scorer batch")
+    return dict(part=part, shards=shards, qterms=qterms)
+
+
+def phase_engine_calibration(card: str, eng: dict) -> None:
+    """19b: measure -> fit -> plan on the engine, three Poisson rates."""
+    import numpy as np
+    import torch
+    from repro_torch.calibrate import (calibrate, measure_engine_trace,
+                                       plan_from_trace)
+    from repro_torch.core.simulator import fcfs_completion_times
+    from repro_torch.workloadgen import loadgen
+    print(f"== phase 19b: measure -> fit -> plan on the engine, "
+          f"{ENGINE_QUERIES:,} queries a rate")
+    part, shards, qterms = eng["part"], eng["shards"], eng["qterms"]
+    cache_bytes = sum(s.index_bytes() for s in part.shards) // (
+        5 * ENGINE_P)
+    t0 = time.perf_counter()
+    warm = measure_engine_trace(
+        shards, qterms[:ENGINE_WARM], np.arange(ENGINE_WARM, dtype=float),
+        cache_bytes=cache_bytes, batch=ENGINE_BATCH)
+    busy = float(warm.server_busy.mean())
+    print(f"  warm pass: mean server busy {busy * 1e3:.3f} ms, hit "
+          f"{float(warm.server_hit.mean()):.3f}, broker "
+          f"{float(warm.broker_busy.mean()) * 1e3:.4f} ms "
+          f"({time.perf_counter() - t0:.1f} s) [{card}]")
+    traces = []
+    for i, rho in enumerate(ENGINE_RHO):
+        lam = rho / busy
+        q = qterms[ENGINE_WARM + i * ENGINE_QUERIES:
+                   ENGINE_WARM + (i + 1) * ENGINE_QUERIES]
+        arr = loadgen.poisson_arrivals(lam, 1.2 * ENGINE_QUERIES / lam,
+                                       seed=10 + i)
+        if arr.shape[0] < ENGINE_QUERIES:
+            raise AssertionError(f"only {arr.shape[0]} arrivals drawn")
+        t0 = time.perf_counter()
+        tr = measure_engine_trace(shards, q, arr[:ENGINE_QUERIES],
+                                  cache_bytes=cache_bytes,
+                                  batch=ENGINE_BATCH)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        done = fcfs_completion_times(tr.arrival, tr.broker_busy,
+                                     impl="torch")
+        plain = torch.amax(fcfs_completion_times(
+            done[None, :].expand(ENGINE_P, tr.n_queries), tr.server_busy.T,
+            impl="torch"), dim=0)
+        err = _rel_err(tr.response + tr.arrival, plain)
+        if not err <= SCAN_RTOL["torch.float32"]:
+            raise AssertionError(f"rho {rho}: the kernel's replay differs "
+                                 f"from the plain scan's by {err}")
+        print(f"  rho {rho}: {lam:.2f} qps, realized rho "
+              f"{float(tr.server_busy.mean()) * float(tr.observed_rate):.3f}"
+              f", hit {float(tr.server_hit.mean()):.3f}, mean response "
+              f"{float(tr.response.mean()) * 1e3:.2f} ms; replay kernel vs "
+              f"plain scan max rel err {err:.2e} (completions, rtol "
+              f"{SCAN_RTOL['torch.float32']:g}); {wall:.1f} s [{card}]")
+        traces.append(tr)
+    cal = calibrate(traces, n_windows=ENGINE_WINDOWS)
+    _reset_counts()
+    t0 = time.perf_counter()
+    mcal = calibrate(traces, n_windows=ENGINE_WINDOWS, residual="maxplus")
+    torch.cuda.synchronize()
+    launches = _counts()["maxplus_scan"]
+    if launches == 0:
+        raise AssertionError("refine(residual='maxplus') launched no scan")
+    _, plan = plan_from_trace(traces, ENGINE_TARGET_QPS, CAL_SLO,
+                              n_windows=ENGINE_WINDOWS)
+    for tag, c in (("analytic", cal), ("maxplus", mcal)):
+        p = c.params
+        print(f"  {tag:8s}: S_broker {float(p.s_broker) * 1e3:.4f} ms, "
+              f"S_hit {float(p.s_hit) * 1e3:.4f} ms, S_miss "
+              f"{float(p.s_miss) * 1e3:.4f} ms, S_disk "
+              f"{float(p.s_disk) * 1e3:.3f} ms, hit {float(p.hit):.4f}, "
+              f"alpha {float(c.alpha):.4f}, s_scale {float(c.s_scale):.5f}")
+    print(f"  the maxplus fit: {launches} scan launches "
+          f"({time.perf_counter() - t0:.2f} s) [{card}]")
+    print(f"  plan for {ENGINE_TARGET_QPS:.0f} qps under "
+          f"{CAL_SLO * 1e3:.0f} ms: {plan.n_replicas} x "
+          f"{plan.servers_per_replica} servers (R_upper "
+          f"{plan.response_upper_ms:.2f} ms, util {plan.utilization:.3f})")
+
+
+def _fields_close(a, b) -> float:
+    """Largest relative difference of the Eq 1 fields of ``a`` from
+    ``b``'s."""
+    errs = {f: abs(float(getattr(a, f)) - float(getattr(b, f)))
+            / abs(float(getattr(b, f)))
+            for f in ("s_broker", "s_hit", "s_miss", "s_disk", "hit")}
+    return max(errs.values())
+
+
+def phase_table5_roundtrip(card: str):
+    """19c: the 60,000-query Table 5 round trip, card against CPU."""
+    import torch
+    from repro_torch.calibrate import (calibrate_and_validate,
+                                       simulate_trace, validate)
+    from repro_torch.calibrate.measure import _sample_arrivals
+    from repro_torch.core import capacity
+    from repro_torch.core.arrivals import ArrivalProcess
+    from repro_torch.core.cluster import ClusterSpec
+    print(f"== phase 19c: Table 5 round trip (p = 8), {T5_QUERIES:,} "
+          "queries of a flash crowd")
+    true = capacity.TABLE5_PARAMS
+    crowd = ArrivalProcess.flash_crowd(10.0, device="cuda", **T5_CROWD)
+    u = torch.empty(T5_QUERIES, device="cuda").exponential_(
+        generator=torch.Generator(device="cuda").manual_seed(0))
+    arrivals_s = _wall(lambda: _sample_arrivals(u, crowd))
+    t0 = time.perf_counter()
+    trace = simulate_trace(0, crowd, T5_QUERIES, true, device="cuda")
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - t0
+    print(f"  simulate_trace: {sim_s:.2f} s, of which the per-query "
+          f"arrival recurrence (host) {arrivals_s:.2f} s; "
+          f"{trace.n_queries:,} queries kept [{card}]")
+    kw = dict(n_windows=T5_WINDOWS, holdout_fraction=T5_HOLDOUT,
+              simulator_queries=T5_SIM_QUERIES)
+    t0 = time.perf_counter()
+    cal, report = calibrate_and_validate(trace, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(report.summary())
+    err = _fields_close(cal.params, true)
+    alpha = float(cal.alpha)
+    print(f"  calibrate_and_validate {wall:.2f} s: Eq 1 parameters within "
+          f"{100 * err:.2f} % of the truth, alpha {alpha:.4f}, held-out "
+          f"max error vs the simulator {100 * report.max_rel_err_vs_sim:.2f}"
+          f" % [{card}]")
+    if not (err <= 0.05 and 0.0 < alpha < 1.0
+            and report.max_rel_err_vs_sim <= 0.10):
+        raise AssertionError("the round trip misses the reference's "
+                             "acceptance (5 %, 0 < alpha < 1, 10 %)")
+    _reset_counts()
+    t0 = time.perf_counter()
+    rep = validate(trace, cal, cluster=ClusterSpec(r=4, routing="jsq"), **kw)
+    torch.cuda.synchronize()
+    counts = _counts()
+    if not (counts["maxplus_segment_scan"] > 0 and counts["jsq_route"] > 0):
+        raise AssertionError(f"the replicated column missed a kernel: "
+                             f"{counts}")
+    print(f"  replicated column (r = 4, JSQ): max error vs it "
+          f"{100 * float(rep.rel_err_replicated.max()):.2f} %; "
+          f"{counts['maxplus_segment_scan']} segmented scans, "
+          f"{counts['jsq_route']} router launches "
+          f"({time.perf_counter() - t0:.2f} s) [{card}]")
+
+    host = trace.map(lambda x: x.cpu())
+    t0 = time.perf_counter()
+    cal_c, _ = calibrate_and_validate(host, **kw)
+    diff = _fields_close(cal.params, cal_c.params)
+    for name in ("alpha", "s_scale"):
+        x, y = float(getattr(cal, name)), float(getattr(cal_c, name))
+        diff = max(diff, abs(x - y) / abs(y))
+    plans = [capacity.plan_capacity(c.params, T5_TARGET_QPS, CAL_SLO)
+             for c in (cal, cal_c)]
+    print(f"  card vs CPU on the same trace: parameters, alpha and s_scale "
+          f"within {diff:.2e} (rtol {CAL_RTOL:g}); plans "
+          f"{plans[0].n_replicas} / {plans[1].n_replicas} replicas for "
+          f"{T5_TARGET_QPS:.0f} qps ({time.perf_counter() - t0:.1f} s on "
+          "the CPU)")
+    if not (diff <= CAL_RTOL and plans[0].n_replicas == plans[1].n_replicas):
+        raise AssertionError("the card's calibration differs from the CPU's")
+    return trace
+
+
+def _near_tie_taint(a, b, out):
+    """Elements in busy periods that hold a near-tie (``TIE_ULPS``):
+    there the two paths' rounding may decide the max differently."""
+    import torch
+    from repro_torch.kernels.maxplus_scan.ref import _shift_right
+    c = _shift_right(out, 1, -math.inf) + b
+    tol = TIE_ULPS * torch.finfo(a.dtype).eps * a.abs()
+    near = (a - c).abs() <= tol
+    seg = torch.cumsum((a - c > tol).to(torch.int64), dim=-1)
+    tainted = torch.zeros(a.shape[0], a.shape[1] + 1, dtype=torch.int64,
+                          device=a.device).scatter_add_(
+        1, seg, near.to(torch.int64)) > 0
+    return torch.gather(tainted, 1, seg)
+
+
+def phase_scan_tangent(card: str, trace) -> None:
+    """19d: the scan's forward-mode rule on the kernel, the scan's times at
+    the calibration's shapes, and a profile of the maxplus fit."""
+    import torch
+    from repro_torch.calibrate import calibrate
+    from repro_torch.core.simulator import fcfs_completion_times
+    from repro_torch.kernels.maxplus_scan import kernel
+    print(f"== phase 19d: the scan's tangent at ({ENGINE_P}, "
+          f"{trace.n_queries:,}), kernel vs plain path")
+    n = trace.n_queries
+    for dtype in (torch.float32, torch.float64):
+        tr = trace.map(lambda x: x.to(dtype))
+        done = fcfs_completion_times(tr.arrival, tr.broker_busy,
+                                     impl="torch")
+        fork = done[None, :].expand(ENGINE_P, n)
+        busy = tr.server_busy.T.contiguous()
+        one = torch.ones((), dtype=dtype, device="cuda")
+
+        def jvp(impl):
+            return torch.func.jvp(
+                lambda s: fcfs_completion_times(fork, busy * s, impl=impl),
+                (one,), (one,))
+        _reset_counts()
+        ko, kt = jvp("cuda")
+        torch.cuda.synchronize()
+        launches = _counts()["maxplus_scan"]
+        po, pt = jvp("torch")
+        rtol = SCAN_RTOL[str(dtype)]
+        primal = _rel_err(ko, po)
+        if dtype == torch.float64:
+            keep = torch.ones_like(pt, dtype=torch.bool)
+        else:
+            keep = ~_near_tie_taint(fork + busy, busy, po)
+        tan = _rel_err(kt[keep], pt[keep])
+        w = n // T5_WINDOWS
+        win_k = kt[:, :T5_WINDOWS * w].reshape(ENGINE_P, T5_WINDOWS, w).mean(-1)
+        win_p = pt[:, :T5_WINDOWS * w].reshape(ENGINE_P, T5_WINDOWS, w).mean(-1)
+        ms = _time_ms(lambda: jvp("cuda"), n=10)
+        print(f"  {str(dtype):14s}: {launches} kernel launch; primal max "
+              f"rel err {primal:.2e}; tangent max rel err {tan:.2e} over "
+              f"{100 * float(keep.float().mean()):.2f} % of the elements "
+              f"(rtol {rtol:g}; the rest lie in busy periods with a "
+              f"near-tie), window means' tangents {_rel_err(win_k, win_p):.2e}"
+              f"; jvp {ms:.3f} ms [{card}]")
+        if launches < 1 or not (primal <= rtol and tan <= rtol):
+            raise AssertionError(f"{dtype}: the tangent through the kernel "
+                                 "differs from the plain path's")
+    a = (fork + busy).to(torch.float32).contiguous()
+    b = busy.to(torch.float32)
+    for rows in (1, ENGINE_P):
+        ar, br = a[:rows].contiguous(), b[:rows].contiguous()
+        ms = _time_ms(lambda: kernel.maxplus_scan_cuda(ar, br, with_b=False))
+        bound = rows * n * 3 * 4 / HBM_BYTES_PER_S * 1e3
+        print(f"  scan at ({rows}, {n:,}) float32, out_a only: {ms:.4f} ms "
+              f"vs {bound:.5f} ms bytes bound ({100 * bound / ms:.2f} %) "
+              f"[{card}]")
+    n_iters = 20
+    wall = _wall(lambda: calibrate(trace, n_windows=T5_WINDOWS,
+                                   residual="maxplus", n_iters=n_iters))
+    _reset_counts()
+    calibrate(trace, n_windows=T5_WINDOWS, residual="maxplus",
+              n_iters=n_iters)
+    scans = _counts()["maxplus_scan"]
+    traced = phase_profile(
+        card, wall, lambda: calibrate(trace, n_windows=T5_WINDOWS,
+                                      residual="maxplus", n_iters=n_iters),
+        "phase 19d: device time by kernel, calibrate(residual='maxplus') "
+        f"on the {trace.n_queries:,}-query trace")
+    launches = sum(c for _, c in traced.values())
+    print(f"  {scans} scan launches, {launches} kernel launches in all: "
+          f"{launches / n_iters:.1f} a Gauss-Newton step ({n_iters} steps); "
+          f"wall {wall:.3f} s [{card}]")
+    _kernel_share(traced, "maxplus_scan_kernel", "(max,+) scan")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3184,6 +3562,21 @@ def main() -> int:
     t18 = time.perf_counter()
     phase_observability(card, mem7)
     print(f"== phase 18: {time.perf_counter() - t18:.1f} s [{card}]")
+    t19 = time.perf_counter()
+    eng = phase_engine(card)
+    print(f"  (phase 19a: {time.perf_counter() - t19:.1f} s)")
+    t0 = time.perf_counter()
+    phase_engine_calibration(card, eng)
+    print(f"  (phase 19b: {time.perf_counter() - t0:.1f} s)")
+    del eng
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    trace = phase_table5_roundtrip(card)
+    print(f"  (phase 19c: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    phase_scan_tangent(card, trace)
+    print(f"  (phase 19d: {time.perf_counter() - t0:.1f} s)")
+    print(f"== phase 19: {time.perf_counter() - t19:.1f} s [{card}]")
     print(json.dumps({"kernels": [scan, segment, jsq, flash, decode, bag,
                                   cin, fleet]}))
     print(card)

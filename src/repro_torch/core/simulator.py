@@ -109,6 +109,7 @@ from repro_torch.core.queueing import ServerParams, service_time_server
 from repro_torch.kernels.fleet_scan import ops as fleet_ops
 from repro_torch.kernels.jsq_route import ops as jsq_ops
 from repro_torch.launch.elastic import AutoscalePolicy, autoscale_init
+from repro_torch.kernels.maxplus_scan import autodiff as mp_autodiff
 from repro_torch.kernels.maxplus_scan import ops as mp_ops
 from repro_torch.kernels.maxplus_scan.ref import maxplus_combine
 from repro_torch.obs.timeline import TelemetrySpec, Timeline, segment_sums
@@ -165,14 +166,17 @@ def fcfs_completion_times(arrivals: Tensor, services: Tensor,
     `repro_torch.kernels.maxplus_scan.ops.resolve_scan_impl`.
     carry: optional (...,) completion time of the work *before* this
     block, which is how the streaming engine chains chunks.
+
+    Without a carry the scan has a forward-mode derivative
+    (`repro_torch.kernels.maxplus_scan.autodiff`): `torch.func.jvp`
+    through this call still runs the kernel ``impl`` picks.
     """
     a = arrivals + services
     b = services
     if carry is None:
-        out_a, _ = mp_ops.maxplus_scan(a, b, impl=impl, with_b=False)
-    else:
-        out_a, _ = mp_ops.maxplus_scan_seeded(a, b, carry, impl=impl,
-                                              with_b=False)
+        return mp_autodiff.maxplus_scan_a(a, b, impl=impl)
+    out_a, _ = mp_ops.maxplus_scan_seeded(a, b, carry, impl=impl,
+                                          with_b=False)
     return out_a
 
 

@@ -252,7 +252,9 @@ def timeline_from_trace(
     of each query (defaults to replica 0).  Tensors or arrays; the result
     lies on ``response``'s device in its dtype.  Binning conventions match
     the streaming engine: bin by arrival time, clamp past-horizon
-    arrivals into the last bin, include everything.
+    arrivals into the last bin, include everything.  A measured
+    `repro_torch.calibrate.measure.TraceRecord` bins through here with
+    ``TraceRecord.to_timeline``.
     """
     response = torch.as_tensor(response)
     dtype, device = response.dtype, response.device

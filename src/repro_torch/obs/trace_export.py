@@ -125,35 +125,6 @@ class SpanTrace:
         return events
 
 
-def _sample_arrivals(u: Tensor, proc: ArrivalProcess) -> Tensor:
-    """Arrival timestamps from unit exponentials ``u`` (n,) and a
-    single-scenario arrival process (the port's copy of the reference's
-    `calibrate.measure._sample_arrivals`).
-
-    Piecewise profiles draw each gap at the rate in force at the previous
-    arrival — per-query granularity, finer than the streaming engine's
-    rate-per-chunk read (flash crowds shorter than a chunk still show).
-    That recurrence is host-side data generation: one step per query on
-    the CPU, the result moved to ``u``'s device."""
-    n = u.shape[0]
-    if proc.trace_gaps is not None:
-        return torch.cumsum(proc.trace_gaps[:n].to(u), dim=0)
-    if proc.rates.ndim != 1:
-        raise ValueError("spans are single-scenario; rates must be 1-D, "
-                         f"got {tuple(proc.rates.shape)}")
-    if proc.n_bins == 1:
-        return torch.cumsum(
-            u / torch.clamp_min(proc.rates[0].to(u), 1e-30), dim=0)
-    host = proc.to("cpu", u.dtype)
-    uh = u.cpu()
-    t = torch.zeros((), dtype=u.dtype)
-    out = torch.empty_like(uh)
-    for i in range(n):
-        t = t + uh[i] / torch.clamp_min(host.rate_at(t), 1e-30)
-        out[i] = t
-    return out.to(u.device)
-
-
 def _stream(seed, k: int, device: torch.device) -> torch.Generator:
     """The generator of stream ``k``: its own, hashed from an integer
     seed, or the caller's generator (drawn in stream order)."""
@@ -211,6 +182,7 @@ def simulate_spans(
             draws["route"] = torch.randint(
                 0, r, (n_queries,), generator=_stream(seed, 3, dev),
                 device=dev)
+    from repro_torch.calibrate.measure import _sample_arrivals
     d = {k: torch.as_tensor(np.array(v) if isinstance(v, np.ndarray) else v,
                             device=dev) for k, v in draws.items()}
     arr = _sample_arrivals(d["arrival"].to(dtype), proc)
@@ -250,11 +222,11 @@ def simulate_spans(
 def spans_from_trace(trace, *, impl: str = "auto") -> SpanTrace:
     """Span-render a measured single-replica trace record.
 
-    ``trace`` duck-types a `TraceRecord`: ``arrival`` and ``response``
-    (n,), ``broker_busy`` (n,) and ``server_busy`` (n, p), tensors or
-    arrays.  The queue completions are the (max,+) replay of the busy
-    times, so the spans are exactly the measured system's
-    reconstruction.
+    ``trace`` is a `repro_torch.calibrate.measure.TraceRecord` (fields
+    read: ``arrival`` and ``response`` (n,), ``broker_busy`` (n,) and
+    ``server_busy`` (n, p)).  The queue completions are the (max,+)
+    replay of the busy times on the record's device, so the spans are
+    exactly the measured system's reconstruction.
     """
     srv = torch.as_tensor(trace.server_busy)
     dev = srv.device

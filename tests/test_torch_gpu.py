@@ -9,6 +9,7 @@ repro_torch only (the card's machine has no JAX), so on the card run:
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -1103,3 +1104,126 @@ def test_ctr_logits_on_the_card_go_through_the_kernels(cuda, arch):
     assert bag_ops.plain_count() == cin_ops.plain_count() == 0
     on_cpu = logits(_to_cpu(params), cfg, ids, mask)
     assert float((on_card.cpu() - on_cpu).norm() / on_cpu.norm()) <= 1e-4
+
+
+# -- the calibration loop: the engine's scorer, the scan's tangent, the fit --
+
+def _engine_world():
+    from repro_torch.engine import corpus as corpus_lib
+    from repro_torch.engine import index as index_lib
+    from repro_torch.workloadgen import querygen
+    corp = corpus_lib.generate_corpus(corpus_lib.CorpusConfig(
+        n_docs=3000, vocab_size=2000, mean_doc_len=40, seed=0))
+    uni = querygen.build_universe(querygen.WorkloadConfig(
+        "t", n_unique_queries=500, vocab_size=2000, seed=0))
+    _, qterms = querygen.sample_query_stream(uni, 128)
+    qterms = qterms.copy()
+    qterms[3] = -1                                # an empty query
+    return corp, index_lib.build_index(corp), qterms
+
+
+def test_engine_scorer_card_matches_cpu(cuda):
+    """The scorer on the card: ids equal the CPU's (-inf padding and its
+    tie order included), scores within 1e-6, the same bits from run to
+    run (one term a scatter: no colliding float atomics)."""
+    from repro_torch.engine import broker, server
+    _, idx, qterms = _engine_world()
+    srv = server.IndexServer(idx, k_local=10, device=cuda)
+    s, d = srv.process(qterms)
+    cs, cd = server.IndexServer(idx, k_local=10, device="cpu").process(
+        qterms)
+    assert torch.equal(d.cpu(), cd)
+    assert torch.equal(torch.isneginf(s.cpu()), torch.isneginf(cs))
+    fin = torch.isfinite(cs)
+    torch.testing.assert_close(s.cpu()[fin], cs[fin], rtol=1e-6, atol=0)
+    s2, d2 = srv.process(qterms)
+    assert torch.equal(s, s2) and torch.equal(d, d2)
+    ms, md = broker.merge_topk(torch.stack([s, s.flip(0)]),
+                               torch.stack([d, d.flip(0)]), k=10)
+    cms, cmd = broker.merge_topk(torch.stack([cs, cs.flip(0)]),
+                                 torch.stack([cd, cd.flip(0)]), k=10)
+    assert torch.equal(md.cpu(), cmd)
+
+
+def test_measure_engine_trace_on_card(cuda):
+    """The instrumented engine on the card: the cache split equals the
+    CPU run's, the replay runs the scan kernel, responses are finite."""
+    from repro_torch.calibrate import measure_engine_trace
+    from repro_torch.engine import partition, server
+    corp, _, qterms = _engine_world()
+    parts = partition.partition_documents(corp, 2)
+    arrivals = np.sort(np.random.default_rng(0).uniform(0, 5.0, 128))
+    traces = []
+    for dev in (cuda, "cpu"):
+        shards = [server.IndexServer(ix, k_local=5, device=dev)
+                  for ix in parts.shards]
+        ops.reset_launch_count()
+        traces.append(measure_engine_trace(shards, qterms, arrivals,
+                                           cache_bytes=50_000, batch=32))
+        if dev is cuda:
+            assert ops.launch_count() == 2
+    card, cpu = traces
+    assert torch.equal(card.server_hit.cpu(), cpu.server_hit)
+    assert torch.equal(card.server_disk.cpu(), cpu.server_disk)
+    assert bool(torch.isfinite(card.response).all())
+    assert bool((card.response > 0).all())
+
+
+def _near_tie_taint(a, b, out, ulps=16):
+    """Elements of busy periods holding a near-tie (an arrival within
+    ``ulps`` of its server going idle): there the kernel's and the plain
+    scan's rounding may take opposite sides of the max."""
+    from repro_torch.kernels.maxplus_scan.ref import _shift_right
+    c = _shift_right(out, 1, -math.inf) + b
+    tol = ulps * torch.finfo(a.dtype).eps * a.abs()
+    seg = torch.cumsum((a - c > tol).to(torch.int64), dim=-1)
+    near = ((a - c).abs() <= tol).to(torch.int64)
+    tainted = torch.zeros(a.shape[0], a.shape[1] + 1, dtype=torch.int64,
+                          device=a.device).scatter_add_(1, seg, near) > 0
+    return torch.gather(tainted, 1, seg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_scan_jvp_kernel_matches_plain(cuda, dtype):
+    """torch.func.jvp through fcfs_completion_times launches the kernel
+    and gives the plain scan's tangent: everywhere in float64 (1e-12),
+    and in float32 (1e-5) outside busy periods with a near-tie."""
+    from repro_torch.core.simulator import fcfs_completion_times
+    g = torch.Generator(device=cuda).manual_seed(0)
+    arr = torch.empty((8, 6000), dtype=dtype, device=cuda).exponential_(
+        generator=g).mul_(0.05).cumsum(-1)
+    svc = torch.empty_like(arr).exponential_(generator=g).mul_(0.04)
+    one = torch.ones((), dtype=dtype, device=cuda)
+
+    def jvp(impl):
+        return torch.func.jvp(
+            lambda s: fcfs_completion_times(arr, svc * s, impl=impl),
+            (one,), (one,))
+    ops.reset_launch_count()
+    ko, kt = jvp("auto")
+    assert ops.launch_count() == 1
+    po, pt = jvp("torch")
+    rtol = 1e-12 if dtype == torch.float64 else 1e-5
+    torch.testing.assert_close(ko, po, rtol=rtol, atol=0)
+    keep = (torch.ones_like(pt, dtype=torch.bool) if dtype == torch.float64
+            else ~_near_tie_taint(arr + svc, svc, po))
+    assert float(keep.float().mean()) > 0.5
+    torch.testing.assert_close(kt[keep], pt[keep], rtol=rtol, atol=0)
+
+
+def test_calibrate_maxplus_card_matches_cpu(cuda):
+    """A short calibrate(residual="maxplus") on the card (the scan and its
+    tangent on the kernel) against the CPU on the same float64 traces."""
+    from repro_torch.calibrate import calibrate, simulate_trace
+    true = dataclasses.replace(capacity.TABLE5_PARAMS, p=4)
+    traces = [simulate_trace(i, lam, 4_000, true, device="cpu",
+                             dtype=torch.float64)
+              for i, lam in enumerate((10.0, 20.0))]
+    ops.reset_launch_count()
+    card = calibrate([tr.map(lambda x: x.to(cuda)) for tr in traces],
+                     n_windows=6, residual="maxplus", n_iters=3)
+    assert ops.launch_count() > 0
+    cpu = calibrate(traces, n_windows=6, residual="maxplus", n_iters=3)
+    for name in ("s_scale", "alpha"):
+        torch.testing.assert_close(getattr(card, name).cpu(),
+                                   getattr(cpu, name), rtol=1e-8, atol=0)

@@ -49,6 +49,7 @@ from repro.obs import TelemetrySpec as JTelemetry
 from repro.obs import timeline as j_timeline
 from repro.obs import trace_export as j_trace
 from repro_torch import interop
+from repro_torch.calibrate.measure import TraceRecord
 from repro_torch.core import capacity, simulator, sweep
 from repro_torch.core.arrivals import ArrivalProcess
 from repro_torch.core.cluster import ClusterSpec
@@ -174,8 +175,8 @@ def test_totals_independent_of_n_bins():
 
 
 class _Record:
-    """A measured trace record's arrays (duck-typing `TraceRecord`):
-    2,000 queries at ~15 qps over p = 4 servers, float32, from a seed."""
+    """A measured trace record's arrays: 2,000 queries at ~15 qps over
+    p = 4 servers, float32, from a seed."""
 
     def __init__(self, n=2_000, p=4, seed=3):
         rng = np.random.default_rng(seed)
@@ -189,12 +190,11 @@ class _Record:
                          + rng.exponential(0.01, n)).astype(f32)
         self.n_queries = n
 
-    def as_torch(self):
-        rec = _Record.__new__(_Record)
-        for k, v in vars(self).items():
-            setattr(rec, k, torch.from_numpy(v) if isinstance(
-                v, np.ndarray) else v)
-        return rec
+    def as_torch(self) -> TraceRecord:
+        return TraceRecord(**{
+            k: torch.from_numpy(getattr(self, k)) for k in (
+                "arrival", "response", "broker_busy", "server_busy",
+                "server_hit")})
 
 
 @pytest.fixture(scope="module")
