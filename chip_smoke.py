@@ -61,7 +61,23 @@ version on the card, and drives the port's paths:
     validation with a replicated JSQ column, card against CPU (19c); the
     scan's forward-mode rule on the kernel against the plain path, the
     scan's times at the calibration's shapes, and a profile of the fit
-    (19d).
+    (19d);
+  * scenario sharding (phase 20): the 1,000,000-scenario analytic grid
+    under `make_sweep_mesh()` and an 8-way mesh on cuda:0, bitwise the
+    unsharded surfaces (20a); 16b's slab at r = 4 under JSQ with the
+    result cache split 2 and 4 ways, each shard bitwise a direct batch
+    run on its seed, its launches asserted and its peak memory beside
+    the unsharded peak (20b); phase 19a's 8-shard engine under
+    `make_search_fn(mesh)` against the stacked search (20c);
+  * MoE and Command-R serving (phase 21): `LMServer` on Qwen3-MoE-30B-A3B
+    at full width and depth, Granite-MoE-3B whole and Command-R+ at full
+    width with its depth cut to what fits the card, phase 10's slots and
+    requests, random bfloat16 weights: tokens/s, where a decode step's
+    time goes (the MoE layer's expert products against routing, dispatch
+    and combine), the kernel path's logits against the plain path's;
+  * MIND at FULL (phase 22): interests of a serve batch, then
+    retrieval_cand (one user against 1,000,000 items, top-100), card
+    against CPU.
 
 Phases 8 and 14 also print the wgmma kernels' ptxas reports (registers,
 spills, serialisation warnings) and take one tile through the shared
@@ -1078,8 +1094,6 @@ def _kv_bytes(cfg, rows: int, positions: int) -> int:
 def phase_lm_server(card: str) -> dict:
     """`LMServer` at Qwen3-8B's full width: 12 requests through 8 slots,
     admitted as slots free (continuous batching), greedy decoding."""
-    import numpy as np
-    import torch
     from repro_torch.configs import qwen3_8b
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import LMServer
@@ -1093,11 +1107,22 @@ def phase_lm_server(card: str) -> dict:
     t0 = time.perf_counter()
     model = T.init_params(0, cfg)
     srv = LMServer(cfg, model, slots=SLOTS, max_seq=MAX_SEQ)
+    return _serve_requests(card, cfg, model, srv, t0)
+
+
+def _serve_requests(card: str, cfg, model, srv, t0: float) -> dict:
+    """Drive ``srv`` (weights drawn since ``t0``): a warm-up request, then
+    the PROMPTS requests admitted as slots free, greedy decoding; the
+    attention launches asserted, tokens/s and the step against its bytes
+    bound printed."""
+    import numpy as np
+    import torch
     torch.cuda.synchronize()
     weight_bytes = sum(p.numel() * p.element_size()
                        for p in model.parameters())
-    # a decode step reads every weight once, but of the embedding table
-    # only the SLOTS rows it gathers
+    # a decode step reads every weight once (an MoE layer every expert's:
+    # the expert products are dense over the experts), but of the
+    # embedding table only the SLOTS rows it gathers
     step_weight_bytes = weight_bytes - model.embed.element_size() * (
         model.embed.numel() - SLOTS * cfg.d_model)
     print(f"  weights {weight_bytes / 1e9:.2f} GB and cache "
@@ -1168,10 +1193,11 @@ def phase_lm_server(card: str) -> dict:
     return {"cfg": cfg, "model": model, "srv": srv, "rng": rng,
             "counts": counts, "step_s": mean_step,
             "mean_len": sum(lens) / steps,
-            "step_weight_bytes": step_weight_bytes}
+            "step_weight_bytes": step_weight_bytes,
+            "decode_tok_s": decode_tokens / decode_s}
 
 
-def phase_lm_profile(card: str, lm: dict) -> None:
+def phase_lm_profile(card: str, lm: dict, phase: str = "10b") -> dict:
     """Where a decode step's time goes: 8 fresh prompts, 4 steps timed,
     then the same 4-step window under the profiler."""
     import numpy as np
@@ -1189,7 +1215,8 @@ def phase_lm_profile(card: str, lm: dict) -> None:
             srv.step()
     wall = _wall(four)
     traced = phase_profile(card, wall, four,
-                           "phase 10b: device time by kernel, 4 decode steps "
+                           f"phase {phase}: device time by kernel, 4 decode "
+                           "steps "
                            f"({cfg.name}, {SLOTS} slots, cache length "
                            f"~{PROFILE_PROMPT + 4})")
     attn = {k: v for k, v in traced.items() if "decode_mma_kernel" in k}
@@ -1204,6 +1231,7 @@ def phase_lm_profile(card: str, lm: dict) -> None:
           f"(one a layer a step, no combine kernel), "
           f"{100 * attn_ms / busy:.1f} % of the steps' device time, "
           f"{attn_ms / 4:.3f} ms a step [{card}]")
+    return traced
 
 
 def _logits_through_cache(model, cfg, prompts, steps: int = 3):
@@ -1229,50 +1257,114 @@ def _logits_through_cache(model, cfg, prompts, steps: int = 3):
     return errs
 
 
+def _logits_kernel_vs_plain(model, cfg, prompts, steps: int = 3):
+    """Prefill ``prompts`` and decode ``steps`` greedy tokens twice, each
+    path through its own cache: the kernels, and impl="torch"; returns
+    the relative L2 errors of the prefill's and each step's logits.  An
+    MoE model's expert capacity grows with the routing group's length,
+    so its cached steps (one token a group) and a prefill over the whole
+    sequence drop different tokens: the two paths are held on the same
+    computation instead."""
+    import torch
+    from repro_torch.models import transformer as T
+    b, s = prompts.shape
+    caches, logits = [], []
+    for impl in ("auto", "torch"):
+        lg, pre = T.prefill(model, cfg, prompts, chunk=s, impl=impl)
+        cache = T.init_kv_cache(cfg, b, s + steps)
+        cache["k"][:, :, :s], cache["v"][:, :, :s] = pre["k"], pre["v"]
+        cache["len"] = s
+        caches.append(cache)
+        logits.append(lg)
+    errs = [_rel_l2(logits[0][:, -1], logits[1][:, -1])]
+    for _ in range(steps):
+        nxt = logits[1][:, -1].argmax(dim=-1, keepdim=True)
+        for j, impl in enumerate(("auto", "torch")):
+            logits[j], caches[j] = T.decode_step(model, cfg, nxt, caches[j],
+                                                 impl=impl)
+        errs.append(_rel_l2(logits[0][:, 0], logits[1][:, 0]))
+    del caches
+    torch.cuda.empty_cache()
+    return errs
+
+
 def _rel_l2(x, y) -> float:
     return float((x.float() - y.float()).norm() / y.float().norm())
 
 
 def phase_lm_correctness(card: str, lm: dict) -> None:
     """Full-width logits through the kernel path against the plain path."""
-    import dataclasses
-    import torch
-    from repro_torch.models import transformer as T
     print("== phase 11: full-width logits, kernel path vs plain path")
-    cfg, model, srv = lm["cfg"], lm["model"], lm["srv"]
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    prompts = torch.randint(0, cfg.vocab_size, (SLOTS, CHECK_PROMPT),
-                            device="cuda", generator=gen)
-    errs = _logits_through_cache(model, cfg, prompts)
-    print(f"  1. {cfg.name} bfloat16, {SLOTS} equal {CHECK_PROMPT}-token "
-          f"prompts, 3 "
-          f"steps through the cache vs plain prefill of the whole sequence: "
-          f"relative L2 {', '.join(f'{e:.2e}' for e in errs)} (limit "
-          f"{BF16_LOGITS_RTOL:g})")
-    if not max(errs) <= BF16_LOGITS_RTOL:
-        raise AssertionError(f"bfloat16 logits differ by {max(errs)}")
+    _check_cache_path(card, lm["cfg"], lm["model"], "1.")
+    _check_f32_layers(card, lm["cfg"], "2.")
+    _check_server_step(card, lm["cfg"], lm["model"], lm["srv"], "3.")
 
+
+def _model_paths(model, cfg, prompts):
+    """(relative L2 errors, what was compared) of the kernel path against
+    the plain path: a dense model's cache against the plain prefill of
+    the whole sequence, an MoE model's two paths step by step."""
+    if cfg.moe is None:
+        return (_logits_through_cache(model, cfg, prompts),
+                "3 steps through the cache vs plain prefill of the whole "
+                "sequence")
+    return (_logits_kernel_vs_plain(model, cfg, prompts),
+            "prefill + 3 steps, kernels vs impl=\"torch\", each through "
+            "its own cache")
+
+
+def _check_prompts(cfg):
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    return torch.randint(0, cfg.vocab_size, (SLOTS, CHECK_PROMPT),
+                         device="cuda", generator=gen)
+
+
+def _check_cache_path(card: str, cfg, model, label: str) -> None:
+    """Prefill and 3 steps through the cache (the kernels) against the
+    plain prefill of the whole sequence, in the model's bfloat16; an MoE
+    model against the plain path's own prefill and steps
+    (`_logits_kernel_vs_plain`)."""
+    errs, how = _model_paths(model, cfg, _check_prompts(cfg))
+    print(f"  {label} {cfg.name} bfloat16, {SLOTS} equal {CHECK_PROMPT}-"
+          f"token prompts, {how}: relative L2 "
+          f"{', '.join(f'{e:.2e}' for e in errs)} (limit "
+          f"{BF16_LOGITS_RTOL:g}) [{card}]")
+    if not max(errs) <= BF16_LOGITS_RTOL:
+        raise AssertionError(f"{cfg.name}: bfloat16 logits differ by "
+                             f"{max(errs)}")
+
+
+def _check_f32_layers(card: str, cfg, label: str) -> None:
+    """The same check on a 2-layer float32 model at the config's width."""
+    import dataclasses
+    from repro_torch.models import transformer as T
     cfg2 = dataclasses.replace(cfg, name=f"{cfg.name}-2-layer-f32",
                                n_layers=2, dtype="float32")
     model2 = T.init_params(1, cfg2)
-    errs = _logits_through_cache(model2, cfg2, prompts)
-    print(f"  2. {cfg2.name} (full width), same check: relative L2 "
+    errs, _ = _model_paths(model2, cfg2, _check_prompts(cfg))
+    print(f"  {label} {cfg2.name} (full width), same check: relative L2 "
           f"{', '.join(f'{e:.2e}' for e in errs)} (limit "
-          f"{F32_LOGITS_RTOL:g})")
+          f"{F32_LOGITS_RTOL:g}) [{card}]")
     if not max(errs) <= F32_LOGITS_RTOL:
-        raise AssertionError(f"float32 logits differ by {max(errs)}")
-    del model2
+        raise AssertionError(f"{cfg2.name}: float32 logits differ by "
+                             f"{max(errs)}")
 
+
+def _check_server_step(card: str, cfg, model, srv, label: str) -> None:
+    """The server's next decode step, kernels against impl="torch"."""
+    from repro_torch.models import transformer as T
     cur, length = srv.decode_inputs()
     cache = {"k": srv.cache["k"], "v": srv.cache["v"], "len": length}
     plain, _ = T.decode_step(model, cfg, cur, cache, impl="torch")
     kern, _ = T.decode_step(model, cfg, cur, cache)
     err = _rel_l2(kern[:, 0], plain[:, 0])
-    print(f"  3. the server's next step (cache length {length}), kernel vs "
-          f"impl=\"torch\": relative L2 {err:.2e} (limit "
+    print(f"  {label} the server's next step (cache length {length}), "
+          f"kernel vs impl=\"torch\": relative L2 {err:.2e} (limit "
           f"{BF16_LOGITS_RTOL:g}) [{card}]")
     if not err <= BF16_LOGITS_RTOL:
-        raise AssertionError(f"server step logits differ by {err}")
+        raise AssertionError(f"{cfg.name}: server step logits differ by "
+                             f"{err}")
 
 
 def phase_planner(card: str, lm: dict) -> None:
@@ -1716,6 +1808,20 @@ def _same_surface(x, y, what: str, rtol: float = 1e-5) -> float:
     return err
 
 
+def _global_grid(device):
+    """examples/global_sweep.py's 1,000,000-scenario grid (Table 5 base,
+    the result cache)."""
+    import torch
+    from repro_torch.core import capacity, sweep
+    return sweep.SweepGrid.build(
+        lam=torch.linspace(10.0, 120.0, 100),
+        p=[50.0, 100.0, 200.0, 400.0], cpu=torch.linspace(1.0, 3.0, 5),
+        disk=torch.linspace(1.0, 3.0, 5),
+        hit=torch.linspace(0.05, 0.95, 20), r=[1.0, 2.0, 4.0, 8.0, 16.0],
+        base=capacity.TABLE5_PARAMS, result_cache=RESULT_CACHE,
+        device=device)
+
+
 def phase_whatif(card: str) -> None:
     """16a: examples/whatif_sweep.py's Table 6 columns through
     plan_over_grid, the Scenario 4 point, upgrade_grid against the CPU,
@@ -1751,15 +1857,7 @@ def phase_whatif(card: str) -> None:
     print(f"  upgrade_grid(56 qps), memory 1-4: card vs CPU max rel err "
           f"{err:.2e} (rtol 1e-5)")
 
-    def global_grid(device):
-        return sweep.SweepGrid.build(
-            lam=torch.linspace(10.0, 120.0, 100),
-            p=[50.0, 100.0, 200.0, 400.0], cpu=torch.linspace(1.0, 3.0, 5),
-            disk=torch.linspace(1.0, 3.0, 5),
-            hit=torch.linspace(0.05, 0.95, 20), r=[1.0, 2.0, 4.0, 8.0, 16.0],
-            base=capacity.TABLE5_PARAMS, result_cache=RESULT_CACHE,
-            device=device)
-    grid = global_grid("cuda")
+    grid = _global_grid("cuda")
     n = grid.n_scenarios
     if n != 1_000_000:
         raise AssertionError(f"the global grid has {n} scenarios")
@@ -1767,7 +1865,7 @@ def phase_whatif(card: str) -> None:
     wall = _wall(lambda: sweep.sweep_analytical(grid))
     ms = _time_ms(lambda: sweep.sweep_analytical(grid), n=20)
     res = sweep.sweep_analytical(grid)
-    ref = sweep.sweep_analytical(global_grid("cpu"))
+    ref = sweep.sweep_analytical(_global_grid("cpu"))
     errs = [_same_surface(getattr(res, f), getattr(ref, f), f"global {f}")
             for f in ("response_lower", "response_upper", "utilization")]
     phase_profile(card, wall, lambda: sweep.sweep_analytical(grid),
@@ -3477,6 +3575,454 @@ def phase_scan_tangent(card: str, trace) -> None:
     _kernel_share(traced, "maxplus_scan_kernel", "(max,+) scan")
 
 
+# -- phase 20: scenario sharding ---------------------------------------------
+SHARD_WAYS = (2, 4)              # 20b: 16b's slab split 2 and 4 ways
+SHARD20_QUERIES = 64 * CHUNK     # 262,144 queries a scenario (64 chunks)
+SHARD20_SEED = 20
+SEARCH_RTOL = 1e-6               # 20c: mesh vs stacked search scores
+
+
+class _BatchPeaks:
+    """Wall and peak device memory (above what was allocated before the
+    call) of each `simulate_fork_join_batch` call, while in a ``with``
+    block."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core import simulator
+        self.calls, self._orig = [], simulator.simulate_fork_join_batch
+
+        def measured(*args, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            res = self._orig(*args, **kw)
+            torch.cuda.synchronize()
+            self.calls.append((time.perf_counter() - t0,
+                               torch.cuda.max_memory_allocated() - base))
+            return res
+        simulator.simulate_fork_join_batch = measured
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import simulator
+        simulator.simulate_fork_join_batch = self._orig
+
+
+def _same_result(a, b, what: str) -> None:
+    """Every set field of two SimResults equal, bit for bit."""
+    import dataclasses
+    import torch
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if (x is None) != (y is None):
+            raise AssertionError(f"{what}: {f.name} set on one side only")
+        if x is not None and not torch.equal(x, y):
+            raise AssertionError(f"{what}: {f.name} differs")
+
+
+def phase_sharding(card: str, part, qterms) -> None:
+    """20a-c: the analytic grid, 16b's slab and the engine over meshes."""
+    import torch
+    from repro_torch.core import simulator, sweep
+    from repro_torch.core.arrivals import ArrivalProcess
+    from repro_torch.core.cluster import ClusterSpec
+    from repro_torch.core.queueing import ServerParams
+    from repro_torch.engine import distributed
+    from repro_torch.launch.mesh import make_mesh, make_sweep_mesh
+    n_gpu = torch.cuda.device_count()
+    print(f"== phase 20a: the 1,000,000-scenario analytic grid under "
+          f"make_sweep_mesh() ({n_gpu} GPU{'s' * (n_gpu != 1)}) and an "
+          "8-way mesh on cuda:0")
+    grid = _global_grid("cuda")
+    base = sweep.sweep_analytical(grid)
+    fields = ("response_lower", "response_upper", "utilization")
+    for what, mesh in (("make_sweep_mesh()", make_sweep_mesh()),
+                       ("8 x cuda:0", make_sweep_mesh(
+                           devices=["cuda:0"] * 8))):
+        res = sweep.sweep_analytical(grid, mesh=mesh)       # warm-up
+        for f in fields:
+            if not torch.equal(getattr(res, f), getattr(base, f)):
+                raise AssertionError(f"20a {what}: {f} is not bitwise the "
+                                     "unsharded surface")
+        wall = _wall(lambda: sweep.sweep_analytical(grid, mesh=mesh))
+        ms = _time_ms(lambda: sweep.sweep_analytical(grid, mesh=mesh), n=20)
+        print(f"  {what}, {mesh.size} shard{'s' * (mesh.size != 1)}: "
+              f"bitwise the unsharded surfaces; {wall * 1e3:.2f} ms wall, "
+              f"mean of 20 calls {ms:.3f} ms = "
+              f"{grid.n_scenarios / ms * 1e3:.4g} scenarios/s [{card}]")
+    ms = _time_ms(lambda: sweep.sweep_analytical(grid), n=20)
+    print(f"  unsharded, same call: mean of 20 {ms:.3f} ms")
+
+    n_chunks = SHARD20_QUERIES // CHUNK
+    print(f"== phase 20b: 16b's slab (p = {P}, {len(SIM16_LAM) * len(SIM16_SPEEDS) ** 2}"
+          f" scenarios, r = {R}, JSQ, result cache) sharded "
+          f"{' and '.join(map(str, SHARD_WAYS))} ways on cuda:0, "
+          f"{SHARD20_QUERIES:,} queries a scenario")
+    grid = sweep.SweepGrid.build(
+        lam=SIM16_LAM, p=[float(P)], cpu=SIM16_SPEEDS, disk=SIM16_SPEEDS,
+        memory=1, r=[float(R)], result_cache=RESULT_CACHE, device="cuda")
+    kw = dict(n_queries=SHARD20_QUERIES, chunk_size=CHUNK,
+              cluster=ClusterSpec(routing="jsq"))
+    sweep.sweep_simulated(grid, SHARD20_SEED, n_queries=CHUNK,
+                          chunk_size=CHUNK, cluster=kw["cluster"])
+    with _BatchPeaks() as one:
+        sweep.sweep_simulated(grid, SHARD20_SEED, **kw)
+    (wall1, peak1), = one.calls
+    n_scen = grid.n_scenarios
+    print(f"  unsharded: {wall1:.3f} s = {n_scen * SHARD20_QUERIES / wall1:.4g}"
+          f" queries/s, peak {peak1 / 2**20:.1f} MiB above the inputs "
+          f"[{card}]")
+    lam_full, params_full = grid.broadcast_full()
+
+    def slab(x):
+        return x.movedim((1, 5), (0, 1))[0, 0].reshape(-1)
+    lam = slab(lam_full)
+    pfields = {f: slab(getattr(params_full, f))
+               for f in ServerParams.__dataclass_fields__}
+    cell = ClusterSpec(r=R, routing="jsq", result_cache=RESULT_CACHE)
+    for ways in SHARD_WAYS:
+        mesh = make_sweep_mesh(devices=["cuda:0"] * ways)
+        _reset_counts()
+        t0 = time.perf_counter()
+        with _BatchPeaks() as pk:
+            res = sweep.sweep_simulated(grid, SHARD20_SEED, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        expect = {"maxplus_scan": 0,
+                  "maxplus_segment_scan": 3 * n_chunks * ways,
+                  "jsq_route": n_chunks * ways, "fleet_scan": 0}
+        if counts != expect:
+            raise AssertionError(f"20b {ways} ways: launches {counts}, "
+                                 f"expected {expect}")
+        flat = res.stats.map(lambda x: x[:, 0, :, :, :, 0].reshape(
+            (n_scen,) + x.shape[6:]))
+        per = n_scen // ways
+        seed_k = simulator._mix(SHARD20_SEED, 0)
+        for d in range(ways):
+            sl = slice(d * per, (d + 1) * per)
+            direct = simulator.simulate_fork_join_batch(
+                simulator._mix(seed_k, d),
+                ArrivalProcess.stationary(lam[sl], device="cuda"),
+                ServerParams(**{k: v[sl] for k, v in pfields.items()}),
+                SHARD20_QUERIES, p=P, chunk_size=CHUNK, cluster=cell,
+                device="cuda")
+            _same_result(flat.map(lambda x: x[sl]), direct,
+                         f"20b {ways} ways, shard {d}")
+        if not bool(torch.isfinite(res.mean).all()):
+            raise AssertionError(f"20b {ways} ways: non-finite means")
+        print(f"  {ways} ways: each shard bitwise its direct batch run on "
+              f"seed _mix(_mix({SHARD20_SEED}, 0), d); launches {counts}; "
+              f"{wall:.3f} s = {n_scen * SHARD20_QUERIES / wall:.4g} "
+              f"queries/s [{card}]")
+        print(f"    shards: walls {', '.join(f'{w:.3f}' for w, _ in pk.calls)}"
+              f" s; peaks {', '.join(f'{m / 2**20:.1f}' for _, m in pk.calls)}"
+              f" MiB (unsharded {peak1 / 2**20:.1f} MiB, / {ways} = "
+              f"{peak1 / ways / 2**20:.1f})")
+
+    print(f"== phase 20c: phase 19a's {ENGINE_P}-shard engine under "
+          f"make_search_fn(make_mesh(({n_gpu},), (\"servers\",)))")
+    stacked = distributed.stack_shards(part, device="cuda")
+    batch = torch.as_tensor(qterms[:ENGINE_BATCH], device="cuda")
+    stack_fn = distributed.make_search_fn(None, stacked, k=ENGINE_K)
+    mesh_fn = distributed.make_search_fn(
+        make_mesh((n_gpu,), ("servers",)), stacked, k=ENGINE_K)
+    (s1, d1), (s2, d2) = stack_fn(batch), mesh_fn(batch)
+    if not torch.equal(d1.cpu(), d2.cpu()):
+        raise AssertionError("20c: mesh search ids differ from the stacked "
+                             "search's")
+    if not torch.equal(torch.isneginf(s1).cpu(), torch.isneginf(s2).cpu()):
+        raise AssertionError("20c: -inf entries differ")
+    fin = torch.isfinite(s1)
+    err = _rel_err(s2[fin].to(s1.device), s1[fin])
+    if not err <= SEARCH_RTOL:
+        raise AssertionError(f"20c: scores differ by {err} > {SEARCH_RTOL}")
+    ms_stack = _time_ms(lambda: stack_fn(batch), n=10)
+    ms_mesh = _time_ms(lambda: mesh_fn(batch), n=10)
+    print(f"  ids equal, scores max rel err {err:.2e} (rtol {SEARCH_RTOL:g});"
+          f" a batch of {ENGINE_BATCH}: stacked {ms_stack:.3f} ms, mesh "
+          f"{ms_mesh:.3f} ms [{card}]")
+    if n_gpu == 1:
+        print("  one GPU: every shard ran on cuda:0 in turn; no "
+              "cross-device overlap was measured")
+
+
+# -- phase 21: MoE and Command-R serving ---------------------------------------
+LM21 = ("qwen3-moe-30b-a3b", "granite-moe-3b-a800m", "command-r-plus-104b")
+# device memory left free beside the weights and the cache: prefill and
+# decode activations, the plain-path checks (an MoE prefill of 2,048
+# tokens holds its (S*k, E) slot counts and (E, C, d) buffers)
+LM21_RESERVE = 10 * 2**30
+
+
+def _fit_depth(cfg) -> int:
+    """The most layers of ``cfg`` whose bfloat16 weights and 8 x 4096
+    cache fit the card's free memory beside LM21_RESERVE, or beside the
+    float32 draw of the largest weight while `init_params` fills it, if
+    that is larger."""
+    import dataclasses
+    import torch
+    from repro_torch.models import transformer as T
+    meta = T.Transformer(dataclasses.replace(cfg, n_layers=1), device="meta")
+    nbytes = [p.numel() * p.element_size() for p in meta.parameters()]
+    layer = sum(p.numel() * p.element_size()
+                for p in meta.layers[0].parameters())
+    rest = sum(nbytes) - layer
+    per = layer + _kv_bytes(dataclasses.replace(cfg, n_layers=1), SLOTS,
+                            MAX_SEQ)
+    reserve = max(LM21_RESERVE,
+                  4 * max(p.numel() for p in meta.parameters()))
+    free, _ = torch.cuda.mem_get_info()
+    return min(cfg.n_layers, int((free - rest - reserve) // per))
+
+
+GEMM_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")   # cuBLAS kernel names
+
+
+def _moe_decode_split(card: str, cfg, model) -> None:
+    """Where one MoE layer's decode time goes: `moe_ffn` at the decode
+    shape (SLOTS, 1, d) traced, its cuBLAS kernels (the three expert
+    products, dense over all E experts, one slot each) against the rest
+    (routing, dispatch and combine), beside the products' bytes bound."""
+    import torch
+    from repro_torch.models import moe as moe_lib
+    blk = model.layers[0].moe
+    e = cfg.moe.n_experts_padded or cfg.moe.n_experts
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    y = torch.randn(SLOTS, 1, cfg.d_model, device="cuda", generator=gen
+                    ).to(torch.bfloat16)
+    run = lambda: moe_lib.moe_ffn(blk, cfg.moe, y)      # noqa: E731
+    run()
+    traced = phase_profile(card, _wall(run), run,
+                           f"phase 21b: one {cfg.name} MoE layer at decode "
+                           f"({SLOTS} tokens, top-{cfg.moe.top_k} of {e})")
+    busy = sum(ms for ms, _ in traced.values())
+    launches = sum(n for _, n in traced.values())
+    gemm = [v for k, v in traced.items()
+            if any(g in k for g in GEMM_KERNELS)]
+    prod = sum(ms for ms, _ in gemm)
+    expert_bytes = sum(w.numel() * w.element_size()
+                       for w in (blk.w_gate, blk.w_up, blk.w_down))
+    bound = expert_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"  one MoE layer: {busy:.4f} ms device in {launches} launches; "
+          f"expert products {prod:.4f} ms in {sum(n for _, n in gemm)} "
+          f"launches (bytes bound {bound:.4f} ms: every expert's "
+          f"{expert_bytes / 1e6:.1f} MB read for 1 slot each), routing, "
+          f"dispatch and combine {busy - prod:.4f} ms; x {cfg.n_layers} "
+          f"layers = {busy * cfg.n_layers:.2f} ms a step [{card}]")
+
+
+def _same_routing(blk, cfg, a, b) -> float:
+    """Share of tokens whose top-k expert set is the same on the layer
+    inputs ``a`` and ``b`` (the residual streams before the MoE)."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as moe_lib
+    sets = [torch.sort(moe_lib._route(blk.moe, cfg.moe, L.rmsnorm(
+        blk.ln_mlp, x))[2], dim=-1).values for x in (a, b)]
+    return float((sets[0] == sets[1]).all(dim=-1).float().mean())
+
+
+def _attention_layerwise(model, cfg, tokens, cache, length: int,
+                         steps: int):
+    """An MoE model's attention kernels held layer by layer on the plain
+    path's inputs: from position ``length`` of ``cache`` (0: prefill
+    ``tokens`` (B, S) first), each layer's attention through the kernel
+    and the plain version on the same normed input, then the plain
+    path's layer output goes on; ``steps`` greedy decode steps follow.
+    Returns the relative L2 errors of every layer's attention output
+    and the share of tokens routed to the same experts on the two."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    dims = T._dims(cfg)
+    errs, agree = [], []
+
+    def layer(i, blk, x, attend):
+        xn = L.rmsnorm(blk.ln_attn, x)
+        hk, hp = attend(xn, "auto"), attend(xn, "torch")
+        errs.append(_rel_l2(hk, hp))
+        agree.append(_same_routing(blk, cfg, x + hk, x + hp))
+        return T._mlp_residual(blk, cfg, x + hp)
+
+    if length == 0:
+        s = tokens.shape[1]
+        x = T._embed(model, cfg, tokens)
+        for i, blk in enumerate(model.layers):
+            def attend(xn, impl, blk=blk, i=i):
+                h, k, v = L.attention_prefill_chunked(blk.attn, dims, xn,
+                                                      chunk=s, impl=impl)
+                cache["k"][i, :, :s], cache["v"][i, :, :s] = k, v
+                return h
+            x = layer(i, blk, x, attend)
+        tokens = T._logits(model, cfg, x[:, -1:]).argmax(-1)
+        length = s
+    for _ in range(steps):
+        x = T._embed(model, cfg, tokens)
+        for i, blk in enumerate(model.layers):
+            def attend(xn, impl, blk=blk, i=i):
+                return L.attention_decode(blk.attn, dims, xn, cache["k"][i],
+                                          cache["v"][i], length,
+                                          impl=impl)[0]
+            x = layer(i, blk, x, attend)
+        tokens = T._logits(model, cfg, x).argmax(-1)
+        length += 1
+    return errs, agree
+
+
+def _check_moe_layers(card: str, cfg, model, srv) -> None:
+    """21.1-21.2 for an MoE model: its attention kernels layer by layer
+    at full width and depth (`_attention_layerwise`), from fresh prompts
+    and from the server's cache; and, for the record, the two paths run
+    freely, whose logits part once a near-tie routes a token to another
+    expert."""
+    from repro_torch.models import transformer as T
+    limit = ATTN_ROW_RTOL["torch.bfloat16"]
+    prompts = _check_prompts(cfg)
+    cache = T.init_kv_cache(cfg, SLOTS, CHECK_PROMPT + 3)
+    runs = (("21.1", f"{SLOTS} equal {CHECK_PROMPT}-token prompts, prefill "
+             "+ 3 steps", prompts, cache, 0, 3),)
+    cur, length = srv.decode_inputs()
+    runs += (("21.2", f"the server's next step (cache length {length})",
+              cur, srv.cache, length, 1),)
+    for label, what, tokens, kv, start, steps in runs:
+        errs, agree = _attention_layerwise(model, cfg, tokens, kv, start,
+                                           steps)
+        print(f"  {label} {cfg.name} bfloat16, {what}: each of "
+              f"{cfg.n_layers} layers' attention, kernel vs plain on the "
+              f"plain path's input: relative L2 max {max(errs):.2e} (limit "
+              f"{limit:g}); tokens routed alike {100 * min(agree):.1f}-"
+              f"{100 * max(agree):.1f} % [{card}]")
+        if not max(errs) <= limit:
+            raise AssertionError(f"{cfg.name}: a layer's attention differs "
+                                 f"by {max(errs)}")
+    free = _logits_kernel_vs_plain(model, cfg, prompts)
+    print(f"    free-running (recorded, not a gate): prefill + 3 steps, "
+          f"kernels vs impl=\"torch\", each through its own cache: "
+          f"relative L2 {', '.join(f'{e:.2e}' for e in free)}")
+
+
+def phase_moe_serving(card: str) -> dict:
+    """21: `LMServer` on Qwen3-MoE-30B-A3B (full width and depth),
+    Granite-MoE-3B (whole) and Command-R+ (full width, depth cut to what
+    fits), phase 10's slots, lengths and requests, random bfloat16
+    weights; logits against the plain path, tokens/s, where a decode
+    step's time goes.  Returns {arch: counts}."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import LMServer
+    out = {}
+    for arch in LM21:
+        torch.cuda.empty_cache()
+        cfg = registry.get_arch(arch).config
+        depth = _fit_depth(cfg)
+        cut = ""
+        if depth < cfg.n_layers:
+            cut = (f", DEPTH CUT {cfg.n_layers} -> {depth} layers (the "
+                   f"full depth's bfloat16 weights exceed the card)")
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        moe = cfg.moe
+        what = ("dense" if moe is None else
+                f"MoE {moe.n_experts} experts (padded "
+                f"{moe.n_experts_padded}) top-{moe.top_k}, d_expert "
+                f"{moe.d_expert}")
+        print(f"== phase 21: LMServer, {cfg.name} at full width "
+              f"({cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, "
+              f"qk_norm {cfg.qk_norm}, {what}, vocab {cfg.vocab_padded})"
+              f"{cut}; bfloat16, random weights (seed 0), {SLOTS} slots, "
+              f"{len(PROMPTS)} requests")
+        t0 = time.perf_counter()
+        model = T.init_params(0, cfg)
+        srv = LMServer(cfg, model, slots=SLOTS, max_seq=MAX_SEQ)
+        lm = _serve_requests(card, cfg, model, srv, t0)
+        traced = phase_lm_profile(card, lm, "21b")
+        launches = sum(n for _, n in traced.values()) / 4
+        print(f"  {launches:.0f} kernel launches a decode step (traced)")
+        if moe is not None:
+            _moe_decode_split(card, cfg, model)
+            _check_moe_layers(card, cfg, model, srv)
+        else:
+            _check_cache_path(card, cfg, model, "21.1")
+            _check_server_step(card, cfg, model, srv, "21.2")
+        out[arch] = dict(lm["counts"], tok_s=lm["decode_tok_s"])
+        del lm, srv, model, traced
+        torch.cuda.empty_cache()
+        _check_f32_layers(card, cfg, "21.3")
+    return out
+
+
+# -- phase 22: MIND retrieval -----------------------------------------------
+MIND_K = 100                     # retrieval_cand's top-100
+MIND_INTEREST_RTOL = 1e-2        # bfloat16 interests, card vs CPU, rel L2
+
+
+def phase_mind(card: str) -> None:
+    """22: MIND at FULL: a serve batch of interests, then retrieval_cand
+    (one user, 1,000,000 candidates, top-100), card against CPU."""
+    import torch
+    from repro_torch.configs import mind
+    from repro_torch.data import recsys_data
+    from repro_torch.models import recsys as RS
+    cfg = mind.FULL
+    print(f"== phase 22: MIND at FULL ({cfg.item_vocab:,} items, D = "
+          f"{cfg.embed_dim}, H = {cfg.hist_len}, K = {cfg.n_interests}, "
+          f"{cfg.capsule_iters} routing iterations), {cfg.dtype}, random "
+          "weights (seed 0)")
+    params = RS.init_mind(0, cfg)
+    cpu = {k: (v.cpu() if torch.is_tensor(v)
+               else [{n: t.cpu() for n, t in lyr.items()} for lyr in v])
+           for k, v in params.items()}
+    hist, mask, _ = recsys_data.mind_batch(cfg, REC_P99)
+    h, m = (torch.as_tensor(x, device="cuda") for x in (hist, mask))
+    u = RS.mind_user_interests(params, cfg, h, m)
+    err = _rel_l2(u.cpu(), RS.mind_user_interests(
+        cpu, cfg, torch.as_tensor(hist), torch.as_tensor(mask)))
+    if not err <= MIND_INTEREST_RTOL:
+        raise AssertionError(f"22: interests card vs CPU rel L2 {err}")
+    ms = _time_ms(lambda: RS.mind_user_interests(params, cfg, h, m), n=20)
+    dev_ms = _device_ms(lambda: RS.mind_user_interests(params, cfg, h, m),
+                        n=20)
+    print(f"  interests of a serve batch (B = {REC_P99}): {ms:.3f} ms a call"
+          f" ({dev_ms:.3f} ms device) = {REC_P99 / ms * 1e3:.4g} users/s; "
+          f"card vs CPU rel L2 {err:.2e} (limit {MIND_INTEREST_RTOL:g}) "
+          f"[{card}]")
+
+    cand = torch.arange(cfg.item_vocab, device="cuda")
+    s, i = RS.mind_retrieve(params, cfg, h[:1], m[:1], cand, k=MIND_K)
+    if s.shape != (1, MIND_K) or not bool(torch.isfinite(s).all()):
+        raise AssertionError(f"22: retrieval gave {tuple(s.shape)} scores, "
+                             "or non-finite ones")
+    ms = _time_ms(lambda: RS.mind_retrieve(params, cfg, h[:1], m[:1], cand,
+                                           k=MIND_K), n=20)
+    dev_ms = _device_ms(lambda: RS.mind_retrieve(params, cfg, h[:1], m[:1],
+                                                 cand, k=MIND_K), n=20)
+    # the ranking half on the same interests, card against CPU
+    u1 = RS.mind_user_interests(params, cfg, h[:1], m[:1])
+    cs, ci = (x[0].cpu() for x in RS.mind_topk(params, u1, cand, MIND_K))
+    ps, pi = (x[0] for x in RS.mind_topk(cpu, u1.cpu(), cand.cpu(), MIND_K))
+    kth = float(ps[-1])
+    if float(cs[-1]) != kth:
+        raise AssertionError(f"22: k-th score {float(cs[-1])} on the card, "
+                             f"{kth} on the CPU")
+    above = ps > kth
+    if not (torch.equal(ci[above], pi[above])
+            and torch.equal(cs[above], ps[above])):
+        raise AssertionError("22: ids or scores above the k-th differ from "
+                             "the CPU's")
+    ties = int((ps == kth).sum())
+    same_ties = int((ci[~above] == pi[~above]).sum())
+    print(f"  retrieval_cand (B = 1, C = {cfg.item_vocab:,}, top-{MIND_K}): "
+          f"{ms:.3f} ms a call ({dev_ms:.3f} ms device) [{card}]")
+    print(f"    card vs CPU on the same interests: k-th score {kth:.6g} "
+          f"equal; the {int(above.sum())} ids above it equal, scores "
+          f"bitwise; {ties} of the top-{MIND_K} tie the k-th score "
+          f"({same_ties} of them the same ids)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3568,6 +4114,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_engine_calibration(card, eng)
     print(f"  (phase 19b: {time.perf_counter() - t0:.1f} s)")
+    part, qterms = eng["part"], eng["qterms"]     # phase 20c's engine
     del eng
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3577,6 +4124,19 @@ def main() -> int:
     phase_scan_tangent(card, trace)
     print(f"  (phase 19d: {time.perf_counter() - t0:.1f} s)")
     print(f"== phase 19: {time.perf_counter() - t19:.1f} s [{card}]")
+    del trace
+    torch.cuda.empty_cache()
+    t20 = time.perf_counter()
+    phase_sharding(card, part, qterms)
+    print(f"== phase 20: {time.perf_counter() - t20:.1f} s [{card}]")
+    del part, qterms
+    torch.cuda.empty_cache()
+    t21 = time.perf_counter()
+    phase_moe_serving(card)
+    print(f"== phase 21: {time.perf_counter() - t21:.1f} s [{card}]")
+    t22 = time.perf_counter()
+    phase_mind(card)
+    print(f"== phase 22: {time.perf_counter() - t22:.1f} s [{card}]")
     print(json.dumps({"kernels": [scan, segment, jsq, flash, decode, bag,
                                   cin, fleet]}))
     print(card)

@@ -1,9 +1,10 @@
 """``arch id -> ArchSpec`` over the architectures the port can run.
 
 The reference's registry (`repro.configs.registry`) lists ten; the port
-lists the dense, qk-norm GQA language models its serving path runs and
-the three CTR recommenders whose logits it serves (MIND is not ported).  Any
-other id raises `KeyError`, as the reference does for an unknown one.
+lists the nine its serving paths run: the dense and MoE GQA language
+models (Qwen3, Command-R, Qwen3-MoE, Granite-MoE), the three CTR
+recommenders and MIND.  DimeNet is not ported: its id, like any other,
+raises `KeyError`, as the reference does for an unknown one.
 """
 
 from __future__ import annotations
@@ -17,9 +18,13 @@ __all__ = ["get_arch", "list_archs"]
 _MODULES = {
     "qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
     "qwen3-8b": "repro_torch.configs.qwen3_8b",
+    "command-r-plus-104b": "repro_torch.configs.command_r_plus_104b",
+    "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
     "deepfm": "repro_torch.configs.deepfm",
     "xdeepfm": "repro_torch.configs.xdeepfm",
     "autoint": "repro_torch.configs.autoint",
+    "mind": "repro_torch.configs.mind",
 }
 
 

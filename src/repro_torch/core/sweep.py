@@ -31,14 +31,17 @@ simulation-only, and the frontier prices policy cells by their observed
 replica-seconds.
 
 The grid's tensors live on one device (``SweepGrid.build(device=...)``,
-default ``cuda``) and every surface is computed there.  Telemetry and
-scenario sharding (``mesh=``) are not ported yet and raise, naming their
-ROADMAP queue 1 item.
+default ``cuda``) and every surface comes back there.  ``mesh=`` (a 1-D
+`repro_torch.launch.mesh.make_sweep_mesh`) shards the scenarios across
+the mesh's devices: scenarios never communicate, so shard d is
+evaluated on ``mesh.devices[d]`` and the pieces are gathered onto the
+grid's device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Optional, Sequence, Union
 
@@ -51,13 +54,16 @@ from repro_torch.core.cluster import ClusterSpec
 from repro_torch.core.faults import FaultSpec
 from repro_torch.core.queueing import ServerParams
 from repro_torch.launch.elastic import AutoscalePolicy
+from repro_torch.launch.mesh import DeviceMesh
 from repro_torch.obs.timeline import TelemetrySpec, Timeline
 
 Tensor = torch.Tensor
 TensorLike = Union[Tensor, Sequence[float], float]
 # flat dispatch index (i * n_cfg + j) -> the per-chunk draws of that
-# dispatch (see `repro_torch.core.simulator`), or None for the port's RNG
-DispatchDraws = Callable[[int], Optional[simulator.Draws]]
+# dispatch (see `repro_torch.core.simulator`), or None for the port's RNG;
+# with a mesh, a tuple of them, one a shard
+DispatchDraws = Callable[[int], Union[Optional[simulator.Draws],
+                                      Sequence[Optional[simulator.Draws]]]]
 
 __all__ = [
     "SweepGrid",
@@ -79,11 +85,6 @@ def _f32(x, device: torch.device) -> Tensor:
 
 def _axis(x: TensorLike, device: torch.device) -> Tensor:
     return torch.atleast_1d(_f32(x, device))
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1 item {item})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -328,15 +329,51 @@ def _bounds_surface(lam: Tensor, params: ServerParams, result_cache=None):
     return lo, hi, util
 
 
-def sweep_analytical(grid: SweepGrid, *, mesh=None) -> SweepResult:
+def _check_sweep_mesh(mesh: DeviceMesh) -> int:
+    """Validate a scenario-sharding mesh; returns its device count.
+
+    Both sweep paths shard over ONE axis (scenarios are embarrassingly
+    parallel), so the mesh must be 1-D — build it with
+    `repro_torch.launch.mesh.make_sweep_mesh`.
+    """
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError("mesh must be a repro_torch DeviceMesh; got "
+                        f"{type(mesh).__name__}")
+    if len(mesh.axis_names) != 1:
+        raise ValueError(
+            f"scenario sharding needs a 1-D mesh; got axes "
+            f"{tuple(mesh.axis_names)} (build one with "
+            "repro_torch.launch.mesh.make_sweep_mesh)")
+    return mesh.size
+
+
+def _edge_pad(x: Tensor, n: int) -> Tensor:
+    """``x`` with its leading axis padded by ``n`` copies of its last row
+    (the reference's ``pad(mode="edge")``)."""
+    if not n:
+        return x
+    return torch.cat([x, x[-1:].expand((n,) + x.shape[1:])])
+
+
+def sweep_analytical(grid: SweepGrid, *,
+                     mesh: Optional[DeviceMesh] = None) -> SweepResult:
     """Evaluate the Eq 7/Eq 8 bounds over the whole grid.
 
     Replicated cells are evaluated at the per-replica rate ``lam / r``
     (replication splits arrivals evenly — the paper's linear-gain
     assumption, which `sweep_simulated` cross-checks under real routing).
     The bounds are elementwise over broadcast views of the axes; only
-    the returned surfaces are expanded to `grid.shape`.  ``mesh``
-    (scenario sharding) is not ported yet.
+    the returned surfaces are expanded to `grid.shape`.
+
+    ``mesh`` — a 1-D mesh from `repro_torch.launch.mesh.make_sweep_mesh`
+    — shards the flattened scenario axis: it is padded (edge-replicated)
+    to a multiple of the mesh, piece d is evaluated on
+    ``mesh.devices[d]``, and the pieces are gathered onto the grid's
+    device with the padding sliced off.  Each scenario goes through the
+    same elementwise operations in the same dtype as without a mesh, so
+    the surfaces are bitwise the unsharded ones.  This is how the
+    million-scenario surfaces of ``examples/torch_global_sweep.py`` are
+    evaluated.
     """
     if grid.autoscale is not None:
         raise ValueError(
@@ -346,18 +383,42 @@ def sweep_analytical(grid: SweepGrid, *, mesh=None) -> SweepResult:
         raise ValueError(
             "sweep_analytical cannot evaluate a fault grid: the Eq 7/8 "
             "bounds assume every replica is up (use sweep_simulated)")
-    if mesh is not None:
-        raise _not_ported("sweep_analytical(mesh=...)", 12)
     _, params = grid.broadcast()
-    lo, hi, util = _bounds_surface(grid.lam_replica(), params,
-                                   grid.result_cache)
+    lam_rep = grid.lam_replica()
     shape = grid.shape
-    return SweepResult(
-        grid=grid,
-        response_lower=torch.broadcast_to(lo, shape),
-        response_upper=torch.broadcast_to(hi, shape),
-        utilization=torch.broadcast_to(util, shape),
-    )
+    if mesh is None:
+        lo, hi, util = _bounds_surface(lam_rep, params, grid.result_cache)
+        return SweepResult(
+            grid=grid,
+            response_lower=torch.broadcast_to(lo, shape),
+            response_upper=torch.broadcast_to(hi, shape),
+            utilization=torch.broadcast_to(util, shape),
+        )
+
+    n_dev = _check_sweep_mesh(mesh)
+    n = grid.n_scenarios
+    pad = (-n) % n_dev
+    per = (n + pad) // n_dev
+
+    def flat(x):
+        return _edge_pad(torch.broadcast_to(x, shape).reshape(-1), pad)
+
+    lam_flat = flat(lam_rep)
+    fields_flat = {f.name: flat(getattr(params, f.name))
+                   for f in dataclasses.fields(ServerParams)}
+    pieces = []
+    for d, dev in enumerate(mesh.devices):
+        sl = slice(d * per, (d + 1) * per)
+        params_d = ServerParams(**{k: v[sl].to(dev)
+                                   for k, v in fields_flat.items()})
+        pieces.append(_bounds_surface(lam_flat[sl].to(dev), params_d,
+                                      grid.result_cache))
+
+    def gather(i):
+        out = torch.cat([piece[i].to(grid.device) for piece in pieces])
+        return out[:n].reshape(shape)
+    return SweepResult(grid=grid, response_lower=gather(0),
+                       response_upper=gather(1), utilization=gather(2))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -411,18 +472,21 @@ def _static_count(x: float, axis_name: str) -> int:
     return v
 
 
-def _stack(results: Sequence, dim: int):
+def _stack(results: Sequence, dim: int,
+           join: Optional[Callable[[list], Tensor]] = None):
     """Stack every set tensor field of ``results`` (SimResults, or
-    Timelines) along ``dim``."""
+    Timelines) along ``dim``, or combine each field's values with
+    ``join``."""
     cls = type(results[0])
+    join = join or (lambda vals: torch.stack(vals, dim=dim))
 
     def field(name):
         vals = [getattr(res, name) for res in results]
         if vals[0] is None:
             return None
         if isinstance(vals[0], Timeline):
-            return _stack(vals, dim)
-        return torch.stack(vals, dim=dim)
+            return _stack(vals, dim, join)
+        return join(vals)
     return cls(**{f.name: field(f.name) for f in dataclasses.fields(cls)})
 
 
@@ -445,6 +509,46 @@ def _fill_fault_channels(res: simulator.SimResult, r: int
     return dataclasses.replace(res, **kw)
 
 
+def _sharded_batch(run: Callable[..., simulator.SimResult],
+                   mesh: DeviceMesh, seed: int, proc: ArrivalProcess,
+                   params: ServerParams,
+                   draws: Optional[Sequence[Optional[simulator.Draws]]],
+                   out_device: torch.device) -> simulator.SimResult:
+    """Scenario-shard one (p, r) batch dispatch over a 1-D mesh.
+
+    ``run(seed, proc, params, draws=, device=)`` is the batch entry with
+    every static knob bound, the one the unsharded path calls.  The
+    slab's scenario axis is padded (edge-replicated) to a multiple of
+    the mesh; shard d runs on ``mesh.devices[d]`` from the seed
+    ``_mix(seed, d)`` (or ``draws[d]``), and every result field, which
+    leads with the scenario axis, is gathered onto ``out_device`` with
+    the padding sliced off.
+    """
+    n_dev = _check_sweep_mesh(mesh)
+    if draws is not None and len(draws) != n_dev:
+        raise ValueError(f"draws gives {len(draws)} shards' draws for a "
+                         f"mesh of {n_dev} devices")
+    n_slab = proc.rates.shape[0]
+    pad = (-n_slab) % n_dev
+    per = (n_slab + pad) // n_dev
+    rates = _edge_pad(proc.rates, pad)
+    fields = {f.name: _edge_pad(torch.broadcast_to(
+        getattr(params, f.name), (n_slab,)), pad)
+        for f in dataclasses.fields(ServerParams)}
+    shards = []
+    for d, dev in enumerate(mesh.devices):
+        sl = slice(d * per, (d + 1) * per)
+        proc_d = dataclasses.replace(proc, rates=rates[sl].to(dev),
+                                     bin_seconds=proc.bin_seconds.to(dev))
+        params_d = ServerParams(**{k: v[sl].to(dev)
+                                   for k, v in fields.items()})
+        shards.append(run(simulator._mix(seed, d), proc_d, params_d,
+                          draws=None if draws is None else draws[d],
+                          device=dev))
+    return _stack(shards, 0, lambda xs: torch.cat(
+        [x.to(out_device) for x in xs])[:n_slab])
+
+
 def sweep_simulated(
     grid: SweepGrid,
     seed: int = 0,
@@ -460,7 +564,7 @@ def sweep_simulated(
     profile_bin_seconds: float = 3600.0,
     cluster: Optional[ClusterSpec] = None,
     telemetry: Optional[TelemetrySpec] = None,
-    mesh=None,
+    mesh: Optional[DeviceMesh] = None,
     draws: Optional[DispatchDraws] = None,
     dtype: torch.dtype = torch.float32,
 ) -> SimSweepResult:
@@ -508,10 +612,21 @@ def sweep_simulated(
     every cell's `repro_torch.obs.timeline.Timeline` onto
     ``stats.timeline``, the grid's shape in front; on a policy axis every
     policy needs the same ``max_r`` (the timelines stack a per-replica
-    axis).  ``mesh`` is not ported yet.
+    axis).
+
+    ``mesh`` — a 1-D mesh from `repro_torch.launch.mesh.make_sweep_mesh`
+    — shards each dispatch's L*C*D*H scenario slab: the slab is padded
+    (edge-replicated) to a multiple of the mesh, shard d runs the same
+    batch entry on ``mesh.devices[d]`` from its own seed
+    ``_mix(_mix(seed, k), d)``, and the shards' results are gathered onto
+    the grid's device with the padding sliced off.  Sharded surfaces are
+    therefore statistically equivalent, not bit-identical, to unsharded
+    ones.  With a mesh, ``draws(k)`` returns a tuple of per-shard
+    per-chunk draws callables (or None).  The chunk loop issues device
+    work only, so on a mesh of several cards shard d + 1's launches
+    queue while shard d's run; on a mesh that repeats one device the
+    shards run in turn, each one's peak temp memory S/n x p x chunk.
     """
-    if mesh is not None:
-        raise _not_ported("sweep_simulated(mesh=...)", 12)
     spec = ClusterSpec() if cluster is None else cluster
     if spec.r != 1:
         raise ValueError(
@@ -579,16 +694,25 @@ def sweep_simulated(
             arrival = (ArrivalProcess.stationary(lam_ij, device=dev,
                                                  dtype=dtype)
                        if profile is None else base_proc.scaled_by(lam_ij))
+            # the profile clamp reads the whole slab's rates here, on the
+            # host, so that every shard of a dispatch runs one chunk size
+            chunk = simulator._clamp_chunk_for_profile(
+                arrival, max(1, min(chunk_size, n_queries)))
             k = i * n_cfg + j
-            res = simulator.simulate_fork_join_batch(
-                simulator._mix(seed, k), arrival,
-                ServerParams(**{n: v[i, j] for n, v in field_slabs.items()}),
-                n_queries, p=p, mode=mode, impl=impl,
-                warmup_fraction=warmup_fraction, chunk_size=chunk_size,
-                hist_bins=hist_bins, tap_size=tap_size, cluster=cell,
-                telemetry=telemetry,
-                draws=None if draws is None else draws(k), device=dev,
-                dtype=dtype)
+            run = functools.partial(
+                simulator.simulate_fork_join_batch, n_queries=n_queries,
+                p=p, mode=mode, impl=impl, warmup_fraction=warmup_fraction,
+                chunk_size=chunk, hist_bins=hist_bins, tap_size=tap_size,
+                cluster=cell, telemetry=telemetry, dtype=dtype)
+            params_ij = ServerParams(
+                **{n: v[i, j] for n, v in field_slabs.items()})
+            draws_k = None if draws is None else draws(k)
+            if mesh is None:
+                res = run(simulator._mix(seed, k), arrival, params_ij,
+                          draws=draws_k, device=dev)
+            else:
+                res = _sharded_batch(run, mesh, simulator._mix(seed, k),
+                                     arrival, params_ij, draws_k, dev)
             if grid.fault is not None:
                 res = _fill_fault_channels(res, cell.r)
             cfg_slabs.append(res.map(

@@ -1,10 +1,12 @@
-"""Synthetic Criteo-like CTR batches, the port's own copy of
-`repro.data.recsys_data.ctr_batch`.
+"""Synthetic recommender batches, the port's own copy of
+`repro.data.recsys_data`: Criteo-like CTR batches (`ctr_batch`) and MIND
+behavior sequences (`mind_batch`).
 
-Per-field categorical ids are Zipf-distributed (the same popularity skew
-the paper measures for query terms).  Labels come from a fixed random
-logistic teacher.  numpy only: for the same (cfg, batch, step, seed) the
-arrays are bit-identical to the reference's.
+Categorical ids are Zipf-distributed (the same popularity skew the paper
+measures for query terms).  CTR labels come from a fixed random logistic
+teacher; a MIND target follows the last visible history item.  numpy
+only: for the same (cfg, batch, step, seed) the arrays are bit-identical
+to the reference's.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import numpy as np
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.models.recsys import field_offsets
 
-__all__ = ["ctr_batch"]
+__all__ = ["ctr_batch", "mind_batch"]
 
 
 def _zipf_ids(rng, vocab: int, size, alpha: float = 1.05) -> np.ndarray:
@@ -44,3 +46,17 @@ def ctr_batch(cfg: RecsysConfig, batch: int, *, step: int = 0,
     prob = 1.0 / (1.0 + np.exp(-(h.astype(np.float64) - 6.0) / 2.0))
     labels = (rng.random(batch) < prob).astype(np.float32)
     return ids, mask, labels
+
+
+def mind_batch(cfg: RecsysConfig, batch: int, *, step: int = 0,
+               seed: int = 0) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(hist (B, H) int32, hist_mask (B, H) bool, target (B,) int32)
+    behavior sequences; each history keeps H/2..H leading items."""
+    rng = np.random.default_rng(seed * 7_000_003 + step)
+    hist = _zipf_ids(rng, cfg.item_vocab, (batch, cfg.hist_len))
+    lens = rng.integers(cfg.hist_len // 2, cfg.hist_len + 1, batch)
+    mask = np.arange(cfg.hist_len)[None, :] < lens[:, None]
+    # target correlated with the last visible history item
+    last = hist[np.arange(batch), np.maximum(lens - 1, 0)]
+    target = ((last * 31 + 7) % cfg.item_vocab).astype(np.int32)
+    return hist, mask, target

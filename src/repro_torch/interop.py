@@ -88,9 +88,11 @@ def lm_params_from_numpy(tree: dict, cfg, *,
     ``tree`` is `repro.models.transformer.init_params`'s layout as nested
     dicts of numpy arrays (bfloat16 arrays are accepted): "embed"
     (Vp, d), "final_norm", optional "lm_head" (d, Vp), and "layers" with
-    a leading L axis on every tensor.  This is the one place a layout
-    changes: the reference's (in, out) matrices become `nn.Linear`'s
-    (out, in).  ``dtype`` defaults to ``cfg.dtype``.
+    a leading L axis on every tensor, holding "mlp" or, for an MoE
+    config, "moe".  This is the one place a layout changes: the
+    reference's (in, out) matrices become `nn.Linear`'s (out, in); the
+    MoE router and expert stacks keep the reference's layout (the router
+    stays float32).  ``dtype`` defaults to ``cfg.dtype``.
     """
     model = Transformer(cfg, device=device, dtype=dtype)
 
@@ -120,6 +122,10 @@ def lm_params_from_numpy(tree: dict, cfg, *,
             if cfg.qk_norm:
                 put(blk.attn.q_norm.scale, attn["q_norm"]["scale"][i])
                 put(blk.attn.k_norm.scale, attn["k_norm"]["scale"][i])
+            if blk.moe is not None:
+                for name in ("router", "w_gate", "w_up", "w_down"):
+                    put(getattr(blk.moe, name), layers["moe"][name][i])
+                continue
             for name in ("w_gate", "w_up", "w_down"):
                 put(getattr(blk.mlp, name).weight, layers["mlp"][name][i],
                     transpose=True)
@@ -128,11 +134,13 @@ def lm_params_from_numpy(tree: dict, cfg, *,
 
 def recsys_params_from_numpy(tree, cfg, *,
                              device: DeviceLike = DEFAULT_DEVICE):
-    """The port's parameters of a CTR recommender from the reference's
+    """The port's parameters of a recommender from the reference's
     pytree (`repro.models.recsys.init_deepfm` / `init_xdeepfm` /
-    `init_autoint`) as nested dicts and lists of numpy arrays (bfloat16
-    arrays are accepted).  The layout stays the reference's: MLP weights
-    (in, out), CIN weights (Hk*m, O), in ``cfg.dtype``."""
+    `init_autoint` / `init_mind`) as nested dicts and lists of numpy
+    arrays (bfloat16 arrays are accepted).  The layout stays the
+    reference's: MLP weights (in, out), CIN weights (Hk*m, O), MIND's
+    ``item_table`` (rows, D), ``bilinear_s`` (D, D) and ``out_mlp``
+    layers, in ``cfg.dtype``."""
     dtype = getattr(torch, cfg.dtype)
 
     def put(node):

@@ -68,7 +68,7 @@ def _dense_init_(weight: Tensor, generator: torch.Generator,
     scale = scale if scale is not None else weight.shape[1] ** -0.5
     draw = torch.randn(weight.shape, generator=generator,
                        dtype=torch.float32, device=weight.device)
-    weight.copy_(draw * scale)
+    weight.copy_(draw.mul_(scale))       # one float32 temporary, not two
 
 
 # -------------------------------------------------------------------------

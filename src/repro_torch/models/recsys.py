@@ -1,11 +1,16 @@
-"""CTR recommenders the port serves: DeepFM, xDeepFM (CIN), AutoInt.
+"""Recommenders the port serves: DeepFM, xDeepFM (CIN), AutoInt, MIND.
 
-PyTorch port of the CTR half of `repro.models.recsys` (MIND, the losses
-and training are not ported).  The shared substrate is one stacked
-embedding table (total_rows, D) with per-field offsets (DLRM layout);
-a request is a (F, M) bag of globalized ids with a mask, and a batch of
-requests (B, F, M) goes through ``*_logits`` as the reference's serving
-function does (`repro.launch.specs`, ``serve_p99`` / ``serve_bulk``).
+PyTorch port of `repro.models.recsys` (training is not ported; the
+losses are, as forward functions).  The CTR models' shared substrate is
+one stacked embedding table (total_rows, D) with per-field offsets (DLRM
+layout); a request is a (F, M) bag of globalized ids with a mask, and a
+batch of requests (B, F, M) goes through ``*_logits`` as the reference's
+serving function does (`repro.launch.specs`, ``serve_p99`` /
+``serve_bulk``).  MIND (arXiv:1904.08030) turns a behavior history (B, H)
+into K interest capsules by B2I dynamic routing and scores candidates
+against them: `mind_retrieve` ranks up to 10^6 items for a user with one
+batched product and the head of a stable descending sort (the lower id
+first among equal scores, as ``jax.lax.top_k``).
 
 Parameters are plain dicts of tensors in the reference's layout:
 ``{"embedding": {"table", "wide"}, "mlp": [{"w", "b"}, ...], ...}``, MLP
@@ -22,7 +27,8 @@ sums in the model's dtype (ROADMAP queue 3), so in bfloat16 the two differ
 by more than output rounding.  ``impl="auto"`` takes the kernels for CUDA
 tensors and the plain versions for CPU tensors; ``impl="torch"`` forces
 the plain versions.  The MLPs, the FM term and AutoInt's field attention
-are plain torch, as the reference leaves them to XLA.
+are plain torch, as the reference leaves them to XLA; so is all of MIND,
+which gathers rows with an index where the reference uses ``jnp.take``.
 """
 
 from __future__ import annotations
@@ -43,7 +49,9 @@ Seed = Union[int, torch.Generator]
 __all__ = ["field_offsets", "padded_rows", "init_embedding", "embedding_bag",
            "init_deepfm", "fm_interaction", "deepfm_logits", "init_xdeepfm",
            "cin_interaction", "xdeepfm_logits", "init_autoint",
-           "autoint_logits"]
+           "autoint_logits", "init_mind", "mind_user_interests",
+           "mind_train_logits", "mind_retrieve", "mind_topk", "ctr_loss",
+           "sampled_softmax_loss"]
 
 
 # -------------------------------------------------------------------------
@@ -219,3 +227,121 @@ def autoint_logits(params: dict, cfg: RecsysConfig, ids: Tensor,
     wide = _wide(params, ids, mask, impl)
     return (wide + (x.reshape(x.shape[0], -1) @ params["out"])[:, 0]
             ).float()
+
+
+# -------------------------------------------------------------------------
+# MIND (multi-interest capsules)
+# -------------------------------------------------------------------------
+
+def init_mind(seed: Seed, cfg: RecsysConfig, *,
+              device: DeviceLike = DEFAULT_DEVICE) -> dict:
+    gen = _generator(seed, device)
+    dt, d = _dtype(cfg), cfg.embed_dim
+    return {"item_table": _dense_init(gen, (padded_rows(cfg.item_vocab), d),
+                                      dt, scale=0.01),
+            "bilinear_s": _dense_init(gen, (d, d), dt),
+            "out_mlp": _mlp_init(gen, (d, 2 * d, d), dt)}
+
+
+def _squash(x: Tensor, dim: int = -1) -> Tensor:
+    n2 = (x * x).sum(dim=dim, keepdim=True)
+    return (n2 / (1.0 + n2)) * x / torch.sqrt(n2 + 1e-9)
+
+
+def mind_user_interests(params: dict, cfg: RecsysConfig, hist_ids: Tensor,
+                        hist_mask: Tensor) -> Tensor:
+    """Behavior history (B, H) -> interest capsules (B, K, D).
+
+    B2I dynamic routing: logits b (B, K, H) updated over
+    ``capsule_iters`` unrolled iterations; the routing weights receive no
+    gradient through the iterations (``detach``, the reference's
+    ``stop_gradient``).
+    """
+    e = params["item_table"][hist_ids]                 # (B, H, D)
+    e = e * hist_mask[..., None].to(e.dtype)
+    es = e @ params["bilinear_s"]                      # shared bilinear map
+    mask = hist_mask[:, None, :]
+    b = torch.zeros((e.shape[0], cfg.n_interests, e.shape[1]),
+                    dtype=torch.float32, device=e.device)
+    es_fixed = es.detach()
+    for _ in range(cfg.capsule_iters):
+        w = torch.softmax(b, dim=1) * mask             # over capsules
+        z = torch.einsum("bkh,bhd->bkd", w.to(es.dtype), es_fixed)
+        u = _squash(z)
+        b = b + torch.einsum("bkd,bhd->bkh", u, es_fixed).float()
+    w = torch.softmax(b, dim=1) * mask
+    u = _squash(torch.einsum("bkh,bhd->bkd", w.to(es.dtype), es))
+    return _mlp_apply(params["out_mlp"], u)
+
+
+def _label_aware_logits(u: Tensor, cand: Tensor) -> Tensor:
+    """Label-aware attention score of interests u (B, K, D) against
+    candidates cand (C, D), without a (B, C, D) attended-user tensor:
+    the score <att-weighted u, t> is sum_k att[b,k,c] * <u[b,k], t[c]>."""
+    scores = torch.einsum("bkd,cd->bkc", u, cand).float()
+    att = torch.softmax(scores ** 2, dim=1)            # pow-2, per paper
+    return (att * scores).sum(dim=1)                   # (B, C)
+
+
+def mind_train_logits(params: dict, cfg: RecsysConfig, hist_ids: Tensor,
+                      hist_mask: Tensor, target_ids: Tensor,
+                      neg_ids: Optional[Tensor] = None) -> Tensor:
+    """Sampled-softmax logits: column 0 the positive, the rest shared
+    sampled negatives (B, 1 + N).  With ``neg_ids`` None, in-batch
+    negatives (B, B) with the diagonal positive."""
+    u = mind_user_interests(params, cfg, hist_ids, hist_mask)
+    table = params["item_table"]
+    if neg_ids is None:
+        return _label_aware_logits(u, table[target_ids])
+    pos = table[target_ids]                            # (B, D)
+    pos_scores = torch.einsum("bkd,bd->bk", u, pos).float()
+    pos_att = torch.softmax(pos_scores ** 2, dim=1)
+    pos_logit = (pos_att * pos_scores).sum(dim=1, keepdim=True)
+    return torch.cat([pos_logit, _label_aware_logits(u, table[neg_ids])],
+                     dim=1)
+
+
+def mind_retrieve(params: dict, cfg: RecsysConfig, hist_ids: Tensor,
+                  hist_mask: Tensor, cand_ids: Tensor, k: int = 100
+                  ) -> tuple[Tensor, Tensor]:
+    """Score users' interests against a candidate set; (scores, int32
+    positions in ``cand_ids``) of the top k, (B, k) each.
+
+    ``cand_ids`` (C,) with C up to 10^6: one batched product over the
+    candidates in the model's dtype, the best interest a candidate, then
+    the head of a stable descending sort (equal scores keep the lower
+    position first, as ``jax.lax.top_k``; in bfloat16 many of a million
+    scores are equal).
+    """
+    u = mind_user_interests(params, cfg, hist_ids, hist_mask)
+    return mind_topk(params, u, cand_ids, k)
+
+
+def mind_topk(params: dict, u: Tensor, cand_ids: Tensor, k: int = 100
+              ) -> tuple[Tensor, Tensor]:
+    """`mind_retrieve`'s ranking half: interests u (B, K, D) against the
+    candidates ``cand_ids`` (C,) -> the top-k (scores, int32 positions)."""
+    cand = params["item_table"][cand_ids]              # (C, D)
+    best = torch.einsum("bkd,cd->bkc", u, cand).amax(dim=1).float()
+    s, i = torch.sort(best, dim=-1, descending=True, stable=True)
+    return s[:, :k], i[:, :k].to(torch.int32)
+
+
+# -------------------------------------------------------------------------
+# Shared losses (forward only; training is not ported)
+# -------------------------------------------------------------------------
+
+def ctr_loss(logits: Tensor, labels: Tensor) -> Tensor:
+    """Binary cross-entropy with logits."""
+    z = logits.float()
+    return torch.mean(torch.clamp_min(z, 0) - z * labels
+                      + torch.log1p(torch.exp(-z.abs())))
+
+
+def sampled_softmax_loss(logits: Tensor, *, inbatch: bool = True) -> Tensor:
+    """inbatch=True: (B, B) logits, diagonal positive.  Otherwise (B, 1+N)
+    sampled-negative logits with the positive in column 0."""
+    logp = torch.log_softmax(logits, dim=-1)
+    if inbatch:
+        return -torch.diagonal(logp).mean()
+    return -logp[:, 0].mean()

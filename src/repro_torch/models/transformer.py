@@ -10,10 +10,12 @@ loop is a Python loop; each layer's attention goes through the
 hand-written CUDA kernels when the tensors are on the card (see
 `repro_torch.models.layers`).
 
-The cache is {"k", "v": (L, B, S, KV, D) tensors, "len": host int}; it
-is updated **in place** by `decode_step` (the reference returns updated
-copies).  Training (`forward_train`, `train_step_loss`) and the MoE
-branch are not ported yet.
+A layer's FFN is the SwiGLU `layers.MLP`, or for a config with
+``cfg.moe`` the experts of `repro_torch.models.moe` (its aux loss is
+dropped at serving, as the reference drops it).  The cache is {"k",
+"v": (L, B, S, KV, D) tensors, "len": host int}; it is updated **in
+place** by `decode_step` (the reference returns updated copies).
+Training (`forward_train`, `train_step_loss`) is not ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from torch import nn
 from repro_torch._tensor import DEFAULT_DEVICE, DeviceLike
 from repro_torch.configs.base import LMConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 
 Tensor = torch.Tensor
 
@@ -46,7 +49,9 @@ def _dtype(cfg: LMConfig) -> torch.dtype:
 
 
 class Block(nn.Module):
-    """One pre-norm decoder layer: attention, then the SwiGLU MLP."""
+    """One pre-norm decoder layer: attention, then the SwiGLU MLP
+    (``mlp``) or, for an MoE config, the experts (``moe``); the other
+    is None."""
 
     def __init__(self, cfg: LMConfig, *,
                  device: DeviceLike = DEFAULT_DEVICE,
@@ -55,20 +60,24 @@ class Block(nn.Module):
         self.ln_attn = L.RMSNorm(cfg.d_model, device=device, dtype=dtype)
         self.ln_mlp = L.RMSNorm(cfg.d_model, device=device, dtype=dtype)
         self.attn = L.Attention(_dims(cfg), device=device, dtype=dtype)
-        self.mlp = L.MLP(cfg.d_model, cfg.d_ff, device=device, dtype=dtype)
+        if cfg.moe is not None:
+            self.mlp = None
+            self.moe = moe_lib.MoE(cfg.d_model, cfg.moe, device=device,
+                                   dtype=dtype)
+        else:
+            self.mlp = L.MLP(cfg.d_model, cfg.d_ff, device=device,
+                             dtype=dtype)
+            self.moe = None
 
 
 class Transformer(nn.Module):
-    """The weights of one dense LM; uninitialized until `init_params` or
-    `repro_torch.interop.lm_params_from_numpy` fills them."""
+    """The weights of one dense or MoE LM; uninitialized until
+    `init_params` or `repro_torch.interop.lm_params_from_numpy` fills
+    them."""
 
     def __init__(self, cfg: LMConfig, *, device: DeviceLike = DEFAULT_DEVICE,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if cfg.moe is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: the MoE branch is not ported yet (ROADMAP "
-                "queue 1 item 13)")
         dtype = dtype if dtype is not None else _dtype(cfg)
         self.embed = nn.Parameter(
             torch.empty((cfg.vocab_padded, cfg.d_model), device=device,
@@ -89,8 +98,8 @@ class Transformer(nn.Module):
 def init_params(seed: Union[int, torch.Generator], cfg: LMConfig, *,
                 device: DeviceLike = DEFAULT_DEVICE) -> Transformer:
     """Random weights as the reference draws them: dense matrices normal x
-    fan_in^-0.5, the embedding normal x 0.02, norm scales 1; each drawn
-    in float32 and cast to ``cfg.dtype``.  ``seed`` is an int or a
+    fan_in^-0.5, the embedding normal x 0.02, norm scales 1, the experts
+    as `moe.init_moe`; each drawn in float32 and cast to ``cfg.dtype``.  ``seed`` is an int or a
     `torch.Generator` on ``device`` (the values are not the reference's:
     Philox is not threefry; tests carry weights across with interop)."""
     gen = seed if isinstance(seed, torch.Generator) else \
@@ -101,7 +110,10 @@ def init_params(seed: Union[int, torch.Generator], cfg: LMConfig, *,
         L._dense_init_(model.lm_head.weight, gen)
     for blk in model.layers:
         L.init_attention(blk.attn, generator=gen)
-        L.init_mlp(blk.mlp, generator=gen)
+        if blk.moe is not None:
+            moe_lib.init_moe(blk.moe, generator=gen)
+        else:
+            L.init_mlp(blk.mlp, generator=gen)
     return model
 
 
@@ -119,8 +131,13 @@ def _logits(params: Transformer, cfg: LMConfig, x: Tensor) -> Tensor:
     return F.linear(x, head)
 
 
-def _mlp_residual(blk: Block, x: Tensor) -> Tensor:
-    return x + L.mlp_swiglu(blk.mlp, L.rmsnorm(blk.ln_mlp, x))
+def _mlp_residual(blk: Block, cfg: LMConfig, x: Tensor) -> Tensor:
+    y = L.rmsnorm(blk.ln_mlp, x)
+    if blk.moe is not None:
+        f, _ = moe_lib.moe_ffn(blk.moe, cfg.moe, y)
+    else:
+        f = L.mlp_swiglu(blk.mlp, y)
+    return x + f
 
 
 # -------------------------------------------------------------------------
@@ -155,7 +172,7 @@ def prefill(params: Transformer, cfg: LMConfig, tokens: Tensor, *,
         h, ks[i], vs[i] = L.attention_prefill_chunked(
             blk.attn, dims, L.rmsnorm(blk.ln_attn, x), chunk=chunk,
             impl=impl)
-        x = _mlp_residual(blk, x + h)
+        x = _mlp_residual(blk, cfg, x + h)
     logits = _logits(params, cfg, x[:, -1:, :])
     return logits, {"k": ks, "v": vs, "len": s}
 
@@ -176,6 +193,6 @@ def decode_step(params: Transformer, cfg: LMConfig, tokens: Tensor,
         h, _, _ = L.attention_decode(
             blk.attn, dims, L.rmsnorm(blk.ln_attn, x), cache["k"][i],
             cache["v"][i], cache_len, impl=impl)
-        x = _mlp_residual(blk, x + h)
+        x = _mlp_residual(blk, cfg, x + h)
     logits = _logits(params, cfg, x)
     return logits, {"k": cache["k"], "v": cache["v"], "len": cache_len + 1}

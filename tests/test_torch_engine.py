@@ -33,6 +33,7 @@ from repro_torch.engine import broker, cache, distributed, partition, server
 from repro_torch.engine import corpus as corpus_lib
 from repro_torch.engine import index as index_lib
 from repro_torch.engine import scoring
+from repro_torch.launch.mesh import make_mesh
 
 CPU = "cpu"
 SCORE_RTOL = 1e-6
@@ -272,11 +273,18 @@ def test_distributed_search_8_shards():
 
 
 def test_make_search_fn_refuses_a_mesh(world):
+    """A mesh that is not the port's `DeviceMesh`, or whose one axis is
+    not the search's (tests/test_torch_sharding.py runs the sharded
+    search)."""
     _, _, tc, _, _ = world
     stacked = distributed.stack_shards(partition.partition_documents(tc, 2),
                                        device=CPU)
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         distributed.make_search_fn(object(), stacked)
+    for axes in (("scenario",), ("servers", "model")):
+        mesh = make_mesh((2,) * len(axes), axes, devices=[CPU] * 4)
+        with pytest.raises(ValueError, match="'servers'"):
+            distributed.make_search_fn(mesh, stacked)
 
 
 def test_lru_replay_exact(world):

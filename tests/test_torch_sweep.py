@@ -443,14 +443,15 @@ def test_sweep_replica_impl_passthrough():
     ("autoscale", TypeError, "AutoscalePolicy"),
     ("fault", ValueError, "6th axis"),
     ("telemetry", ValueError, "same max_r"),
-    ("mesh_sim", NotImplementedError, "queue 1 item 12"),
-    ("mesh_analytic", NotImplementedError, "queue 1 item 12")])
+    ("mesh_sim", TypeError, "DeviceMesh"),
+    ("mesh_analytic", TypeError, "DeviceMesh")])
 def test_not_ported_inputs_raise(what, exc, match):
-    """Scenario sharding still raises, naming its ROADMAP item; the
-    policy and fault axes and telemetry, now ported, refuse what the
-    reference refuses: a value that is not a policy, a policy axis and a
-    fault axis together (both claim the 6th dimension), and telemetry
-    over policies whose max_r differ (src/repro/core/sweep.py:586)."""
+    """The policy and fault axes, telemetry and scenario sharding, all
+    ported now, refuse what the reference refuses: a value that is not a
+    policy, a policy axis and a fault axis together (both claim the 6th
+    dimension), telemetry over policies whose max_r differ
+    (src/repro/core/sweep.py:586), and a mesh that is not the port's
+    `DeviceMesh` (tests/test_torch_sharding.py holds the 1-D rule)."""
     _, grid = _grids(lam=[10.0], p=[4.0], base=T5)
     pol = AutoscalePolicy(min_r=1, max_r=2)
     calls = {
