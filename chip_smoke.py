@@ -77,7 +77,17 @@ version on the card, and drives the port's paths:
     and combine), the kernel path's logits against the plain path's;
   * MIND at FULL (phase 22): interests of a serve batch, then
     retrieval_cand (one user against 1,000,000 items, top-100), card
-    against CPU.
+    against CPU;
+  * LM training (phase 23): Qwen3-1.7B at full width and depth in
+    bfloat16, `TrainStep` (AdamW, 4 microbatches) on 8 x 4096 pipeline
+    tokens a step: step wall, tokens/s, MFU, peak memory, where a step's
+    device time goes, one sequence's loss and three gradients against a
+    float32 copy (23a); Granite-MoE-3B at full width, the aux loss in
+    the loss (23b); the smoke configs in float32 card against CPU and
+    `forward_train` against `prefill`'s flash kernel (23c);
+    examples/torch_train_lm.py's demo-12m for 300 steps, its checkpoint
+    restored bit for bit (23d).  Training launches no port kernel: the
+    reference trains through plain attention.
 
 Phases 8 and 14 also print the wgmma kernels' ptxas reports (registers,
 spills, serialisation warnings) and take one tile through the shared
@@ -99,6 +109,7 @@ import concurrent.futures
 import itertools
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -478,9 +489,13 @@ def phase_main_path(card: str) -> tuple[int, float]:
     return launches, exp_wall
 
 
-def phase_profile(card: str, wall: float, run, title: str) -> dict:
+def phase_profile(card: str, wall: float, run, title: str,
+                  trace_host: bool = True) -> dict:
     """Where a path's device time goes (one run of ``run()``); returns
     {kernel name: (device ms, launches)} of the kernels the trace lists.
+    ``trace_host=False`` traces the device alone (no host ops, no host
+    summary): a training step's ~100,000 host events take longer to
+    trace and sum than the step.
 
     Only device-side events are summed: `key_averages` also lists each
     aten op with the time of the kernels it launched, which would count
@@ -492,7 +507,9 @@ def phase_profile(card: str, wall: float, run, title: str) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     print(f"== {title}")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    activities = ([ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                  if trace_host else [ProfilerActivity.CUDA])
+    with profile(activities=activities,
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
                  ) as prof:
         warm = torch.ones(1, device="cuda")
@@ -517,6 +534,9 @@ def phase_profile(card: str, wall: float, run, title: str) -> dict:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"    {e.self_device_time_total / 1e3:8.3f} ms "
               f"{e.count:5d}x  {e.key[:100]}")
+    if not trace_host:
+        return {e.key: (e.self_device_time_total / 1e3, e.count)
+                for e in kernels}
     host = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CPU
             and not e.key.startswith("ProfilerStep")]   # the step's span
@@ -4023,6 +4043,451 @@ def phase_mind(card: str) -> None:
           f"({same_ties} of them the same ids)")
 
 
+# -- phase 23: LM training ---------------------------------------------------
+# 23a: qwen3-1.7b FULL; the reference's train_4k cell (seq 4096, global
+# batch 256) with the global batch cut to 8 for one card, 4 microbatches
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_TIMED = 4096, 8, 4, 3
+TRAIN_LR = dict(base_lr=3e-4, warmup=2, total=100)
+# one sequence's bfloat16 loss against the float32 loss of the same
+# weights: bfloat16 rounds each activation at 2^-9, compounding over 28
+# layers and a 153,600-way softmax to ~1e-3 of the loss; 1e-2 holds
+# that and fails a wrong gradient path that has trained the weights
+TRAIN_F32_RTOL = 1e-2
+TRAIN_GRAD_COS = 0.99       # bfloat16 gradients vs float32, cosine
+# 23c: card vs CPU in float32 at the smoke configs (the CPU tests'
+# tolerances against the reference: float32 rounding in another order)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_W_RTOL = 1e-5, 1e-4, 1e-5
+TRAIN_LOGITS_RTOL = 1e-4    # forward_train's logits vs prefill's (flash)
+# 23d: examples/torch_train_lm.py's cpu preset
+DEMO_STEPS, DEMO_BATCH, DEMO_SEQ, DEMO_EVERY = 300, 8, 128, 100
+
+
+def _named(model, names):
+    return [dict(model.named_parameters())[n] for n in names]
+
+
+def _train_full(card: str, cfg, batch: int, micro: int, timed: int,
+                label: str, n_flops: int, watch: tuple) -> dict:
+    """``cfg`` at full width in bfloat16 (random weights, seed 0),
+    `TrainStep(AdamW(cosine), microbatches=micro)` on `LMBatchPipeline`
+    batches of TRAIN_SEQ tokens: one warm-up step, ``timed`` timed steps,
+    then one step under the profiler.  Prints step wall, tokens/s, the
+    peak memory, MFU (6 x ``n_flops`` parameters x tokens at 989
+    TFLOP/s) and where the step's device time goes; fails if a loss is
+    not finite, a ``watch``ed weight did not change, or a port kernel
+    launched (training runs the reference's plain attention)."""
+    import torch
+    from repro_torch.data.pipeline import LMBatchPipeline
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+    from repro_torch.train.trainer import TrainStep
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = T.init_params(0, cfg)
+
+    def loss_fn(params, b):
+        return T.train_step_loss(params, cfg, b["tokens"], b["labels"])
+    step = TrainStep(loss_fn, AdamW(lr=cosine_schedule(**TRAIN_LR)),
+                     microbatches=micro)
+    state = step.init_state(model)
+    pipe = LMBatchPipeline(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                           global_batch=batch, seed=23)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                zip(("tokens", "labels"), pipe.batch(s))}
+               for s in range(timed + 2)]
+    before = [w.detach().clone() for w in _named(model, watch)]
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"  {n_params / 1e9:.3f} B parameters ({cfg.n_params / 1e9:.3f} B "
+          f"by the config's count), weights and AdamW state allocated in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    losses = []
+
+    def one(b):
+        nonlocal model, state
+        model, state, loss = step(model, state, b)
+        losses.append(loss)
+    warm = _wall(lambda: one(batches[0]))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    walls = [_wall(lambda b=b: one(b)) for b in batches[1:timed + 1]]
+    peak = torch.cuda.max_memory_allocated()
+    counts = dict(_counts(), **_attention_counts())
+    if any(counts.values()):
+        raise AssertionError(f"{label}: training launched port kernels "
+                             f"{counts}")
+    wall = sorted(walls)[len(walls) // 2]
+    tokens = batch * TRAIN_SEQ
+    flops = 6 * n_flops * tokens
+    print(f"  step wall {', '.join(f'{w:.3f}' for w in walls)} s (warm-up "
+          f"{warm:.3f} s), median {wall:.3f} s: {tokens / wall:,.0f} "
+          f"tokens/s, MFU {100 * flops / (wall * BF16_OPS_PER_S):.1f} % "
+          f"(6 x {n_flops / 1e9:.3f} B x {tokens:,} tokens at 989 TFLOP/s); "
+          f"peak memory {peak / 1e9:.2f} GB [{card}]")
+    t1 = time.perf_counter()
+    traced = phase_profile(card, wall, lambda: one(batches[timed + 1]),
+                           f"phase {label}: device time by kernel, one "
+                           f"training step ({batch} x {TRAIN_SEQ} tokens, "
+                           f"{micro} microbatches)", trace_host=False)
+    t1 = time.perf_counter() - t1
+    busy = sum(ms for ms, _ in traced.values())
+    gemm = sum(ms for k, (ms, _) in traced.items()
+               if any(g in k for g in GEMM_KERNELS))
+    soft = sum(ms for k, (ms, _) in traced.items() if "softmax" in k.lower())
+    rows = batch // micro
+    loss_ms = _lm_loss_ms(model, cfg, rows) * micro
+    fwd, fwd_bwd = _attention_ms(model, cfg, rows, cfg.attn_chunk)
+    attn_ms = (fwd + fwd_bwd) * cfg.n_layers * micro
+    blk_fwd, blk_fwd_bwd = _attention_ms(model, cfg, rows, TRAIN_SEQ // 2)
+    print(f"  shares of {busy:.1f} ms busy (profiled step, {t1:.1f} s with "
+          f"the trace): products (cuBLAS) {100 * gemm / busy:.1f} %, softmax"
+          f" kernels (forward, recompute, backward) {100 * soft / busy:.1f}"
+          f" %; timed alone on the step's shapes: attention "
+          f"{100 * attn_ms / busy:.1f} % ({attn_ms:.1f} ms: layer 0's "
+          f"`attention_train` forward {fwd:.2f} + forward and backward "
+          f"{fwd_bwd:.2f} ms, x {cfg.n_layers} layers x {micro}), LM head "
+          f"and loss {100 * loss_ms / busy:.1f} % ({loss_ms:.1f} ms: "
+          f"`chunked_lm_loss` forward + backward x {micro}) [{card}]")
+    print(f"  the blockwise path at chunk {TRAIN_SEQ // 2} (the reference's "
+          f"train_4k cell's attn_chunk), same layer: forward {blk_fwd:.2f}, "
+          f"forward and backward {blk_fwd_bwd:.2f} ms (full softmax "
+          f"{fwd:.2f}, {fwd_bwd:.2f}) [{card}]")
+    vals = torch.stack(losses).float().cpu()
+    if not bool(torch.isfinite(vals).all()):
+        raise AssertionError(f"{label}: losses {vals.tolist()}")
+    moved = [float((w.detach().float() - b.float()).abs().max())
+             for w, b in zip(_named(model, watch), before)]
+    if not all(m > 0 for m in moved):
+        raise AssertionError(f"{label}: weights {watch} moved by {moved}")
+    print(f"  losses {', '.join(f'{x:.4f}' for x in vals.tolist())}; "
+          f"largest change of {', '.join(watch)}: "
+          f"{', '.join(f'{m:.3g}' for m in moved)}")
+    return {"model": model, "state": state, "batches": batches,
+            "wall": wall, "peak": peak}
+
+
+def _lm_loss_ms(model, cfg, rows: int) -> float:
+    """Device ms of `chunked_lm_loss` forward + backward (head and
+    hidden state) on one microbatch's random hidden state."""
+    import torch
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    x = torch.randn(rows, TRAIN_SEQ, cfg.d_model, device="cuda",
+                    generator=gen).to(torch.bfloat16).requires_grad_(True)
+    labels = torch.randint(0, cfg.vocab_size, (rows, TRAIN_SEQ),
+                           device="cuda", generator=gen)
+    head = T._head(model)
+
+    def run():
+        torch.autograd.grad(T.chunked_lm_loss(model, cfg, x, labels),
+                            [x, head])
+    return _device_ms(run, n=3, warm=1)
+
+
+def _attention_ms(model, cfg, rows: int, chunk: int
+                  ) -> tuple[float, float]:
+    """Device ms of layer 0's `attention_train` (``chunk``) on one
+    microbatch's shape: forward alone (the rematerialised recompute), and
+    forward + backward (inputs and weights)."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    attn = model.layers[0].attn
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    x = torch.randn(rows, TRAIN_SEQ, cfg.d_model, device="cuda",
+                    generator=gen).to(torch.bfloat16).requires_grad_(True)
+    dy = torch.randn_like(x)
+    dims = T._dims(cfg)
+
+    def fwd():
+        with torch.no_grad():
+            L.attention_train(attn, dims, x, chunk=chunk)
+
+    def fwd_bwd():
+        out = L.attention_train(attn, dims, x, chunk=chunk)
+        torch.autograd.grad(out, [x, *attn.parameters()], dy)
+    return _device_ms(fwd, n=3, warm=1), _device_ms(fwd_bwd, n=3, warm=1)
+
+
+def _cos(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def _check_against_f32(card: str, cfg, model, tokens, labels) -> None:
+    """23a's gate after the timed steps: one sequence's loss and the
+    gradients of the embedding, layer 0's wq and the last layer's w_down,
+    bfloat16 against a float32 copy of the same weights."""
+    import torch
+    from repro_torch.models import transformer as T
+    names = ("embed", "layers.0.attn.wq.weight",
+             f"layers.{cfg.n_layers - 1}.mlp.w_down.weight")
+    loss16 = T.train_step_loss(model, cfg, tokens, labels)
+    g16 = torch.autograd.grad(loss16, _named(model, names))
+    m32 = T.Transformer(cfg, dtype=torch.float32)
+    m32.load_state_dict(model.state_dict())
+    for p in _named(m32, names):
+        p.requires_grad_(True)
+    loss32 = T.train_step_loss(m32, cfg, tokens, labels)
+    g32 = torch.autograd.grad(loss32, _named(m32, names))
+    loss16, loss32 = float(loss16.detach()), float(loss32.detach())
+    err = abs(loss16 - loss32) / abs(loss32)
+    cos = [_cos(a, b) for a, b in zip(g16, g32)]
+    print(f"  one sequence: bfloat16 loss {loss16:.5f}, float32 "
+          f"{loss32:.5f}, relative {err:.2e} (limit "
+          f"{TRAIN_F32_RTOL:g}); gradient cosines {', '.join(names)}: "
+          f"{', '.join(f'{c:.5f}' for c in cos)} (limit "
+          f">= {TRAIN_GRAD_COS}) [{card}]")
+    if not err <= TRAIN_F32_RTOL or not min(cos) >= TRAIN_GRAD_COS:
+        raise AssertionError(f"23a: bfloat16 vs float32 loss {err}, "
+                             f"gradient cosines {cos}")
+
+
+def _aux_in_loss(card: str, cfg, model, b) -> None:
+    """23b: the MoE aux loss enters the training loss with weight 0.01."""
+    import torch
+    from repro_torch.models import transformer as T
+    with torch.no_grad():
+        x, aux = T.forward_hidden(model, cfg, b["tokens"])
+        ce = T.chunked_lm_loss(model, cfg, x, b["labels"])
+        total = T.train_step_loss(model, cfg, b["tokens"], b["labels"])
+    err = abs(float(total) - float(ce + 0.01 * aux))
+    print(f"  aux loss {float(aux):.4f} (mean over {cfg.n_layers} layers), "
+          f"cross-entropy {float(ce):.4f}, loss {float(total):.4f} = CE + "
+          f"0.01 aux to {err:.1e} [{card}]")
+    if not (math.isfinite(float(aux)) and float(aux) > 0 and err < 1e-3):
+        raise AssertionError(f"23b: aux {float(aux)}, loss {float(total)} "
+                             f"vs CE {float(ce)}")
+
+
+def _smoke_pair(cfg):
+    """The same float32 weights (seed 0) on the card and on the CPU."""
+    from repro_torch.models import transformer as T
+    cpu = T.init_params(0, cfg, device="cpu")
+    card = T.Transformer(cfg)
+    card.load_state_dict(cpu.state_dict())
+    return card, cpu
+
+
+def _grads(model, cfg, tokens, labels):
+    import torch
+    from repro_torch.models import transformer as T
+    model.requires_grad_(True)
+    loss = T.train_step_loss(model, cfg, tokens, labels)
+    names, params = zip(*model.named_parameters())
+    return loss.detach(), dict(zip(names, torch.autograd.grad(loss, params)))
+
+
+def _rel(x, y) -> float:
+    x, y = x.detach().double().cpu(), y.detach().double().cpu()
+    return float((x - y).norm() / y.norm().clamp_min(1e-300))
+
+
+def phase_train_card_vs_cpu(card: str) -> None:
+    """23c: at the smoke configs in float32, the card against the CPU:
+    `train_step_loss` and its gradient, one `TrainStep` (AdamW, 2
+    microbatches), and `forward_train`'s last logits against `prefill`'s
+    (the flash kernel)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import granite_moe_3b_a800m, qwen3_1_7b
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+    from repro_torch.train.trainer import TrainStep
+    print("== phase 23c: training at the smoke configs in float32, card "
+          "vs CPU")
+    rng = np.random.default_rng(23)
+    for base in (qwen3_1_7b.SMOKE, granite_moe_3b_a800m.SMOKE):
+        for chunk in (0, 8):
+            cfg = dataclasses.replace(base, attn_chunk=chunk)
+            tokens = rng.integers(0, cfg.vocab_size, (4, 16))
+            labels = np.roll(tokens, -1, axis=1)
+            labels[:, -1] = -1
+            t_cpu, l_cpu = torch.from_numpy(tokens), torch.from_numpy(labels)
+            t_gpu, l_gpu = t_cpu.cuda(), l_cpu.cuda()
+            gpu, cpu = _smoke_pair(cfg)
+            lg, gg = _grads(gpu, cfg, t_gpu, l_gpu)
+            lc, gc = _grads(cpu, cfg, t_cpu, l_cpu)
+            loss_err = _rel(lg, lc)
+            grad_err = max(_rel(gg[k], gc[k]) for k in gc)
+
+            def loss_fn(p, b, cfg=cfg):
+                return T.train_step_loss(p, cfg, b["tokens"], b["labels"])
+            step = TrainStep(loss_fn, AdamW(lr=cosine_schedule(1e-2, 2, 10)),
+                             microbatches=2)
+            for model, t, lab in ((gpu, t_gpu, l_gpu), (cpu, t_cpu, l_cpu)):
+                step(model, step.init_state(model),
+                     {"tokens": t, "labels": lab})
+            wg, wc = dict(gpu.named_parameters()), dict(cpu.named_parameters())
+            # Adam's first step is g / (|g| + eps): where 0 < |g| is within
+            # the gradients' tolerance of 0, their agreement does not fix
+            # the step's sign, so those elements are left out (and counted)
+            held = {k: (gc[k] == 0)
+                    | (gc[k].abs() > TRAIN_GRAD_RTOL * gc[k].abs().max())
+                    for k in gc}
+            w_err = max(_rel(wg[k].cpu()[held[k]], wc[k][held[k]])
+                        for k in wc)
+            n_out = sum(int((~h).sum()) for h in held.values())
+            n_all = sum(h.numel() for h in held.values())
+
+            fa_ops.reset_counts()
+            with torch.no_grad():
+                train_logits, _ = T.forward_train(gpu, cfg, t_gpu)
+                pre, _ = T.prefill(gpu, cfg, t_gpu, chunk=16)
+            flash = fa_ops.launch_count()
+            logit_err = _rel(train_logits[:, -1], pre[:, 0])
+            print(f"  {cfg.name} attn_chunk {chunk}: loss {_rel(lg, lc):.1e} "
+                  f"(limit {TRAIN_LOSS_RTOL:g}), gradients <= {grad_err:.1e} "
+                  f"({TRAIN_GRAD_RTOL:g}), weights after a TrainStep <= "
+                  f"{w_err:.1e} ({TRAIN_W_RTOL:g}; {n_out} of {n_all} "
+                  f"elements with 0 < |g| <= {TRAIN_GRAD_RTOL:g} x their "
+                  f"tensor's largest left out), forward_train vs prefill "
+                  f"({flash} flash launches) "
+                  f"{logit_err:.1e} ({TRAIN_LOGITS_RTOL:g}), relative L2 "
+                  f"[{card}]")
+            if not (loss_err <= TRAIN_LOSS_RTOL
+                    and grad_err <= TRAIN_GRAD_RTOL
+                    and w_err <= TRAIN_W_RTOL
+                    and logit_err <= TRAIN_LOGITS_RTOL
+                    and flash == cfg.n_layers):
+                raise AssertionError(f"23c: {cfg.name} attn_chunk {chunk}")
+
+
+def _load_example(name: str):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_train_restart(card: str) -> None:
+    """23d: examples/torch_train_lm.py's cpu preset (demo-12m) on the
+    card: DEMO_STEPS steps, the loss below 0.75 x the first; checkpoints
+    every DEMO_EVERY steps restored bit for bit into a fresh model and
+    state, and one step from the restored state against one from
+    memory."""
+    import torch
+    from repro_torch.ckpt.checkpoint import CheckpointManager
+    from repro_torch.data.pipeline import LMBatchPipeline
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+    from repro_torch.train.trainer import TrainStep
+    cfg = _load_example("torch_train_lm").PRESETS["cpu"]
+    print(f"== phase 23d: {cfg.name} ({cfg.n_params / 1e6:.1f} M "
+          f"parameters, {cfg.dtype}), {DEMO_STEPS} steps at batch "
+          f"{DEMO_BATCH} x {DEMO_SEQ}, checkpoints every {DEMO_EVERY}")
+    pipe = LMBatchPipeline(vocab_size=cfg.vocab_size, seq_len=DEMO_SEQ,
+                           global_batch=DEMO_BATCH, coherence=0.7)
+
+    def loss_fn(params, b):
+        return T.train_step_loss(params, cfg, b["tokens"], b["labels"])
+    step = TrainStep(loss_fn, AdamW(
+        lr=cosine_schedule(3e-3, warmup=20, total=DEMO_STEPS)))
+
+    def batch(s):
+        return {k: torch.from_numpy(v).cuda()
+                for k, v in zip(("tokens", "labels"), pipe.batch(s))}
+    model = T.init_params(0, cfg)
+    state = step.init_state(model)
+    losses = []
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d, every=DEMO_EVERY, keep_last=2)
+        t0 = time.perf_counter()
+        for s in range(1, DEMO_STEPS + 1):
+            model, state, loss = step(model, state, batch(s))
+            losses.append(loss)
+            mgr.maybe_save(s, {"params": model, "state": state})
+        mgr.wait()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        first, last = float(losses[0]), float(losses[-1])
+        fresh = T.init_params(1, cfg)
+        fresh_state = step.init_state(fresh)
+        at, out = mgr.restore_latest({"params": fresh, "state": fresh_state})
+        saved = sorted(os.listdir(d))
+    print(f"  {DEMO_STEPS} steps in {wall:.2f} s "
+          f"({wall / DEMO_STEPS * 1e3:.1f} ms a step, checkpoints "
+          f"included): loss {first:.4f} -> "
+          f"{last:.4f} ({last / first:.3f} x; limit 0.75) [{card}]")
+    if not last < 0.75 * first:
+        raise AssertionError(f"23d: loss {first} -> {last}")
+    fresh_state = out["state"]
+    same = (at == DEMO_STEPS
+            and all(torch.equal(a, b) for a, b in zip(
+                model.state_dict().values(), fresh.state_dict().values()))
+            and int(fresh_state["opt"].step) == int(state["opt"].step)
+            and all(torch.equal(fresh_state["opt"].m[k], state["opt"].m[k])
+                    and torch.equal(fresh_state["opt"].v[k],
+                                    state["opt"].v[k])
+                    for k in state["opt"].m))
+    b = batch(DEMO_STEPS + 1)
+    step(model, state, b)
+    step(fresh, fresh_state, b)
+    err = max(_rel(p, q) for p, q in zip(model.parameters(),
+                                         fresh.parameters()))
+    print(f"  kept {saved}; restored step {at}: weights and AdamW state "
+          f"{'bitwise equal' if same else 'DIFFERENT'}; one step from the "
+          f"restored state vs from memory: relative L2 <= {err:.1e} (limit "
+          f"1e-6) [{card}]")
+    if not same or not err <= 1e-6:
+        raise AssertionError(f"23d: restore exact {same}, next step {err}")
+
+
+def phase_training(card: str) -> None:
+    """23: LM training on the card (23a-23d)."""
+    import torch
+    from repro_torch.configs import granite_moe_3b_a800m, qwen3_1_7b
+    cfg = qwen3_1_7b.FULL
+    print(f"== phase 23a: training {cfg.name} at full width and depth "
+          f"({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_padded}, untied head), {cfg.dtype}, random weights "
+          f"(seed 0); seq {TRAIN_SEQ}, global batch {TRAIN_BATCH} (the "
+          f"reference's train_4k has 256: CUT for one card), "
+          f"{TRAIN_MICRO} microbatches, attn_chunk {cfg.attn_chunk}")
+    t0 = time.perf_counter()
+    run = _train_full(card, cfg, TRAIN_BATCH, TRAIN_MICRO, TRAIN_TIMED,
+                      "23a", cfg.n_params,
+                      ("embed", "layers.0.attn.wq.weight"))
+    del run["state"]
+    torch.cuda.empty_cache()
+    b = run["batches"][0]
+    t1 = time.perf_counter()
+    _check_against_f32(card, cfg, run["model"], b["tokens"][:1],
+                       b["labels"][:1])
+    print(f"  (the float32 check: {time.perf_counter() - t1:.1f} s)")
+    del run
+    torch.cuda.empty_cache()
+    print(f"  (phase 23a: {time.perf_counter() - t0:.1f} s)")
+
+    cfg = granite_moe_3b_a800m.FULL
+    moe = cfg.moe
+    print(f"== phase 23b: training {cfg.name} at full width and depth "
+          f"({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{moe.n_experts} experts padded to {moe.n_experts_padded}, "
+          f"top-{moe.top_k}), {cfg.dtype}, random weights (seed 0); seq "
+          f"{TRAIN_SEQ}, batch 1, 2 steps; MFU over the "
+          f"{cfg.n_active_params / 1e9:.3f} B active parameters")
+    t0 = time.perf_counter()
+    run = _train_full(card, cfg, 1, 1, 1, "23b", cfg.n_active_params,
+                      ("layers.0.moe.w_gate", "layers.0.moe.router"))
+    _aux_in_loss(card, cfg, run["model"], run["batches"][0])
+    del run
+    torch.cuda.empty_cache()
+    print(f"  (phase 23b: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    phase_train_card_vs_cpu(card)
+    print(f"  (phase 23c: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    phase_train_restart(card)
+    print(f"  (phase 23d: {time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4137,6 +4602,10 @@ def main() -> int:
     t22 = time.perf_counter()
     phase_mind(card)
     print(f"== phase 22: {time.perf_counter() - t22:.1f} s [{card}]")
+    torch.cuda.empty_cache()
+    t23 = time.perf_counter()
+    phase_training(card)
+    print(f"== phase 23: {time.perf_counter() - t23:.1f} s [{card}]")
     print(json.dumps({"kernels": [scan, segment, jsq, flash, decode, bag,
                                   cin, fleet]}))
     print(card)

@@ -5,9 +5,11 @@ A port of the LM and recsys parts of `repro.configs.base`: every
 architecture field, default and derived property is the reference's, so
 a config built here describes the same model (`vocab_padded`,
 `n_params`, `n_active_params` and `total_rows` agree with the
-reference's).  The reference's JAX
-execution knobs (`scan_layers`, `scan_unroll`, `attn_chunk`,
-`unroll_attn`) have no meaning here and are left out.  One `ArchSpec` per architecture lives in
+reference's).  Of the reference's execution knobs only `attn_chunk` is
+kept (training's attention: 0 the full softmax, else the blockwise
+path); `scan_layers`, `scan_unroll` and `unroll_attn` choose how JAX
+traces the layer and chunk loops, have no meaning here and are left
+out.  One `ArchSpec` per architecture lives in
 ``repro_torch/configs/<id>.py``; the registry maps an id to it.
 """
 
@@ -50,6 +52,7 @@ class LMConfig:
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
     vocab_pad_multiple: int = 2048
+    attn_chunk: int = 0         # training attention: > 0 blockwise
 
     @property
     def vocab_padded(self) -> int:

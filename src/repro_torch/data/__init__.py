@@ -1,1 +1,2 @@
-"""Synthetic request data the port's models serve (`recsys_data`)."""
+"""Synthetic data: the request batches the port's models serve
+(`recsys_data`) and the token batches its LMs train on (`pipeline`)."""

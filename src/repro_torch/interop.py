@@ -5,7 +5,9 @@ parameters, its arrival process and its random draws.  A language model
 is its weights.  These functions build the port's objects from numpy
 arrays — never from a `repro` object — so that a test can hand both
 packages the same parameters, the same load, the same random numbers and
-the same weights (a language model's or a CTR recommender's).
+the same weights (a language model's or a CTR recommender's); and back
+to numpy, so that a test can hold a language model's gradients and
+updated weights against the reference's.
 """
 
 from __future__ import annotations
@@ -19,10 +21,11 @@ from repro_torch._tensor import DEFAULT_DEVICE, DeviceLike, from_host
 from repro_torch.core.arrivals import ArrivalProcess
 from repro_torch.core.queueing import ServerParams
 from repro_torch.models.transformer import Transformer
+from repro_torch.train.optimizer import AdamWState, named_tensors
 
 __all__ = ["server_params_from_numpy", "arrival_process_from_numpy",
-           "draws_from_numpy", "lm_params_from_numpy",
-           "recsys_params_from_numpy"]
+           "draws_from_numpy", "lm_params_from_numpy", "lm_params_to_numpy",
+           "adamw_state_from_numpy", "recsys_params_from_numpy"]
 
 
 def server_params_from_numpy(fields: dict, *,
@@ -80,6 +83,33 @@ def draws_from_numpy(per_chunk: Sequence[tuple], *,
     return draws
 
 
+def _ref_place(name: str) -> tuple[tuple, Optional[int], bool]:
+    """Where a `Transformer` parameter lives in the reference's pytree:
+    (path of keys, layer index on the leading L axis or None, whether
+    the matrix is transposed: an `nn.Linear` weight is (out, in), the
+    reference's (in, out))."""
+    parts = name.split(".")
+    transpose = parts[-1] == "weight"
+    if transpose:
+        parts = parts[:-1]
+    if parts[0] == "layers":
+        return ("layers", *parts[2:]), int(parts[1]), transpose
+    return tuple(parts), None, transpose
+
+
+def _ref_array(tree: dict, name: str) -> np.ndarray:
+    """The reference's array for the port's parameter ``name``, in the
+    port's layout (bfloat16 arrays come back as float32)."""
+    path, layer, transpose = _ref_place(name)
+    a = tree
+    for key in path:
+        a = a[key]
+    a = np.asarray(a if layer is None else a[layer])
+    if a.dtype.name == "bfloat16":      # numpy has no bfloat16 of its own
+        a = a.astype(np.float32)
+    return a.T if transpose else a
+
+
 def lm_params_from_numpy(tree: dict, cfg, *,
                          device: DeviceLike = DEFAULT_DEVICE,
                          dtype: Optional[torch.dtype] = None) -> Transformer:
@@ -95,41 +125,60 @@ def lm_params_from_numpy(tree: dict, cfg, *,
     stays float32).  ``dtype`` defaults to ``cfg.dtype``.
     """
     model = Transformer(cfg, device=device, dtype=dtype)
-
-    def put(param: torch.Tensor, arr, transpose: bool = False) -> None:
-        a = np.asarray(arr)
-        if a.dtype.name == "bfloat16":      # numpy has no bfloat16 of its own
-            a = a.astype(np.float32)
-        param.copy_(torch.tensor(a.T if transpose else a))
-
     if (model.lm_head is None) != ("lm_head" not in tree):
         raise ValueError(f"{cfg.name}: tie_embeddings={cfg.tie_embeddings} "
                          f"but the tree {'has' if 'lm_head' in tree else 'lacks'}"
                          " an lm_head")
     with torch.no_grad():
-        put(model.embed, tree["embed"])
-        put(model.final_norm.scale, tree["final_norm"]["scale"])
-        if model.lm_head is not None:
-            put(model.lm_head.weight, tree["lm_head"], transpose=True)
-        layers = tree["layers"]
-        for i, blk in enumerate(model.layers):
-            put(blk.ln_attn.scale, layers["ln_attn"]["scale"][i])
-            put(blk.ln_mlp.scale, layers["ln_mlp"]["scale"][i])
-            attn = layers["attn"]
-            for name in ("wq", "wk", "wv", "wo"):
-                put(getattr(blk.attn, name).weight, attn[name][i],
-                    transpose=True)
-            if cfg.qk_norm:
-                put(blk.attn.q_norm.scale, attn["q_norm"]["scale"][i])
-                put(blk.attn.k_norm.scale, attn["k_norm"]["scale"][i])
-            if blk.moe is not None:
-                for name in ("router", "w_gate", "w_up", "w_down"):
-                    put(getattr(blk.moe, name), layers["moe"][name][i])
-                continue
-            for name in ("w_gate", "w_up", "w_down"):
-                put(getattr(blk.mlp, name).weight, layers["mlp"][name][i],
-                    transpose=True)
+        for name, p in model.named_parameters():
+            p.copy_(torch.tensor(_ref_array(tree, name)))
     return model
+
+
+def lm_params_to_numpy(model_or_grads, cfg) -> dict:
+    """The inverse of `lm_params_from_numpy`: the reference's pytree
+    layout (stacked over L, (in, out) matrices) as nested dicts of numpy
+    arrays, from a `Transformer` or from a map of its parameter names to
+    tensors (gradients, optimizer moments).  bfloat16 comes back as
+    float32."""
+    layers: dict = {}
+    tree: dict = {}
+
+    def put(path, a):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = a
+
+    for name, t in named_tensors(model_or_grads).items():
+        path, layer, transpose = _ref_place(name)
+        t = t.detach().cpu()
+        a = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        a = a.T if transpose else a
+        if layer is None:
+            put(path, a)
+        else:
+            layers.setdefault(path, [None] * cfg.n_layers)[layer] = a
+    for path, per_layer in layers.items():
+        put(path, np.stack(per_layer))
+    return tree
+
+
+def adamw_state_from_numpy(state, model: Transformer) -> AdamWState:
+    """The port's `AdamWState` for ``model`` from the reference's
+    (step, m, v), the moments in its pytree layout as numpy arrays;
+    float32 moments on the model's device."""
+    step, m, v = state
+    named = dict(model.named_parameters())
+    device = next(iter(named.values())).device
+
+    def moments(tree):
+        return {name: torch.tensor(_ref_array(tree, name),
+                                   dtype=torch.float32, device=device)
+                for name in named}
+    return AdamWState(step=torch.as_tensor(np.asarray(step),
+                                           dtype=torch.int32, device=device),
+                      m=moments(m), v=moments(v))
 
 
 def recsys_params_from_numpy(tree, cfg, *,

@@ -1,13 +1,14 @@
-"""Transformer building blocks for serving: RMSNorm, RoPE, GQA attention,
-SwiGLU.
+"""Transformer building blocks: RMSNorm, RoPE, GQA attention, SwiGLU.
 
-PyTorch port of the serving half of `repro.models.layers`.  Modules hold
-the weights (`RMSNorm`, `Attention`, `MLP`, each with ``requires_grad``
-off); the reference's functions keep their names and take a module where
-the reference takes a parameter dict (``rmsnorm(params, x)`` reads
-``params.scale``).  Projections are `torch.nn.Linear` (weight (out, in));
-`repro_torch.interop.lm_params_from_numpy` transposes the reference's
-(in, out) matrices into them.
+PyTorch port of `repro.models.layers`.  Modules hold the weights
+(`RMSNorm`, `Attention`, `MLP`, created with ``requires_grad`` off:
+serving runs without autograd, and `repro_torch.train.trainer.TrainStep`
+turns gradients on for what it trains); the reference's functions keep
+their names and take a module where the reference takes a parameter
+dict (``rmsnorm(params, x)`` reads ``params.scale``).  Projections are
+`torch.nn.Linear` (weight (out, in)); `repro_torch.interop
+.lm_params_from_numpy` transposes the reference's (in, out) matrices
+into them.
 
 The two attention calls of the serving path go through the hand-written
 kernels: `attention_prefill_chunked` through
@@ -18,6 +19,14 @@ softmax's running max, sum and accumulator in float32, as the Pallas
 kernels do; the reference's plain-JAX attention keeps the accumulator
 and the probabilities in the model's dtype (ROADMAP queue 3), so in
 bfloat16 the two differ by more than output rounding.
+
+Training's attention, `attention_train`, is the reference's plain
+attention, differentiated by autograd (no TPU kernel of the reference
+has a backward): the full causal softmax, or the blockwise recurrence
+with each block pair rematerialised (`torch.utils.checkpoint`, where
+the reference applies ``jax.checkpoint``).  It keeps the reference's
+dtypes: scores and softmax statistics in float32, probabilities and the
+accumulator in the model's dtype.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as ckpt
 from torch import nn
 
 from repro_torch._tensor import DEFAULT_DEVICE, DeviceLike
@@ -37,8 +47,8 @@ Tensor = torch.Tensor
 
 __all__ = ["RMSNorm", "rmsnorm", "rope_frequencies",
            "apply_rope", "AttnDims", "Attention", "init_attention",
-           "attention_prefill_chunked", "attention_decode", "MLP",
-           "init_mlp", "mlp_swiglu"]
+           "attention_train", "attention_prefill_chunked",
+           "attention_decode", "MLP", "init_mlp", "mlp_swiglu"]
 
 
 # -------------------------------------------------------------------------
@@ -173,6 +183,104 @@ def _project_qkv(params: Attention, dims: AttnDims, x: Tensor,
     q = apply_rope(q, positions, dims.rope_theta)
     k = apply_rope(k, positions, dims.rope_theta)
     return q, k, v
+
+
+def _gqa_scores(q: Tensor, k: Tensor, groups: int) -> Tensor:
+    """(B, Sq, H, D) x (B, Sk, KV, D) -> (B, KV, G, Sq, Sk), H = KV * G,
+    scaled by D^-1/2, in the inputs' dtype."""
+    b, sq, h, dh = q.shape
+    qg = q.reshape(b, sq, k.shape[2], groups, dh)
+    return torch.einsum("bqkgd,bskd->bkgqs", qg, k) * (dh ** -0.5)
+
+
+def _gqa_output(probs: Tensor, v: Tensor) -> Tensor:
+    """(B, KV, G, Sq, Sk) x (B, Sk, KV, D) -> (B, Sq, H, D)."""
+    b, kvh, g, sq, _ = probs.shape
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return out.reshape(b, sq, kvh * g, v.shape[-1])
+
+
+def _chunk_step(qi: Tensor, kj: Tensor, vj: Tensor, m: Tensor, l: Tensor,
+                acc: Tensor, diagonal: bool, chunk: int, g: int,
+                dtype: torch.dtype) -> tuple[Tensor, Tensor, Tensor]:
+    """One flash block: update the running (max, sum, acc) with the block
+    (qi, kj).  Only a diagonal block needs the causal mask: the blocks
+    below it are wholly causal (the reference masks them too, with an
+    all-true mask), the blocks above are skipped."""
+    sc = _gqa_scores(qi, kj, g).float()                  # (B, KV, G, C, C)
+    if diagonal:
+        causal = torch.ones(chunk, chunk, dtype=torch.bool,
+                            device=sc.device).tril()
+        sc = sc.masked_fill(~causal, -torch.inf)
+    m_new = torch.maximum(m, sc.amax(dim=-1))
+    alpha = torch.exp(m - m_new)
+    pr = torch.exp(sc - m_new[..., None])
+    l_new = l * alpha + pr.sum(dim=-1)
+    acc_new = (acc * alpha[..., None].to(dtype)
+               + torch.einsum("bkgqs,bskd->bkgqd", pr.to(dtype), vj))
+    return m_new, l_new, acc_new
+
+
+def _chunked_causal_attention(qc: Tensor, kc: Tensor, vc: Tensor,
+                              dims: AttnDims, chunk: int,
+                              dtype: torch.dtype) -> Tensor:
+    """qc (B, N, C, H, D), kc / vc (B, N, C, KV, D) -> out (B, N*C, H*D).
+
+    The flash recurrence in plain torch, as the reference's unrolled path:
+    static loops that skip the acausal block pairs, each pair
+    rematerialised, so backward recomputes a pair's (C x C) probabilities
+    instead of holding every pair's float32 tile.
+    """
+    b, n_chunks, _, _, dh = qc.shape
+    g = dims.n_heads // dims.n_kv_heads
+    kvh = dims.n_kv_heads
+    outs = []
+    for qi_idx in range(n_chunks):
+        qi = qc[:, qi_idx]
+        m = torch.full((b, kvh, g, chunk), -torch.inf, dtype=torch.float32,
+                       device=qc.device)
+        l = torch.zeros((b, kvh, g, chunk), dtype=torch.float32,
+                        device=qc.device)
+        acc = torch.zeros((b, kvh, g, chunk, dh), dtype=dtype,
+                          device=qc.device)
+        for kj_idx in range(qi_idx + 1):        # causal: skip kj > qi
+            m, l, acc = ckpt.checkpoint(
+                _chunk_step, qi, kc[:, kj_idx], vc[:, kj_idx], m, l, acc,
+                kj_idx == qi_idx, chunk, g, dtype, use_reentrant=False)
+        out = acc / torch.clamp_min(l, 1e-30)[..., None].to(dtype)
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(b, chunk, -1))
+    return torch.cat(outs, dim=1)
+
+
+def attention_train(params: Attention, dims: AttnDims, x: Tensor, *,
+                    chunk: int = 0) -> Tensor:
+    """Causal self-attention for training, differentiable.
+
+    ``chunk == 0`` (or ``chunk >= S``): the full-softmax path (scores (B,
+    KV, G, S, S) in float32).  Otherwise the blockwise path, S a multiple
+    of ``chunk``.
+    """
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    q, k, v = _project_qkv(params, dims, x, positions)
+    g = dims.n_heads // dims.n_kv_heads
+    if chunk and chunk < s:
+        if s % chunk:
+            raise ValueError(f"sequence length {s} is not a multiple of "
+                             f"the chunk {chunk}")
+        n = s // chunk
+        out = _chunked_causal_attention(
+            q.reshape(b, n, chunk, dims.n_heads, dims.d_head),
+            k.reshape(b, n, chunk, dims.n_kv_heads, dims.d_head),
+            v.reshape(b, n, chunk, dims.n_kv_heads, dims.d_head),
+            dims, chunk, x.dtype)
+    else:
+        scores = _gqa_scores(q, k, g).float()
+        causal = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
+        scores = scores.masked_fill(~causal, -torch.inf)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        out = _gqa_output(probs, v).reshape(b, s, -1)
+    return params.wo(out)
 
 
 def attention_prefill_chunked(params: Attention, dims: AttnDims, x: Tensor,

@@ -1,21 +1,30 @@
-"""Decoder-only LM for serving: prefill and decode over a KV cache.
+"""Decoder-only LM: training, and serving (prefill and decode over a KV
+cache).
 
-PyTorch port of the serving half of `repro.models.transformer`.  A
+PyTorch port of `repro.models.transformer`.  A
 `Transformer` module holds the weights: the embedding, a ``ModuleList``
 of per-layer `Block`s (the reference stacks them on a leading L axis),
 the final norm and an untied LM head (None when the embeddings are
 tied).  The reference's functions keep their names and signatures over
-it: `init_params`, `init_kv_cache`, `prefill`, `decode_step`.  The layer
-loop is a Python loop; each layer's attention goes through the
-hand-written CUDA kernels when the tensors are on the card (see
-`repro_torch.models.layers`).
+it: `init_params`, `init_kv_cache`, `prefill`, `decode_step`, and for
+training `forward_train`, `forward_hidden`, `cross_entropy_sharded`,
+`chunked_lm_loss` and `train_step_loss`.  The layer loop is a Python
+loop.  At serving each layer's attention goes through the hand-written
+CUDA kernels when the tensors are on the card (see
+`repro_torch.models.layers`); `prefill` and `decode_step` run under
+``torch.no_grad()``.  Training runs the reference's plain attention
+(`layers.attention_train`, ``cfg.attn_chunk`` choosing the full or the
+blockwise path) under autograd, each layer rematerialised under
+``remat`` (`torch.utils.checkpoint`, the reference's
+``nothing_saveable`` policy), and the LM head and loss a sequence chunk
+at a time, so the whole (B, S, Vp) logits never exist.
 
 A layer's FFN is the SwiGLU `layers.MLP`, or for a config with
 ``cfg.moe`` the experts of `repro_torch.models.moe` (its aux loss is
-dropped at serving, as the reference drops it).  The cache is {"k",
-"v": (L, B, S, KV, D) tensors, "len": host int}; it is updated **in
-place** by `decode_step` (the reference returns updated copies).
-Training (`forward_train`, `train_step_loss`) is not ported yet.
+dropped at serving, as the reference drops it; training adds its mean
+over layers to the loss).  The cache is {"k", "v": (L, B, S, KV, D)
+tensors, "len": host int}; it is updated **in place** by `decode_step`
+(the reference returns updated copies).
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint as ckpt
 from torch import nn
 
 from repro_torch._tensor import DEFAULT_DEVICE, DeviceLike
@@ -33,8 +43,9 @@ from repro_torch.models import moe as moe_lib
 
 Tensor = torch.Tensor
 
-__all__ = ["Block", "Transformer", "init_params", "init_kv_cache",
-           "prefill", "decode_step"]
+__all__ = ["Block", "Transformer", "init_params", "forward_train",
+           "forward_hidden", "cross_entropy_sharded", "chunked_lm_loss",
+           "train_step_loss", "init_kv_cache", "prefill", "decode_step"]
 
 
 def _dims(cfg: LMConfig) -> L.AttnDims:
@@ -125,10 +136,12 @@ def _embed(params: Transformer, cfg: LMConfig, tokens: Tensor) -> Tensor:
     return F.embedding(tokens, params.embed)
 
 
+def _head(params: Transformer) -> Tensor:
+    return params.embed if params.lm_head is None else params.lm_head.weight
+
+
 def _logits(params: Transformer, cfg: LMConfig, x: Tensor) -> Tensor:
-    x = L.rmsnorm(params.final_norm, x)
-    head = params.embed if params.lm_head is None else params.lm_head.weight
-    return F.linear(x, head)
+    return F.linear(L.rmsnorm(params.final_norm, x), _head(params))
 
 
 def _mlp_residual(blk: Block, cfg: LMConfig, x: Tensor) -> Tensor:
@@ -138,6 +151,108 @@ def _mlp_residual(blk: Block, cfg: LMConfig, x: Tensor) -> Tensor:
     else:
         f = L.mlp_swiglu(blk.mlp, y)
     return x + f
+
+
+def _block_train(blk: Block, cfg: LMConfig, x: Tensor
+                 ) -> tuple[Tensor, Tensor]:
+    h = L.attention_train(blk.attn, _dims(cfg), L.rmsnorm(blk.ln_attn, x),
+                          chunk=cfg.attn_chunk)
+    x = x + h
+    y = L.rmsnorm(blk.ln_mlp, x)
+    if blk.moe is not None:
+        f, aux = moe_lib.moe_ffn(blk.moe, cfg.moe, y)
+    else:
+        f = L.mlp_swiglu(blk.mlp, y)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + f, aux
+
+
+# -------------------------------------------------------------------------
+# train
+# -------------------------------------------------------------------------
+
+def _layers_train(params: Transformer, cfg: LMConfig, tokens: Tensor,
+                  remat: bool) -> tuple[Tensor, Tensor]:
+    """The embedding and every layer: (x (B, S, d), the mean aux loss)."""
+    x = _embed(params, cfg, tokens)
+    auxes = []
+    for blk in params.layers:
+        if remat:
+            x, aux = ckpt.checkpoint(_block_train, blk, cfg, x,
+                                     use_reentrant=False)
+        else:
+            x, aux = _block_train(blk, cfg, x)
+        auxes.append(aux)
+    return x, torch.stack(auxes).mean()
+
+
+def forward_train(params: Transformer, cfg: LMConfig, tokens: Tensor,
+                  remat: bool = True) -> tuple[Tensor, Tensor]:
+    """tokens (B, S) -> (logits (B, S, Vp), aux loss (0-dim float32))."""
+    x, aux = _layers_train(params, cfg, tokens, remat)
+    return _logits(params, cfg, x), aux
+
+
+def forward_hidden(params: Transformer, cfg: LMConfig, tokens: Tensor,
+                   remat: bool = True) -> tuple[Tensor, Tensor]:
+    """Like `forward_train` but stops before the LM head: (the final
+    norm's output (B, S, d), aux)."""
+    x, aux = _layers_train(params, cfg, tokens, remat)
+    return L.rmsnorm(params.final_norm, x), aux
+
+
+def _nll_sum(logits: Tensor, labels: Tensor) -> tuple[Tensor, Tensor]:
+    """(sum of the token NLLs over labels >= 0, their count), float32.
+    The log-normaliser's max is a constant to autograd, as the
+    reference's ``stop_gradient``."""
+    x = logits.float()
+    m = x.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(x - m).sum(dim=-1)) + m[..., 0]
+    mask = labels >= 0
+    correct = x.gather(-1, labels.clamp_min(0).long()[..., None])[..., 0]
+    return ((lse - correct) * mask).sum(), mask.sum().float()
+
+
+def cross_entropy_sharded(logits: Tensor, labels: Tensor) -> Tensor:
+    """Mean token cross-entropy of logits (..., V) against labels (...);
+    labels < 0 are masked."""
+    total, count = _nll_sum(logits, labels)
+    return total / torch.clamp_min(count, 1)
+
+
+def _loss_piece(xc: Tensor, head: Tensor, lc: Tensor
+                ) -> tuple[Tensor, Tensor]:
+    return _nll_sum(F.linear(xc, head), lc)
+
+
+def chunked_lm_loss(params: Transformer, cfg: LMConfig, x: Tensor,
+                    labels: Tensor, chunk: int = 2048) -> Tensor:
+    """LM head + cross-entropy in sequence chunks, each rematerialised:
+    a chunk's logits are made, reduced to its NLL sum and freed, and
+    backward recomputes them; the sums are normalised at the end, so
+    chunking is exact.  S must be a multiple of min(chunk, S)."""
+    b, s, _ = x.shape
+    chunk = min(chunk, s)
+    if s % chunk:
+        raise ValueError(f"sequence length {s} is not a multiple of the "
+                         f"chunk {chunk}")
+    head = _head(params)
+    total = count = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(s // chunk):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        t, c = ckpt.checkpoint(_loss_piece, x[:, sl], head, labels[:, sl],
+                               use_reentrant=False)
+        total = total + t
+        count = count + c
+    return total / torch.clamp_min(count, 1)
+
+
+def train_step_loss(params: Transformer, cfg: LMConfig, tokens: Tensor,
+                    labels: Tensor, *, aux_weight: float = 0.01) -> Tensor:
+    """Causal LM cross-entropy (+ the MoE aux loss), mean over tokens;
+    labels < 0 are masked."""
+    x, aux = forward_hidden(params, cfg, tokens)
+    return chunked_lm_loss(params, cfg, x, labels) + aux_weight * aux
 
 
 # -------------------------------------------------------------------------
