@@ -72,7 +72,7 @@ version on the card, and drives the port's paths:
   * MoE and Command-R serving (phase 21): `LMServer` on Qwen3-MoE-30B-A3B
     at full width and depth, Granite-MoE-3B whole and Command-R+ at full
     width with its depth cut to what fits the card, phase 10's slots and
-    requests, random bfloat16 weights: tokens/s, where a decode step's
+    prompts (16 new tokens a request), random bfloat16 weights: tokens/s, where a decode step's
     time goes (the MoE layer's expert products against routing, dispatch
     and combine), the kernel path's logits against the plain path's;
   * MIND at FULL (phase 22): interests of a serve batch, then
@@ -86,8 +86,26 @@ version on the card, and drives the port's paths:
     the loss (23b); the smoke configs in float32 card against CPU and
     `forward_train` against `prefill`'s flash kernel (23c);
     examples/torch_train_lm.py's demo-12m for 300 steps, its checkpoint
-    restored bit for bit (23d).  Training launches no port kernel: the
-    reference trains through plain attention.
+    restored bit for bit (23d).  LM training launches no port kernel: the
+    reference trains through plain attention;
+  * recommender training (phase 24): xDeepFM at full width in bfloat16,
+    `TrainStep(AdamW(1e-4))` on the reference's train_batch cell (B =
+    65,536 `ctr_batch` samples) through the embedding-bag and CIN
+    kernels' `torch.autograd.Function`s (kernel forward, plain-PyTorch
+    backward): step wall, samples/s, model FLOP/s, peak memory, idle
+    share and where a step's device time goes (24a); on a 4,096-sample
+    microbatch every gradient against autograd of the plain path in
+    bfloat16 and float32, the launches, a repeated step bit for bit and
+    serve_p99's launches unchanged (24b); DeepFM and AutoInt (24c) and
+    MIND with 1,024 shared negatives (24d) one timed step each, the four
+    at their smoke configs card against CPU (24d), and smoke xDeepFM
+    learning one batch (24e);
+  * DimeNet (phase 25): FULL in bfloat16, a `TrainStep` on the molecule
+    cell (128 molecules, padded as the reference's cell pads, 25a) and on
+    minibatch_lg (1,024 seeds, fanouts 15 / 10 from a 232,965-node power
+    law graph whose average degree is cut from 492 to 64; 25b), with
+    where its device time goes; a repeated step bit for bit, bfloat16
+    against a float32 copy, and the smoke config card against CPU (25c).
 
 Phases 8 and 14 also print the wgmma kernels' ptxas reports (registers,
 spills, serialisation warnings) and take one tile through the shared
@@ -882,6 +900,8 @@ def phase_memory_law(card: str, telemetry=None) -> dict:
 # ------------------------------------------------------------ LM serving
 HEADS, KV_HEADS, D_HEAD = 32, 8, 128   # Qwen3-8B's attention
 SLOTS, MAX_SEQ, MAX_NEW = 8, 4096, 32
+MAX_NEW21 = 16            # phase 21's new tokens a request (cut 32 -> 16
+                          # for the run's time)
 PROMPTS = (512, 1024, 1536, 2048) * 3
 PROFILE_PROMPT, CHECK_PROMPT = 512, 128   # phases 10b and 11
 # Attention kernels against their plain version in float32 on the same
@@ -1130,11 +1150,12 @@ def phase_lm_server(card: str) -> dict:
     return _serve_requests(card, cfg, model, srv, t0)
 
 
-def _serve_requests(card: str, cfg, model, srv, t0: float) -> dict:
+def _serve_requests(card: str, cfg, model, srv, t0: float,
+                    max_new: int = MAX_NEW) -> dict:
     """Drive ``srv`` (weights drawn since ``t0``): a warm-up request, then
-    the PROMPTS requests admitted as slots free, greedy decoding; the
-    attention launches asserted, tokens/s and the step against its bytes
-    bound printed."""
+    the PROMPTS requests of ``max_new`` new tokens admitted as slots free,
+    greedy decoding; the attention launches asserted, tokens/s and the
+    step against its bytes bound printed."""
     import numpy as np
     import torch
     torch.cuda.synchronize()
@@ -1156,7 +1177,7 @@ def _serve_requests(card: str, cfg, model, srv, t0: float) -> dict:
     srv.completed.clear()
 
     queue = [(i, rng.integers(0, cfg.vocab_size, n).astype(np.int32),
-              MAX_NEW) for i, n in enumerate(PROMPTS)]
+              max_new) for i, n in enumerate(PROMPTS)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -1184,7 +1205,7 @@ def _serve_requests(card: str, cfg, model, srv, t0: float) -> dict:
     counts = _attention_counts()
     steps = len(step_s)
     done = {c["req_id"]: c["tokens"] for c in srv.completed}
-    want = {i: n + 1 + MAX_NEW for i, n in enumerate(PROMPTS)}
+    want = {i: n + 1 + max_new for i, n in enumerate(PROMPTS)}
     if {i: len(t) for i, t in done.items()} != want:
         raise AssertionError(f"completions {sorted(done)} with lengths "
                              f"{[len(t) for t in done.values()]}, expected "
@@ -2162,7 +2183,8 @@ SIM17_SEED = 17
 SIM17_POLICY = dict(min_r=1, max_r=R, target_utilization=0.7,
                     decision_interval_seconds=SIM17_BIN_S,
                     stabilization_intervals=2)
-SIM17_PLAIN_CHUNKS = 4          # the plain loops take ~1 s a chunk
+SIM17_PLAIN_CHUNKS = 2          # the plain loops take ~1 s a chunk (cut
+                                # 4 -> 2 for the run's time)
 SIM17_IDENTITY_CHUNKS = 16      # the bit-identity checks
 SIM17_TRACE_CHUNKS = 128        # the traced dispatch: a quarter of the
                                 # queries (its trace, ~100k events at full
@@ -2171,11 +2193,12 @@ SIM17_TRACE_CHUNKS = 128        # the traced dispatch: a quarter of the
 # replica under 300 ms by Eq 7), four loads, 262,144 queries a scenario
 PLANS17_LAM = (10.0, 20.0, 30.0, 40.0)
 PLANS17_QUERIES = 64 * CHUNK
-# past 16 replicas: the wide instances, held exactly on chunks of 512
-# queries (the plain loops step a query at a time) and, at r = 64, masked
-# and float32, on a full chunk of the timed shape; timed at full width
+# past 16 replicas: the wide instances, held exactly on chunks of 256
+# queries, eight tiles of 32 (the plain loops step a query at a time; cut
+# 512 -> 256 for the run's time) and, at r = 64, masked and
+# float32, on a full chunk of the timed shape; timed at full width
 WIDE_R = (17, 32, 64, 256)
-WIDE_CHECK_N = 512
+WIDE_CHECK_N = 256
 WIDE_FULL_R = 64
 WIDE_WINDOWS = 64               # outage windows past the narrow 32
 # 17e: Table 5's hardware at 500 qps needs 19 replicas by Eq 7 (+1 for
@@ -3954,11 +3977,11 @@ def phase_moe_serving(card: str) -> dict:
               f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.d_head}, "
               f"qk_norm {cfg.qk_norm}, {what}, vocab {cfg.vocab_padded})"
               f"{cut}; bfloat16, random weights (seed 0), {SLOTS} slots, "
-              f"{len(PROMPTS)} requests")
+              f"{len(PROMPTS)} requests of {MAX_NEW21} new tokens")
         t0 = time.perf_counter()
         model = T.init_params(0, cfg)
         srv = LMServer(cfg, model, slots=SLOTS, max_seq=MAX_SEQ)
-        lm = _serve_requests(card, cfg, model, srv, t0)
+        lm = _serve_requests(card, cfg, model, srv, t0, MAX_NEW21)
         traced = phase_lm_profile(card, lm, "21b")
         launches = sum(n for _, n in traced.values()) / 4
         print(f"  {launches:.0f} kernel launches a decode step (traced)")
@@ -4488,6 +4511,697 @@ def phase_training(card: str) -> None:
     print(f"  (phase 23d: {time.perf_counter() - t0:.1f} s)")
 
 
+# -- phase 24: recommender training ------------------------------------------
+# the reference's train_batch cell (`repro.launch.specs`): B = 65,536,
+# AdamW(lr=1e-4), MIND with 1,024 shared negatives
+REC_TRAIN_B, REC_TRAIN_MICRO, REC_TRAIN_TIMED = 65_536, 1, 3
+REC_TRAIN_LR = 1e-4
+REC_CHECK_B = 4096          # 24b: the plain path's float32 CIN at 1.3 GB a layer
+# 24b: gradients through the Functions vs autograd of the plain path, of
+# each tensor's largest entry: bfloat16 rounds each product and sum at
+# 2^-9 (1e-2), float32 sums in another order (1e-4)
+REC_GRAD_TOL = {"torch.bfloat16": 1e-2, "torch.float32": 1e-4}
+# 24d / 25c: card vs CPU in float32 (the CPU tests' tolerances against
+# the reference), with tests/test_torch_recsys_train.py's floor of 1e-6 of
+# the model's largest gradient (MIND's last bias cancels to ~4e-5 of its
+# terms)
+REC_LOSS_RTOL, REC_GRAD_RTOL, REC_NOISE_FLOOR = 1e-5, 1e-4, 1e-6
+# 24e: one repeated batch memorised; the teacher's labels are near coin
+# flips, so 30 steps at 1e-3 move 256 samples' loss 0.94 x, 32 samples'
+# 0.86 x (the CPU, float32)
+REC_SMOKE_STEPS, REC_SMOKE_LR, REC_SMOKE_DROP = 30, 1e-3, 0.9
+REC_SMOKE_B = 32
+
+
+def _recsys_model_flops(cfg, batch: int, train: bool) -> float:
+    """Model FLOPs of a recommender step: a copy of the reference's
+    ``recsys_model_flops`` (`src/repro/launch/specs.py:323`)."""
+    d, f = cfg.embed_dim, cfg.n_sparse
+    flops = 0.0
+    sizes = (f * d,) + cfg.mlp + (1,)
+    flops += 2.0 * sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
+    if cfg.interaction == "fm":
+        flops += 4.0 * f * d
+    elif cfg.interaction == "cin":
+        h_prev = f
+        for h in cfg.cin_layers:
+            flops += 2.0 * h_prev * f * d * (1 + h)
+            h_prev = h
+    elif cfg.interaction == "self-attn":
+        da = cfg.n_heads * cfg.d_attn
+        flops += cfg.n_attn_layers * (
+            2.0 * f * cfg.embed_dim * da * 4 + 4.0 * f * f * da)
+    elif cfg.interaction == "multi-interest":
+        flops += cfg.capsule_iters * 4.0 * cfg.n_interests * cfg.hist_len * d
+        flops += 4.0 * cfg.n_interests * d   # label-aware scoring per cand
+        flops += 2.0 * d * d * 3             # out MLP per interest (coarse)
+    return batch * flops * (3.0 if train else 1.0)
+
+
+def _rec_batch(cfg, b: int, step: int, device="cuda") -> dict:
+    """A `ctr_batch` (CTR) or `mind_batch` (MIND) train batch on
+    ``device``: ids int32, masks bool, labels float32."""
+    import numpy as np
+    import torch
+    from repro_torch.data import recsys_data
+    if cfg.interaction == "multi-interest":
+        hist, mask, target = recsys_data.mind_batch(cfg, b, step=step,
+                                                    seed=24)
+        out = {"hist": hist, "mask": mask, "target": target}
+    else:
+        ids, mask, labels = recsys_data.ctr_batch(cfg, b, step=step,
+                                                  seed=24)
+        out = {"ids": ids.astype(np.int32), "mask": mask, "labels": labels}
+    return {k: torch.from_numpy(v).to(device) for k, v in out.items()}
+
+
+def _rec_init(cfg, seed: int, device="cuda") -> dict:
+    from repro_torch.models import recsys as RS
+    init = {"fm": RS.init_deepfm, "cin": RS.init_xdeepfm,
+            "self-attn": RS.init_autoint,
+            "multi-interest": RS.init_mind}[cfg.interaction]
+    return init(seed, cfg, device=device)
+
+
+def _rec_loss(cfg, impl: str = "auto"):
+    from repro_torch.models import recsys as RS
+    if cfg.interaction == "multi-interest":
+        return RS.mind_train_loss(cfg)
+    return RS.ctr_train_loss(cfg, impl=impl)
+
+
+def _tree_map(fn, tree):
+    """``fn`` over every tensor of a tree of dicts, lists and NamedTuples
+    (a recommender's or DimeNet's parameters, a TrainStep state)."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v) for v in tree]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, v) for v in tree))
+    return tree
+
+
+def _clone_tree(tree):
+    return _tree_map(lambda t: t.detach().clone(), tree)
+
+
+def _tree_equal(a, b) -> bool:
+    """Every tensor of two trees equal, bit for bit."""
+    import torch
+    from repro_torch.train.optimizer import named_tensors
+    na, nb = named_tensors(a), named_tensors(b)
+    return na.keys() == nb.keys() and all(
+        na[k].dtype == nb[k].dtype and torch.equal(na[k], nb[k])
+        for k in na)
+
+
+def _rec_train(card: str, cfg, label: str, timed: int) -> dict:
+    """``cfg`` at full width (random weights, seed 0), `TrainStep(AdamW(
+    REC_TRAIN_LR))` on REC_TRAIN_B-sample train batches: a warm-up step,
+    then ``timed`` timed steps.  Prints step wall, samples/s, model FLOP/s
+    (``_recsys_model_flops``) and peak memory; fails if a loss is not
+    finite or a plain version ran on the card."""
+    import torch
+    from repro_torch.models import recsys as RS
+    from repro_torch.train.optimizer import AdamW, named_tensors
+    from repro_torch.train.trainer import TrainStep
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = _rec_init(cfg, 0)
+    loss_fn = _rec_loss(cfg)
+    step = TrainStep(loss_fn, AdamW(lr=REC_TRAIN_LR),
+                     microbatches=REC_TRAIN_MICRO)
+    state = step.init_state(params)
+    batches = [_rec_batch(cfg, REC_TRAIN_B, s) for s in range(timed + 1)]
+    if cfg.interaction == "multi-interest":
+        gen = torch.Generator(device="cuda").manual_seed(24)
+        for b in batches:
+            b["negs"] = RS.mind_negatives(gen, cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in named_tensors(params).values())
+    print(f"  {n_params / 1e6:.1f} M parameters in "
+          f"{len(named_tensors(params))} tensors; weights, AdamW state "
+          f"and {timed + 1} batches made in {time.perf_counter() - t0:.1f} s"
+          f" (set-up); {REC_TRAIN_MICRO} microbatch(es) of "
+          f"{REC_TRAIN_B // REC_TRAIN_MICRO} a step")
+    losses = []
+
+    def one(b):
+        nonlocal params, state
+        params, state, loss = step(params, state, b)
+        losses.append(loss)
+    warm = _wall(lambda: one(batches[0]))
+    torch.cuda.reset_peak_memory_stats()
+    _reset_recsys_counts()
+    walls = [_wall(lambda b=b: one(b)) for b in batches[1:]]
+    counts = _recsys_counts()
+    peak = torch.cuda.max_memory_allocated()
+    wall = sorted(walls)[len(walls) // 2]
+    flops = _recsys_model_flops(cfg, REC_TRAIN_B, True)
+    vals = torch.stack(losses).float().cpu()
+    print(f"  step wall {', '.join(f'{w * 1e3:.2f}' for w in walls)} ms "
+          f"(warm-up {warm * 1e3:.1f} ms), median {wall * 1e3:.2f} ms: "
+          f"{REC_TRAIN_B / wall:,.0f} samples/s, model FLOP/s "
+          f"{flops / wall / 1e12:.2f} T ({flops:.3e} FLOP a step by "
+          f"recsys_model_flops; {100 * flops / wall / BF16_OPS_PER_S:.2f} % "
+          f"of 989 TFLOP/s); peak memory {peak / 1e9:.2f} GB; launches "
+          f"{counts} in {timed} steps; losses "
+          f"{', '.join(f'{x:.5f}' for x in vals.tolist())} [{card}]")
+    if not bool(torch.isfinite(vals).all()) or counts["plain"]:
+        raise AssertionError(f"{label}: losses {vals.tolist()}, launches "
+                             f"{counts}")
+    return {"params": params, "state": state, "step": step,
+            "batches": batches, "wall": wall, "counts": counts,
+            "one": one}
+
+
+def _rec_grads(params, cfg, batch, impl: str):
+    import torch
+    from repro_torch.train.optimizer import named_tensors
+    named = named_tensors(params)
+    loss = _rec_loss(cfg, impl)(params, batch)
+    return loss.detach(), dict(zip(named, torch.autograd.grad(
+        loss, list(named.values()))))
+
+
+def _grad_errs(got: dict, want: dict, floor_frac: float = 0.0) -> dict:
+    """name -> max |got - want| / (the tensor's largest |want|, floored
+    at ``floor_frac`` of the model's largest): held to a tolerance tol,
+    that is an atol of tol x the tensor's largest or tol x floor_frac x
+    the model's, the larger."""
+    top = max(float(g.abs().max()) for g in want.values())
+    return {k: float((got[k].double().cpu() - w.double().cpu()).abs().max())
+            / max(float(w.abs().max()), floor_frac * top, 1e-300)
+            for k, w in want.items()}
+
+
+def _rec_breakdown(card: str, cfg, run: dict) -> None:
+    """24a: where a step's device time goes.  A device-only trace of one
+    step gives the busy time (the idle share against the median wall);
+    the forward kernels, the plain backward of the bag and of each CIN
+    layer and the dense AdamW update are timed alone on the step's
+    shapes (a trace can drop a run's first kernels: the launch counters,
+    not the trace, show the kernels ran)."""
+    import torch
+    from repro_torch.kernels.cin_fuse import kernel as cin_kernel
+    from repro_torch.kernels.cin_fuse.autograd import cin_grads
+    from repro_torch.kernels.embedding_bag import kernel as bag_kernel
+    from repro_torch.kernels.embedding_bag.autograd import bag_table_grad
+    from repro_torch.train.optimizer import named_tensors
+    params, b = run["params"], run["batches"][1]
+    traced = phase_profile(card, run["wall"], lambda: run["one"](b),
+                           "phase 24a: device time by kernel, one xDeepFM "
+                           f"training step (B = {REC_TRAIN_B})",
+                           trace_host=False)
+    busy = sum(ms for ms, _ in traced.values())
+    gen = torch.Generator(device="cuda").manual_seed(241)
+    table = params["embedding"]["table"]
+    tables = (table, params["embedding"]["wide"])
+    dt, rows = table.dtype, table.shape[0]
+    bag_fwd = sum(_device_ms(lambda t=t: bag_kernel.embedding_bag_cuda(
+        t.detach(), b["ids"], b["mask"]), n=3, warm=1) for t in tables)
+    g10 = torch.randn((REC_TRAIN_B, cfg.n_sparse, cfg.embed_dim),
+                      generator=gen, device="cuda").to(dt)
+    bag_ms = sum(_device_ms(lambda g=g: bag_table_grad(
+        g, b["ids"], b["mask"], rows), n=3, warm=1)
+        for g in (g10, g10[..., :1].contiguous()))
+    del g10
+    m, d = cfg.n_sparse, cfg.embed_dim
+    cin_fwd = cin_ms = 0.0
+    for hk, o in zip((m,) + cfg.cin_layers[:-1], cfg.cin_layers):
+        xk, x0, w = _cin_inputs(REC_TRAIN_B, hk, m, d, o, dt, gen)
+        g = torch.randn((REC_TRAIN_B, o, d), generator=gen,
+                        device="cuda").to(dt)
+        cin_fwd += _device_ms(lambda: cin_kernel.cin_layer_cuda(xk, x0, w),
+                              n=3, warm=1)
+        cin_ms += _device_ms(lambda: cin_grads(g, xk, x0, w), n=3, warm=1)
+        del xk, x0, w, g
+    named = named_tensors(params)
+    opt_params = _clone_tree(named)
+    opt_state = _clone_tree(run["state"]["opt"])
+    grads = {k: torch.zeros_like(p) for k, p in named.items()}
+    opt = run["step"].optimizer
+    adam_ms = _device_ms(lambda: opt.update(grads, opt_state, opt_params),
+                         n=3, warm=1)
+    n_tab = sum(t.numel() for t in tables)
+
+    def share(ms):
+        return f"{ms:.2f} ms ({100 * ms / busy:.1f} %)"
+    print(f"  of {busy:.2f} ms busy, timed alone on the step's shapes "
+          f"[{card}]: forward kernels, bag {share(bag_fwd)} and CIN "
+          f"{share(cin_fwd)}; the plain bag backward (table and wide) "
+          f"{share(bag_ms)}; the plain CIN backward (three layers) "
+          f"{share(cin_ms)}; the dense AdamW over all {len(named)} tensors "
+          f"({n_tab / 1e6:.1f} M of the "
+          f"{sum(p.numel() for p in named.values()) / 1e6:.1f} M entries in "
+          f"the tables) {share(adam_ms)}")
+    del opt_params, opt_state, grads
+
+
+def _rec_check_grads(card: str, cfg, params) -> None:
+    """24b: on one REC_CHECK_B microbatch at full width, the gradient of
+    every tensor through the Functions (the kernels' forward, the plain
+    backward) against autograd of the plain path; in bfloat16 and on a
+    float32 copy of the same weights."""
+    import torch
+    from repro_torch.train.optimizer import named_tensors
+    b = _rec_batch(cfg, REC_CHECK_B, 99)
+    for dtype in (torch.bfloat16, torch.float32):
+        p = params if dtype == torch.bfloat16 else _as_dtype(params, dtype)
+        if dtype == torch.float32:
+            for t in named_tensors(p).values():
+                t.requires_grad_(True)
+        _reset_recsys_counts()
+        lk, gk = _rec_grads(p, cfg, b, "auto")
+        counts = _recsys_counts()
+        lp, gp = _rec_grads(p, cfg, b, "torch")
+        errs = _grad_errs(gk, gp)
+        tol = REC_GRAD_TOL[str(dtype)]
+        worst = max(errs, key=errs.get)
+        loss_err = abs(float(lk) - float(lp)) / abs(float(lp))
+        print(f"  24b {dtype}, B = {REC_CHECK_B}: gradients through the "
+              f"Functions vs autograd of the plain path, of each tensor's "
+              f"largest: <= {errs[worst]:.2e} ({worst}; limit {tol:g}); "
+              f"table {errs['embedding/table']:.2e}, cin/0 "
+              f"{errs['cin/0']:.2e}; loss {loss_err:.1e}; kernel launches "
+              f"{counts} [{card}]")
+        if not (errs[worst] <= tol and loss_err <= tol
+                and counts["embedding_bag"] == 2
+                and counts["cin_layer"] == len(cfg.cin_layers)
+                and counts["plain"] == 0):
+            raise AssertionError(f"24b {dtype}: gradient errors {errs}, "
+                                 f"loss {loss_err}, launches {counts}")
+        del gk, gp
+
+
+def _as_dtype(params, dtype):
+    """A copy of a model's parameter dict in ``dtype``."""
+    return _tree_map(lambda t: t.detach().to(dtype).clone(), params)
+
+
+def _repeats_bitwise(step, params, state, batch) -> bool:
+    """One `TrainStep` from copies of (params, state), twice: weights,
+    AdamW moments and loss equal bit for bit."""
+    import torch
+    from repro_torch.train.optimizer import named_tensors
+    outs = []
+    for _ in range(2):
+        p, s = _clone_tree(params), _clone_tree(state)
+        for t in named_tensors(p).values():
+            t.requires_grad_(True)
+        p, s, loss = step(p, s, batch)
+        outs.append((p, s["opt"], loss))
+    (p0, s0, l0), (p1, s1, l1) = outs
+    return (_tree_equal(p0, p1) and _tree_equal(s0.m, s1.m)
+            and _tree_equal(s0.v, s1.v) and torch.equal(l0, l1))
+
+
+def _rec_repeat_and_serve(card: str, cfg, run: dict) -> None:
+    """24b: the step repeated from a saved state gives the same bits;
+    serve_p99's launches a call are phase 15's."""
+    import torch
+    from repro_torch.models import recsys as RS
+    b = run["batches"][1]
+    same = _repeats_bitwise(run["step"], run["params"], run["state"], b)
+    ids, mask = b["ids"][:REC_P99], b["mask"][:REC_P99]
+    _reset_recsys_counts()
+    with torch.no_grad():
+        RS.xdeepfm_logits(run["params"], cfg, ids, mask)
+    served = _recsys_counts()
+    expect = {"embedding_bag": 2, "cin_layer": len(cfg.cin_layers),
+              "plain": 0}
+    print(f"  24b: the step from a saved state twice: weights, AdamW "
+          f"moments and loss {'bitwise equal' if same else 'DIFFERENT'}; a "
+          f"serve_p99 call after training launches {served} (phase 15: "
+          f"{expect}) [{card}]")
+    if not same or served != expect:
+        raise AssertionError(f"24b: repeat bitwise {same}, serve launches "
+                             f"{served}")
+
+
+def _rec_card_vs_cpu(card: str) -> None:
+    """24d: the four recommenders at their SMOKE configs in float32, card
+    against CPU on the same weights and batch: loss and every gradient
+    (MIND with shared negatives and in-batch)."""
+    from repro_torch.configs import autoint, deepfm, mind, xdeepfm
+    from repro_torch.models import recsys as RS
+    from repro_torch.train.optimizer import named_tensors
+    for mod, negs in ((deepfm, False), (xdeepfm, False), (autoint, False),
+                      (mind, False), (mind, True)):
+        cfg = mod.SMOKE
+        cpu = _rec_init(cfg, 7, device="cpu")
+        gpu = _to_device(cpu, "cuda")
+        for p in (cpu, gpu):
+            for t in named_tensors(p).values():
+                t.requires_grad_(True)
+        bc = _rec_batch(cfg, 64, 5, device="cpu")
+        if negs:
+            bc["negs"] = RS.mind_negatives(5, cfg, 48, device="cpu")
+        bg = {k: v.cuda() for k, v in bc.items()}
+        lg, gg = _rec_grads(gpu, cfg, bg, "auto")
+        lc, gc = _rec_grads(cpu, cfg, bc, "auto")
+        loss_err = abs(float(lg) - float(lc)) / abs(float(lc))
+        errs = _grad_errs(gg, gc, REC_NOISE_FLOOR / REC_GRAD_RTOL)
+        worst = max(errs, key=errs.get)
+        name = cfg.name + (" (shared negatives)" if negs else "")
+        print(f"  24d {name}: loss {loss_err:.1e} (limit "
+              f"{REC_LOSS_RTOL:g}), gradients <= {errs[worst]:.1e} ({worst};"
+              f" limit {REC_GRAD_RTOL:g} of the tensor's largest, floor "
+              f"{REC_NOISE_FLOOR:g} of the model's) [{card}]")
+        if not (loss_err <= REC_LOSS_RTOL and errs[worst] <= REC_GRAD_RTOL):
+            raise AssertionError(f"24d {name}: loss {loss_err}, {errs}")
+
+
+def _to_device(tree, device):
+    return _tree_map(lambda t: t.to(device), tree)
+
+
+def _rec_learns(card: str) -> None:
+    """24e: smoke xDeepFM on one repeated batch of REC_SMOKE_B samples,
+    REC_SMOKE_STEPS steps of AdamW(REC_SMOKE_LR): the last loss below
+    REC_SMOKE_DROP x the first."""
+    from repro_torch.configs import xdeepfm
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainer import TrainStep
+    cfg = xdeepfm.SMOKE
+    params = _rec_init(cfg, 0)
+    step = TrainStep(_rec_loss(cfg), AdamW(lr=REC_SMOKE_LR))
+    state = step.init_state(params)
+    b = _rec_batch(cfg, REC_SMOKE_B, 0)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(REC_SMOKE_STEPS):
+        params, state, loss = step(params, state, b)
+        losses.append(loss)
+    first, last = float(losses[0]), float(losses[-1])
+    print(f"  24e {cfg.name}: {REC_SMOKE_STEPS} steps on one batch of "
+          f"{REC_SMOKE_B} "
+          f"in {time.perf_counter() - t0:.2f} s: loss {first:.4f} -> "
+          f"{last:.4f} ({last / first:.3f} x; limit {REC_SMOKE_DROP}) "
+          f"[{card}]")
+    if not last < REC_SMOKE_DROP * first:
+        raise AssertionError(f"24e: loss {first} -> {last}")
+
+
+def phase_rec_training(card: str) -> dict:
+    """24: recommender training on the card (24a-24e); returns the bag's
+    and the CIN's launches in 24a's timed steps."""
+    import torch
+    from repro_torch.configs import autoint, deepfm, mind, xdeepfm
+    cfg = xdeepfm.FULL
+    print(f"== phase 24a: training {cfg.name} at full width "
+          f"({cfg.n_sparse} fields, CIN {cfg.cin_layers}, MLP {cfg.mlp}), "
+          f"{cfg.dtype}, random weights (seed 0); the train_batch cell: "
+          f"B = {REC_TRAIN_B}, AdamW(lr={REC_TRAIN_LR:g}), ctr_batch "
+          f"batches")
+    t0 = time.perf_counter()
+    run = _rec_train(card, cfg, "24a", REC_TRAIN_TIMED)
+    counts = run["counts"]
+    if not (counts["embedding_bag"] > 0 and counts["cin_layer"] > 0):
+        raise AssertionError(f"24a: launches {counts}")
+    _rec_breakdown(card, cfg, run)
+    print(f"  (phase 24a: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    print(f"== phase 24b: {cfg.name} gradients, determinism, serving")
+    _rec_check_grads(card, cfg, run["params"])
+    _rec_repeat_and_serve(card, cfg, run)
+    del run
+    torch.cuda.empty_cache()
+    print(f"  (phase 24b: {time.perf_counter() - t0:.1f} s)")
+    for mod, label in ((deepfm, "24c"), (autoint, "24c"), (mind, "24d")):
+        c = mod.FULL
+        t0 = time.perf_counter()
+        print(f"== phase {label}: training {c.name} at full width, {c.dtype},"
+              f" random weights (seed 0), B = {REC_TRAIN_B}"
+              + (f", {1024} shared negatives uniform over "
+                 f"{c.item_vocab:,} items" if mod is mind else ""))
+        other = _rec_train(card, c, label, 1)
+        del other
+        torch.cuda.empty_cache()
+        print(f"  (phase {label} {c.name}: {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    _rec_card_vs_cpu(card)
+    _rec_learns(card)
+    print(f"  (phases 24d-24e checks: {time.perf_counter() - t0:.1f} s)")
+    return counts
+
+
+# -- phase 25: DimeNet -------------------------------------------------------
+DN_MOLECULE = dict(n_molecules=128, n_atoms=30, n_bonds=64, d_feat=32)
+DN_MOLECULE_PAD_NODES = 4096     # gnn_cell_dims: 3,840 atoms padded to 512s
+DN_BASE = dict(n_nodes=232_965, avg_degree=64, d_feat=602)  # degree CUT
+DN_SEEDS, DN_FANOUTS = 1024, (15, 10)
+DN_BUFFERS = dict(pad_nodes=169_984, pad_edges=168_960, pad_triplets=675_840)
+DN_REF_DEGREE = 492              # 114,615,892 edges / 232,965 nodes
+# the sample (nodes, edges, triplets) from the same seeds at the reference's
+# degree: `PYTHONPATH=src python tools/dimenet_sample_sizes.py 492`
+DN_REF_SAMPLE = (118_041, 163_270, 101_848)
+DN_TIMED = 3
+DN_F32_RTOL = 1e-2               # bfloat16 loss vs a float32 copy
+DN_FWD_RTOL, DN_GRAD_RTOL, DN_LOSS_RTOL = 1e-5, 1e-4, 1e-5
+
+
+def _pad_nodes(g, n: int):
+    """``g`` with zero-feature nodes appended up to ``n``, in graph
+    n_graphs - 1 (`build_graph_batch`'s fill)."""
+    import dataclasses
+    import torch
+    extra = n - g.n_nodes
+    return dataclasses.replace(
+        g, node_feat=torch.cat([g.node_feat, g.node_feat.new_zeros(
+            (extra, g.node_feat.shape[1]))]),
+        node_graph=torch.cat([g.node_graph, g.node_graph.new_full(
+            (extra,), g.n_graphs - 1)]))
+
+
+def _dn_step(card: str, cfg, g, y, label: str, unit: str, n_units: int,
+             timed: int = DN_TIMED) -> dict:
+    """`TrainStep(AdamW(1e-4))` on DimeNet ``cfg`` (random weights, seed 0)
+    over one graph batch: a forward, a warm-up step and ``timed`` timed
+    steps; fails if a loss is not finite or a port kernel launched."""
+    import torch
+    from repro_torch.models import dimenet as DN
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainer import TrainStep
+    torch.cuda.empty_cache()
+    params = DN.init_params(0, cfg, g.node_feat.shape[1])
+    with torch.no_grad():
+        fwd_ms = _time_ms(lambda: DN.forward(params, cfg, g), n=3, warm=1)
+    step = TrainStep(lambda p, b: DN.train_step_loss(p, cfg, g, b["y"]),
+                     AdamW(lr=1e-4))
+    state = step.init_state(params)
+    losses = []
+
+    def one():
+        nonlocal params, state
+        params, state, loss = step(params, state, {"y": y})
+        losses.append(loss)
+    warm = _wall(one)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    _reset_recsys_counts()
+    walls = [_wall(one) for _ in range(timed)]
+    peak = torch.cuda.max_memory_allocated()
+    rec = _recsys_counts()
+    counts = dict(_counts(), **_attention_counts())
+    counts["plain"] += rec.pop("plain")
+    counts.update(rec)
+    wall = sorted(walls)[len(walls) // 2]
+    vals = torch.stack(losses).float().cpu()
+    print(f"  forward {fwd_ms:.2f} ms; step wall "
+          f"{', '.join(f'{w * 1e3:.2f}' for w in walls)} ms (warm-up "
+          f"{warm * 1e3:.1f} ms), median {wall * 1e3:.2f} ms = "
+          f"{n_units / wall:,.0f} {unit}/s; peak memory {peak / 1e9:.2f} GB;"
+          f" losses {', '.join(f'{x:.5f}' for x in vals.tolist())} [{card}]")
+    if not bool(torch.isfinite(vals).all()) or any(counts.values()):
+        raise AssertionError(f"{label}: losses {vals.tolist()}, port kernel "
+                             f"launches {counts} (DimeNet has none)")
+    return {"params": params, "state": state, "step": step, "wall": wall,
+            "one": one}
+
+
+def _dn_breakdown(card: str, cfg, g, run: dict) -> None:
+    """25b: where a step's time goes: a device-only trace for the busy
+    time (the idle share), and the three message-passing pieces of one
+    block timed alone forward and backward on the step's shapes: the
+    gathers (node -> edge twice, edge -> triplet), the bilinear product
+    and the segment sums (triplet -> edge, edge -> node)."""
+    import torch
+    from repro_torch._segment import gather_rows, segment_sum
+    from repro_torch.models import dimenet as DN
+    traced = phase_profile(card, run["wall"], run["one"],
+                           "phase 25b: device time by kernel, one DimeNet "
+                           "training step (minibatch_lg)", trace_host=False)
+    busy = sum(ms for ms, _ in traced.values())
+    dt = getattr(torch, cfg.dtype)
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    h, nb = cfg.d_hidden, cfg.n_bilinear
+    n, e, t = g.n_nodes, g.n_edges, g.tri_kj.shape[0]
+
+    def rnd(*shape):
+        x = torch.randn(shape, generator=gen, device="cuda").to(dt)
+        return x.requires_grad_(True)
+    kj = DN._kept(g.tri_kj, g.tri_mask, e)
+    ji = DN._kept(g.tri_ji, g.tri_mask, e)
+    src = DN._kept(g.edge_src, g.edge_mask, n)
+    dst = DN._kept(g.edge_dst, g.edge_mask, n)
+    hn, me, tr = rnd(n, h), rnd(e, h), rnd(t, h)
+    sw, xk, bil = rnd(t, nb), rnd(t, h), rnd(h, nb, h)
+
+    def fb(fn, *xs):
+        out = fn()
+        torch.autograd.grad(out, xs, torch.ones_like(out))
+    node_gathers = 2 * _device_ms(lambda: fb(lambda: gather_rows(
+        hn, g.edge_src, grad_ids=src), hn), n=3, warm=1)
+    tri_gather = _device_ms(lambda: fb(lambda: gather_rows(
+        me, g.tri_kj, grad_ids=kj), me), n=3, warm=1)
+    bilinear = _device_ms(lambda: fb(lambda: DN._bilinear(sw, xk, bil),
+                                     sw, xk, bil), n=3, warm=1)
+    seg = (_device_ms(lambda: fb(lambda: segment_sum(tr, ji, e), tr), n=3,
+                      warm=1)
+           + _device_ms(lambda: fb(lambda: segment_sum(me, dst, n), me),
+                        n=3, warm=1))
+    nblk = cfg.n_blocks
+    gather = node_gathers + nblk * tri_gather
+    print(f"  timed alone, forward and backward, x {nblk} blocks (the "
+          f"embedding block's two node gathers once) [{card}]: gathers "
+          f"{gather:.2f} ms ({100 * gather / busy:.1f} % of "
+          f"{busy:.2f} ms busy), the bilinear product {bilinear * nblk:.2f}"
+          f" ms ({100 * bilinear * nblk / busy:.1f} %), the segment sums "
+          f"{seg * nblk:.2f} ms ({100 * seg * nblk / busy:.1f} %)")
+
+
+def _dn_smoke_card_vs_cpu(card: str) -> None:
+    """25c: DimeNet SMOKE in float32, card against CPU on the same
+    weights: forward on a molecule batch and a sampled subgraph, the
+    loss and every gradient."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import dimenet
+    from repro_torch.data import graph_sampler as GS
+    from repro_torch.models import dimenet as DN
+    from repro_torch.train.optimizer import named_tensors
+    cfg = dimenet.SMOKE
+    mol, y = GS.make_molecule_batch(8, 12, 24, 8, seed=3, device="cpu")
+    base = GS.make_power_law_graph(2000, avg_degree=8, d_feat=8, seed=3)
+    nodes, es, ed = GS.neighbor_sample(base, np.arange(32), (5, 4), seed=3)
+    sub = GS.build_graph_batch(base, nodes, es, ed, pad_nodes=1024,
+                               pad_edges=1024, pad_triplets=4096, seed=3,
+                               device="cpu")
+    cpu = DN.init_params(4, cfg, 8, device="cpu")
+    gpu = _to_device(cpu, "cuda")
+    for what, g, yy in (("molecule", mol, y),
+                        ("sampled subgraph", sub, y[:1])):
+        res = {}
+        for dev, p in (("cuda", gpu), ("cpu", cpu)):
+            gd, yd = g.to(dev), yy.to(dev)
+            named = named_tensors(p)
+            for t in named.values():
+                t.requires_grad_(True)
+            with torch.no_grad():
+                out = DN.forward(p, cfg, gd)
+            loss = DN.train_step_loss(p, cfg, gd, yd)
+            grads = torch.autograd.grad(loss, list(named.values()))
+            res[dev] = (out.cpu(), loss.detach().cpu(),
+                        dict(zip(named, grads)))
+        (og, lg, gg), (oc, lc, gc) = res["cuda"], res["cpu"]
+        fwd = float((og - oc).abs().max() / oc.abs().max())
+        loss_err = abs(float(lg) - float(lc)) / abs(float(lc))
+        errs = _grad_errs(gg, gc)
+        worst = max(errs, key=errs.get)
+        print(f"  25c {cfg.name} {what}: forward {fwd:.1e} of its largest "
+              f"(limit {DN_FWD_RTOL:g}), loss {loss_err:.1e} "
+              f"({DN_LOSS_RTOL:g}), gradients <= {errs[worst]:.1e} "
+              f"({worst}; {DN_GRAD_RTOL:g}) [{card}]")
+        if not (fwd <= DN_FWD_RTOL and loss_err <= DN_LOSS_RTOL
+                and errs[worst] <= DN_GRAD_RTOL):
+            raise AssertionError(f"25c {what}: forward {fwd}, loss "
+                                 f"{loss_err}, gradients {errs}")
+
+
+def phase_dimenet(card: str) -> None:
+    """25: DimeNet at FULL on molecule (25a) and minibatch_lg (25b), then
+    its checks (25c)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import dimenet
+    from repro_torch.data import graph_sampler as GS
+    from repro_torch.models import dimenet as DN
+    cfg = dimenet.FULL
+    t0 = time.perf_counter()
+    mol, y = GS.make_molecule_batch(**DN_MOLECULE, pad_triplet_factor=4,
+                                    seed=0)
+    mol = _pad_nodes(mol, DN_MOLECULE_PAD_NODES)
+    print(f"== phase 25a: DimeNet FULL ({cfg.n_blocks} blocks, h "
+          f"{cfg.d_hidden}, {cfg.n_bilinear} bilinear, "
+          f"{cfg.n_spherical} x {cfg.n_radial} basis, {cfg.dtype}), random "
+          f"weights (seed 0), molecule: {DN_MOLECULE['n_molecules']} "
+          f"molecules x {DN_MOLECULE['n_atoms']} atoms, "
+          f"{DN_MOLECULE['n_bonds']} bonds, buffers {mol.n_nodes} nodes, "
+          f"{mol.n_edges} edges, {mol.tri_kj.shape[0]} triplets "
+          f"({int(mol.tri_mask.sum())} real), d_feat "
+          f"{DN_MOLECULE['d_feat']}; made in {time.perf_counter() - t0:.1f}"
+          " s")
+    mol_params = _dn_step(card, cfg, mol, y, "25a", "graphs",
+                          DN_MOLECULE["n_molecules"])["params"]
+    t0 = time.perf_counter()
+    base = GS.make_power_law_graph(DN_BASE["n_nodes"], DN_BASE["avg_degree"],
+                                   DN_BASE["d_feat"], seed=0)
+    t_graph = time.perf_counter() - t0
+    nodes, es, ed = GS.neighbor_sample(base, np.arange(DN_SEEDS),
+                                       DN_FANOUTS, seed=0)
+    g = GS.build_graph_batch(base, nodes, es, ed, **DN_BUFFERS, seed=0)
+    del base
+    y_lg = torch.randn((1, cfg.d_out), generator=torch.Generator(
+        device="cuda").manual_seed(25), device="cuda")
+    n_tri = int(g.tri_mask.sum())
+    print(f"== phase 25b: DimeNet FULL, minibatch_lg: base graph "
+          f"{DN_BASE['n_nodes']:,} nodes at average degree "
+          f"{DN_BASE['avg_degree']} (CUT from the reference's "
+          f"{DN_REF_DEGREE}: generated in {t_graph:.1f} s), {DN_SEEDS} "
+          f"seeds, fanouts {DN_FANOUTS}, d_feat {DN_BASE['d_feat']}; "
+          f"sampled {len(nodes):,} nodes, {len(es):,} edges, {n_tri:,} "
+          f"triplets (at degree {DN_REF_DEGREE} from the same seeds: "
+          + ", ".join(f"{n:,}" for n in DN_REF_SAMPLE) + "; "
+          + ", ".join(f"{100 * (a / b - 1):+.2f} %" for a, b in zip(
+              (len(nodes), len(es), n_tri), DN_REF_SAMPLE))
+          + f"; the cell's buffers {DN_BUFFERS['pad_nodes']:,}, "
+          f"{DN_BUFFERS['pad_edges']:,}, {DN_BUFFERS['pad_triplets']:,}); "
+          f"sampled and padded in {time.perf_counter() - t0:.1f} s "
+          "(set-up)")
+    run = _dn_step(card, cfg, g, y_lg, "25b", "seeds", DN_SEEDS)
+    _dn_breakdown(card, cfg, g, run)
+    print(f"  (phase 25a-25b: {time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    print("== phase 25c: DimeNet checks")
+    same = _repeats_bitwise(run["step"], run["params"], run["state"],
+                            {"y": y_lg})
+    print(f"  25c minibatch_lg: the step from a saved state twice: weights,"
+          f" AdamW moments and loss {'bitwise equal' if same else 'DIFFERENT'}"
+          f" [{card}]")
+    if not same:
+        raise AssertionError("25c: a repeated DimeNet step differs")
+    del run
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        l16 = float(DN.train_step_loss(mol_params, cfg, mol, y))
+        p32 = _as_dtype(mol_params, torch.float32)
+        l32 = float(DN.train_step_loss(p32, cfg, mol, y))
+    err = abs(l16 - l32) / abs(l32)
+    print(f"  25c molecule: bfloat16 loss {l16:.6f}, float32 copy "
+          f"{l32:.6f}, relative {err:.2e} (limit {DN_F32_RTOL:g}) [{card}]")
+    if not err <= DN_F32_RTOL:
+        raise AssertionError(f"25c: bfloat16 vs float32 loss {err}")
+    del mol_params, p32
+    _dn_smoke_card_vs_cpu(card)
+    print(f"  (phase 25c: {time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4606,6 +5320,15 @@ def main() -> int:
     t23 = time.perf_counter()
     phase_training(card)
     print(f"== phase 23: {time.perf_counter() - t23:.1f} s [{card}]")
+    t24 = time.perf_counter()
+    trained = phase_rec_training(card)
+    bag["launches"] += trained["embedding_bag"]
+    cin["launches"] += trained["cin_layer"]
+    print(f"== phase 24: {time.perf_counter() - t24:.1f} s [{card}]")
+    torch.cuda.empty_cache()
+    t25 = time.perf_counter()
+    phase_dimenet(card)
+    print(f"== phase 25: {time.perf_counter() - t25:.1f} s [{card}]")
     print(json.dumps({"kernels": [scan, segment, jsq, flash, decode, bag,
                                   cin, fleet]}))
     print(card)

@@ -6,10 +6,11 @@ PyTorch port of `repro.ckpt.checkpoint`, with the reference's layout:
         manifest.json   — the step, and each key's shape and dtype
         arrays.npz      — the tree's leaves keyed by their path
 
-A tree is made of dicts, NamedTuples (the optimizer states), tensors,
-and `nn.Module`s (saved through their ``state_dict``);
-a leaf's key is its path joined by "/" (a module's state-dict names
-under it, a NamedTuple's field names).  numpy has no bfloat16: a
+A tree is made of dicts, lists (a recommender's layers), NamedTuples
+(the optimizer states), tensors, and `nn.Module`s (saved through their
+``state_dict``); a leaf's key is its path joined by "/" (a module's
+state-dict names under it, a NamedTuple's field names, a list's
+indices).  numpy has no bfloat16: a
 bfloat16 leaf is stored as its raw uint16 bits and the manifest names
 its dtype, so a restore gives back the saved bits exactly.
 
@@ -57,6 +58,8 @@ def _children(node):
         return [(str(k), v) for k, v in node.items()]
     if _is_namedtuple(node):
         return list(zip(node._fields, node))
+    if isinstance(node, list):
+        return [(str(i), v) for i, v in enumerate(node)]
     return None
 
 
@@ -174,6 +177,8 @@ def restore(ckpt_dir: str, step: int, tree_like, *,
                     for k, v in kids]
             if isinstance(node, dict):
                 return dict(zip(node.keys(), vals))
+            if isinstance(node, list):
+                return vals
             return type(node)(*vals)                    # a NamedTuple
         return build(tree_like, "")
 

@@ -1,11 +1,12 @@
-"""Config dataclasses of the language models and CTR recommenders the
-port serves, and their input-shape cells.
+"""Config dataclasses of the language models, CTR recommenders and the
+GNN the port runs, and their input-shape cells.
 
-A port of the LM and recsys parts of `repro.configs.base`: every
+A port of `repro.configs.base`: every
 architecture field, default and derived property is the reference's, so
 a config built here describes the same model (`vocab_padded`,
 `n_params`, `n_active_params` and `total_rows` agree with the
-reference's).  Of the reference's execution knobs only `attn_chunk` is
+reference's; `GNNConfig` and `GNN_SHAPES` are the reference's field for
+field).  Of the reference's execution knobs only `attn_chunk` is
 kept (training's attention: 0 the full softmax, else the blockwise
 path); `scan_layers`, `scan_unroll` and `unroll_attn` choose how JAX
 traces the layer and chunk loops, have no meaning here and are left
@@ -18,8 +19,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional, Tuple
 
-__all__ = ["MoESpec", "LMConfig", "RecsysConfig", "ShapeSpec", "ArchSpec",
-           "LM_SHAPES", "RECSYS_SHAPES"]
+__all__ = ["MoESpec", "LMConfig", "GNNConfig", "RecsysConfig", "ShapeSpec",
+           "ArchSpec", "LM_SHAPES", "GNN_SHAPES", "RECSYS_SHAPES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +85,20 @@ class LMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    n_blocks: int = 6
+    d_hidden: int = 128
+    n_bilinear: int = 8
+    n_spherical: int = 7
+    n_radial: int = 6
+    d_out: int = 1
+    cutoff: float = 5.0
+    triplet_budget_factor: int = 4   # triplets per edge budget
+    dtype: str = "bfloat16"
+
+
+@dataclasses.dataclass(frozen=True)
 class RecsysConfig:
     name: str
     interaction: str                      # fm | cin | self-attn | multi-interest
@@ -113,7 +128,7 @@ class ShapeSpec:
     """One assigned input-shape cell."""
 
     name: str
-    kind: str                    # train | prefill | decode | recsys_*
+    kind: str                    # train | prefill | decode | graph | recsys_*
     dims: Dict[str, int]
 
     def __getitem__(self, k):
@@ -125,6 +140,21 @@ LM_SHAPES = (
     ShapeSpec("prefill_32k", "prefill", dict(seq_len=32768, global_batch=32)),
     ShapeSpec("decode_32k", "decode", dict(seq_len=32768, global_batch=128)),
     ShapeSpec("long_500k", "decode", dict(seq_len=524288, global_batch=1)),
+)
+
+GNN_SHAPES = (
+    ShapeSpec("full_graph_sm", "graph",
+              dict(n_nodes=2708, n_edges=10556, d_feat=1433)),
+    ShapeSpec("minibatch_lg", "graph",
+              dict(n_nodes=232965, n_edges=114615892, batch_nodes=1024,
+                   fanout1=15, fanout2=10,
+                   # sampled subgraph actually computed per step:
+                   # 1024 + 1024*15 + 1024*15*10 nodes; edges = 15360+153600
+                   sub_nodes=169984, sub_edges=168960, d_feat=602)),
+    ShapeSpec("ogb_products", "graph",
+              dict(n_nodes=2449029, n_edges=61859140, d_feat=100)),
+    ShapeSpec("molecule", "graph",
+              dict(n_nodes=30, n_edges=64, batch=128)),
 )
 
 RECSYS_SHAPES = (
@@ -139,8 +169,8 @@ RECSYS_SHAPES = (
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str                 # lm | recsys
-    config: object              # LMConfig | RecsysConfig
+    family: str                 # lm | gnn | recsys
+    config: object              # LMConfig | GNNConfig | RecsysConfig
     smoke_config: object        # reduced same-family config
     shapes: Tuple[ShapeSpec, ...]
     source: str = ""

@@ -1,10 +1,8 @@
-"""``arch id -> ArchSpec`` over the architectures the port can run.
-
-The reference's registry (`repro.configs.registry`) lists ten; the port
-lists the nine its serving paths run: the dense and MoE GQA language
-models (Qwen3, Command-R, Qwen3-MoE, Granite-MoE), the three CTR
-recommenders and MIND.  DimeNet is not ported: its id, like any other,
-raises `KeyError`, as the reference does for an unknown one.
+"""``arch id -> ArchSpec`` over the architectures the port runs: all ten
+of the reference's registry (`repro.configs.registry`): the dense and
+MoE GQA language models (Qwen3, Command-R, Qwen3-MoE, Granite-MoE), the
+three CTR recommenders, MIND and DimeNet.  An unknown id raises
+`KeyError`, as the reference's does.
 """
 
 from __future__ import annotations
@@ -25,6 +23,7 @@ _MODULES = {
     "xdeepfm": "repro_torch.configs.xdeepfm",
     "autoint": "repro_torch.configs.autoint",
     "mind": "repro_torch.configs.mind",
+    "dimenet": "repro_torch.configs.dimenet",
 }
 
 

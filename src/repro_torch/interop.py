@@ -5,9 +5,9 @@ parameters, its arrival process and its random draws.  A language model
 is its weights.  These functions build the port's objects from numpy
 arrays — never from a `repro` object — so that a test can hand both
 packages the same parameters, the same load, the same random numbers and
-the same weights (a language model's or a CTR recommender's); and back
-to numpy, so that a test can hold a language model's gradients and
-updated weights against the reference's.
+the same weights (a language model's, a recommender's or DimeNet's); and
+back to numpy, so that a test can hold a model's gradients and updated
+weights against the reference's.
 """
 
 from __future__ import annotations
@@ -25,7 +25,9 @@ from repro_torch.train.optimizer import AdamWState, named_tensors
 
 __all__ = ["server_params_from_numpy", "arrival_process_from_numpy",
            "draws_from_numpy", "lm_params_from_numpy", "lm_params_to_numpy",
-           "adamw_state_from_numpy", "recsys_params_from_numpy"]
+           "adamw_state_from_numpy", "recsys_params_from_numpy",
+           "recsys_params_to_numpy", "dimenet_params_from_numpy",
+           "dimenet_params_to_numpy"]
 
 
 def server_params_from_numpy(fields: dict, *,
@@ -104,9 +106,7 @@ def _ref_array(tree: dict, name: str) -> np.ndarray:
     a = tree
     for key in path:
         a = a[key]
-    a = np.asarray(a if layer is None else a[layer])
-    if a.dtype.name == "bfloat16":      # numpy has no bfloat16 of its own
-        a = a.astype(np.float32)
+    a = _host(a if layer is None else a[layer])
     return a.T if transpose else a
 
 
@@ -164,17 +164,23 @@ def lm_params_to_numpy(model_or_grads, cfg) -> dict:
     return tree
 
 
-def adamw_state_from_numpy(state, model: Transformer) -> AdamWState:
+def adamw_state_from_numpy(state, model) -> AdamWState:
     """The port's `AdamWState` for ``model`` from the reference's
     (step, m, v), the moments in its pytree layout as numpy arrays;
-    float32 moments on the model's device."""
+    float32 moments on the model's device.  ``model`` is a `Transformer`
+    or a nested parameter dict (a recommender's, DimeNet's), whose
+    moments sit under the same pytree paths as its tensors."""
     step, m, v = state
-    named = dict(model.named_parameters())
+    named = named_tensors(model)
     device = next(iter(named.values())).device
 
     def moments(tree):
-        return {name: torch.tensor(_ref_array(tree, name),
-                                   dtype=torch.float32, device=device)
+        if isinstance(model, Transformer):
+            arrays = {name: _ref_array(tree, name) for name in named}
+        else:
+            arrays = {k: _host(a) for k, a in named_tensors(tree).items()}
+        return {name: torch.tensor(arrays[name], dtype=torch.float32,
+                                   device=device)
                 for name in named}
     return AdamWState(step=torch.as_tensor(np.asarray(step),
                                            dtype=torch.int32, device=device),
@@ -190,15 +196,66 @@ def recsys_params_from_numpy(tree, cfg, *,
     reference's: MLP weights (in, out), CIN weights (Hk*m, O), MIND's
     ``item_table`` (rows, D), ``bilinear_s`` (D, D) and ``out_mlp``
     layers, in ``cfg.dtype``."""
-    dtype = getattr(torch, cfg.dtype)
+    return _tree_from_numpy(tree, getattr(torch, cfg.dtype), device)
 
-    def put(node):
-        if isinstance(node, dict):
-            return {k: put(v) for k, v in node.items()}
-        if isinstance(node, (list, tuple)):
-            return [put(v) for v in node]
-        a = np.asarray(node)
-        if a.dtype.name == "bfloat16":      # numpy has no bfloat16 of its own
-            a = a.astype(np.float32)
-        return torch.tensor(a, device=device).to(dtype)
-    return put(tree)
+
+def _host(a) -> np.ndarray:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # numpy has no bfloat16 of its own
+        a = a.astype(np.float32)
+    return a
+
+
+def _tree_from_numpy(tree, dtype: torch.dtype, device: DeviceLike):
+    if isinstance(tree, dict):
+        return {k: _tree_from_numpy(v, dtype, device)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_from_numpy(v, dtype, device) for v in tree]
+    return torch.tensor(_host(tree), device=device).to(dtype)
+
+
+def _tree_to_numpy(params_or_grads) -> dict:
+    """Nested dicts (lists where every key is an index) of numpy arrays
+    from a parameter tree or from a flat map of its pytree paths to
+    tensors; bfloat16 comes back as float32."""
+    tree: dict = {}
+    for name, t in named_tensors(params_or_grads).items():
+        t = t.detach().cpu()
+        *path, leaf = name.split("/")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+    return lists(tree)
+
+
+def recsys_params_to_numpy(params_or_grads) -> dict:
+    """The inverse of `recsys_params_from_numpy`: the reference's pytree
+    (nested dicts and lists of numpy arrays) from a recommender's
+    parameters or from a map of their `train.optimizer.named_tensors` paths to
+    tensors (gradients, optimizer moments).  bfloat16 comes back as
+    float32."""
+    return _tree_to_numpy(params_or_grads)
+
+
+def dimenet_params_from_numpy(tree, cfg, *,
+                              device: DeviceLike = DEFAULT_DEVICE) -> dict:
+    """The port's DimeNet parameters from the reference's pytree
+    (`repro.models.dimenet.init_params`) as nested dicts of numpy arrays
+    (bfloat16 accepted): the same layout, the blocks stacked on a leading
+    ``n_blocks`` axis, in ``cfg.dtype``."""
+    return _tree_from_numpy(tree, getattr(torch, cfg.dtype), device)
+
+
+def dimenet_params_to_numpy(params_or_grads) -> dict:
+    """The inverse of `dimenet_params_from_numpy`, from the parameters or
+    from a map of their pytree paths to tensors (gradients, moments)."""
+    return _tree_to_numpy(params_or_grads)

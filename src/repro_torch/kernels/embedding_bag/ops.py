@@ -6,6 +6,12 @@ version (`ref.embedding_bag_masked`), and ``"auto"`` takes the kernel for
 a CUDA tensor and the plain version for a CPU tensor.  A CUDA tensor under
 ``"auto"`` or ``"cuda"`` launches the kernel or raises; nothing falls
 back.
+
+Where gradients are wanted (grad mode on and the table requires one),
+``"auto"`` and ``"cuda"`` go through `autograd.BagFunction`: the same
+forward, and a plain-PyTorch backward written out by hand;
+``"torch"`` leaves the plain version to autograd.  Serving (no grad)
+calls the forward directly, one launch a call.
 """
 
 from __future__ import annotations
@@ -14,6 +20,7 @@ import torch
 
 from repro_torch.kernels._cuda import resolve_impl
 from repro_torch.kernels.embedding_bag import kernel, ref
+from repro_torch.kernels.embedding_bag.autograd import BagFunction
 
 Tensor = torch.Tensor
 
@@ -43,8 +50,14 @@ def embedding_bag(table: Tensor, ids: Tensor, mask: Tensor, *,
     """(R, D) table x (..., M) globalized ids and mask -> (..., D): the
     mean of each bag's masked-in rows (torch.nn.EmbeddingBag(mode='mean')
     semantics), summed in float32, in the table's dtype."""
+    path = resolve_impl(impl, table.device, what="embedding bag")
+    forward = kernel.embedding_bag_cuda if path == "cuda" else _plain
+    if impl != "torch" and torch.is_grad_enabled() and table.requires_grad:
+        return BagFunction.apply(table, ids, mask, forward)
+    return forward(table, ids, mask)
+
+
+def _plain(table: Tensor, ids: Tensor, mask: Tensor) -> Tensor:
     global plain_calls
-    if resolve_impl(impl, table.device, what="embedding bag") == "cuda":
-        return kernel.embedding_bag_cuda(table, ids, mask)
     plain_calls += 1
     return ref.embedding_bag_masked(table, ids, mask)

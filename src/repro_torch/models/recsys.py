@@ -1,22 +1,28 @@
 """Recommenders the port serves: DeepFM, xDeepFM (CIN), AutoInt, MIND.
 
-PyTorch port of `repro.models.recsys` (training is not ported; the
-losses are, as forward functions).  The CTR models' shared substrate is
-one stacked embedding table (total_rows, D) with per-field offsets (DLRM
-layout); a request is a (F, M) bag of globalized ids with a mask, and a
-batch of requests (B, F, M) goes through ``*_logits`` as the reference's
-serving function does (`repro.launch.specs`, ``serve_p99`` /
-``serve_bulk``).  MIND (arXiv:1904.08030) turns a behavior history (B, H)
-into K interest capsules by B2I dynamic routing and scores candidates
-against them: `mind_retrieve` ranks up to 10^6 items for a user with one
-batched product and the head of a stable descending sort (the lower id
-first among equal scores, as ``jax.lax.top_k``).
+PyTorch port of `repro.models.recsys`, serving and training.  The CTR
+models' shared substrate is one stacked embedding table (total_rows, D)
+with per-field offsets (DLRM layout); a request is a (F, M) bag of
+globalized ids with a mask, and a batch of requests (B, F, M) goes
+through ``*_logits`` as the reference's serving function does
+(`repro.launch.specs`, ``serve_p99`` / ``serve_bulk``).  MIND
+(arXiv:1904.08030) turns a behavior history (B, H) into K interest
+capsules by B2I dynamic routing and scores candidates against them:
+`mind_retrieve` ranks up to 10^6 items for a user with one batched
+product and the head of a stable descending sort (the lower id first
+among equal scores, as ``jax.lax.top_k``).
 
 Parameters are plain dicts of tensors in the reference's layout:
 ``{"embedding": {"table", "wide"}, "mlp": [{"w", "b"}, ...], ...}``, MLP
 weights (in, out) applied as ``x @ w + b``, CIN weights (Hk*m, O).
 `repro_torch.interop.recsys_params_from_numpy` carries the reference's
-weights across.
+weights across.  `repro_torch.train.optimizer.named_tensors` is a flat
+name -> tensor view of such a dict under the reference's pytree paths (``"embedding/table"``,
+``"cin/0"``, ``"mlp/1/w"``), sharing its tensors, so `TrainStep`, `AdamW`
+and `SGD` update the dict in place; `ctr_train_loss` and
+`mind_train_loss` are the reference's ``train_batch`` losses
+(`repro.launch.specs`) as `TrainStep` loss functions, and
+`mind_negatives` draws MIND's shared negatives from a `torch.Generator`.
 
 Two calls go through hand-written kernels: `embedding_bag` through
 `repro_torch.kernels.embedding_bag` (two launches a logits call: the
@@ -24,11 +30,16 @@ table and the wide table) and each CIN layer through
 `repro_torch.kernels.cin_fuse` (xDeepFM: one launch a layer).  Both sum in
 float32, as the Pallas kernels do; the reference's plain-JAX embedding bag
 sums in the model's dtype (ROADMAP queue 3), so in bfloat16 the two differ
-by more than output rounding.  ``impl="auto"`` takes the kernels for CUDA
-tensors and the plain versions for CPU tensors; ``impl="torch"`` forces
-the plain versions.  The MLPs, the FM term and AutoInt's field attention
-are plain torch, as the reference leaves them to XLA; so is all of MIND,
-which gathers rows with an index where the reference uses ``jnp.take``.
+by more than output rounding.  Under autograd both calls go through the
+kernels' `torch.autograd.Function`s (`kernels/*/autograd.py`): the kernel
+forward, a plain-PyTorch backward; MIND's row gathers go through
+`repro_torch._segment.gather_rows`.  Every gradient on these paths has
+the same bits run to run on the card (no float atomics).
+``impl="auto"`` takes the kernels for CUDA tensors and the plain
+versions for CPU tensors; ``impl="torch"`` forces the plain versions.
+The MLPs, the FM term and AutoInt's field attention are plain torch, as
+the reference leaves them to XLA; so is all of MIND, which gathers rows
+with an index where the reference uses ``jnp.take``.
 """
 
 from __future__ import annotations
@@ -38,6 +49,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from repro_torch._segment import gather_rows
 from repro_torch._tensor import DEFAULT_DEVICE, DeviceLike
 from repro_torch.configs.base import RecsysConfig
 from repro_torch.kernels.cin_fuse import ops as cin_ops
@@ -51,7 +63,10 @@ __all__ = ["field_offsets", "padded_rows", "init_embedding", "embedding_bag",
            "cin_interaction", "xdeepfm_logits", "init_autoint",
            "autoint_logits", "init_mind", "mind_user_interests",
            "mind_train_logits", "mind_retrieve", "mind_topk", "ctr_loss",
-           "sampled_softmax_loss"]
+           "sampled_softmax_loss", "ctr_train_loss",
+           "mind_negatives", "mind_train_loss", "MIND_NEGATIVES"]
+
+MIND_NEGATIVES = 1024     # the reference's train_batch cell: shared negatives
 
 
 # -------------------------------------------------------------------------
@@ -257,7 +272,7 @@ def mind_user_interests(params: dict, cfg: RecsysConfig, hist_ids: Tensor,
     gradient through the iterations (``detach``, the reference's
     ``stop_gradient``).
     """
-    e = params["item_table"][hist_ids]                 # (B, H, D)
+    e = gather_rows(params["item_table"], hist_ids)    # (B, H, D)
     e = e * hist_mask[..., None].to(e.dtype)
     es = e @ params["bilinear_s"]                      # shared bilinear map
     mask = hist_mask[:, None, :]
@@ -292,12 +307,13 @@ def mind_train_logits(params: dict, cfg: RecsysConfig, hist_ids: Tensor,
     u = mind_user_interests(params, cfg, hist_ids, hist_mask)
     table = params["item_table"]
     if neg_ids is None:
-        return _label_aware_logits(u, table[target_ids])
-    pos = table[target_ids]                            # (B, D)
+        return _label_aware_logits(u, gather_rows(table, target_ids))
+    pos = gather_rows(table, target_ids)               # (B, D)
     pos_scores = torch.einsum("bkd,bd->bk", u, pos).float()
     pos_att = torch.softmax(pos_scores ** 2, dim=1)
     pos_logit = (pos_att * pos_scores).sum(dim=1, keepdim=True)
-    return torch.cat([pos_logit, _label_aware_logits(u, table[neg_ids])],
+    return torch.cat([pos_logit,
+                      _label_aware_logits(u, gather_rows(table, neg_ids))],
                      dim=1)
 
 
@@ -328,7 +344,7 @@ def mind_topk(params: dict, u: Tensor, cand_ids: Tensor, k: int = 100
 
 
 # -------------------------------------------------------------------------
-# Shared losses (forward only; training is not ported)
+# Shared losses and training
 # -------------------------------------------------------------------------
 
 def ctr_loss(logits: Tensor, labels: Tensor) -> Tensor:
@@ -345,3 +361,45 @@ def sampled_softmax_loss(logits: Tensor, *, inbatch: bool = True) -> Tensor:
     if inbatch:
         return -torch.diagonal(logp).mean()
     return -logp[:, 0].mean()
+
+
+_CTR_LOGITS = {"fm": deepfm_logits, "cin": xdeepfm_logits,
+               "self-attn": autoint_logits}
+
+
+def ctr_train_loss(cfg: RecsysConfig, *, impl: str = "auto"):
+    """The reference's CTR ``train_batch`` loss as a `TrainStep` loss
+    function: ``(params, batch) -> ctr_loss(logits, labels)`` over a
+    batch {"ids" (B, F, M), "mask" (B, F, M), "labels" (B,)}, through the
+    config's logits function (DeepFM, xDeepFM or AutoInt)."""
+    logits = _CTR_LOGITS[cfg.interaction]
+
+    def loss_fn(params: dict, batch: dict) -> Tensor:
+        return ctr_loss(logits(params, cfg, batch["ids"], batch["mask"],
+                               impl=impl), batch["labels"])
+    return loss_fn
+
+
+def mind_negatives(seed: Seed, cfg: RecsysConfig, n: int = MIND_NEGATIVES,
+                   *, device: DeviceLike = DEFAULT_DEVICE) -> Tensor:
+    """``n`` shared negative item ids, uniform over ``cfg.item_vocab``,
+    int64 on the generator's device (a seed makes a generator on
+    ``device``)."""
+    gen = _generator(seed, device)
+    return torch.randint(0, cfg.item_vocab, (n,), generator=gen,
+                         device=gen.device)
+
+
+def mind_train_loss(cfg: RecsysConfig):
+    """The reference's MIND ``train_batch`` loss as a `TrainStep` loss
+    function over a batch {"hist" (B, H), "mask" (B, H), "target" (B,)}
+    and optionally "negs" (N,): with negatives, the sampled softmax over
+    the positive and the shared negatives (``inbatch=False``), without,
+    the in-batch softmax.  Like the reference's `TrainStep`, a `TrainStep`
+    with microbatches splits every batch entry, "negs" too."""
+    def loss_fn(params: dict, batch: dict) -> Tensor:
+        negs = batch.get("negs")
+        logits = mind_train_logits(params, cfg, batch["hist"],
+                                   batch["mask"], batch["target"], negs)
+        return sampled_softmax_loss(logits, inbatch=negs is None)
+    return loss_fn

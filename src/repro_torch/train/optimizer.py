@@ -35,10 +35,27 @@ __all__ = ["AdamW", "AdamWState", "SGD", "SGDState", "clip_by_global_norm",
 
 
 def named_tensors(params: Union[nn.Module, Named]) -> dict:
-    """name -> tensor of a module's parameters, or of a mapping as is."""
+    """name -> tensor of a module's parameters, or of a mapping.  A nested
+    tree of dicts and lists (a recommender's or DimeNet's parameters) is
+    read under its pytree paths joined by "/" (``"embedding/table"``,
+    ``"mlp/0/w"``); the tensors are the tree's own, so an update in place
+    updates the tree.  A flat name -> tensor map comes back as is."""
     if isinstance(params, nn.Module):
         return dict(params.named_parameters())
-    return dict(params)
+    out: dict = {}
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            items = node.items()
+        elif isinstance(node, (list, tuple)):
+            items = enumerate(node)
+        else:
+            out[path] = node
+            return
+        for k, v in items:
+            walk(v, f"{path}/{k}" if path else str(k))
+    walk(params, "")
+    return out
 
 
 def _step0(named: dict) -> Tensor:

@@ -9,8 +9,10 @@ params), returning ``(params, state, loss)``.  With ``microbatches = n``
 the batch's leading axis splits n ways, in order, as the reference's
 reshape to (n, B / n, ...); each microbatch's gradients are added into
 float32 accumulators and divided by n, as its ``lax.scan`` does.  The
-loss comes back as a 0-dim tensor on the parameters' device: a step
-never waits for the host.
+loss comes back as a 0-dim tensor on the parameters' device.  The step
+itself never waits for the host; a loss function may: the recommenders'
+and DimeNet's segment sums (`repro_torch._segment`) read two sizes back
+from the card a call.
 """
 
 from __future__ import annotations

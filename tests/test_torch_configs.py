@@ -1,6 +1,6 @@
-"""The port's LM configs and registry held against `repro.configs`
-(the recsys configs: tests/test_torch_recsys.py and test_torch_mind.py).
-The port lists 9 of the reference's 10 ids; only dimenet raises."""
+"""The port's LM and GNN configs and registry held against
+`repro.configs` (the recsys configs: tests/test_torch_recsys.py and
+test_torch_mind.py).  The port lists all ten of the reference's ids."""
 
 import dataclasses
 
@@ -14,6 +14,7 @@ from repro_torch.configs import registry as t_registry
 PORTED = ("qwen3-1.7b", "qwen3-8b", "command-r-plus-104b",
           "qwen3-moe-30b-a3b", "granite-moe-3b-a800m")
 RECSYS_PORTED = ("deepfm", "xdeepfm", "autoint", "mind")
+GNN_PORTED = ("dimenet",)
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -33,7 +34,16 @@ def test_config_fields_and_derived_sizes_equal(arch, which):
         assert getattr(port, prop) == getattr(ref, prop), prop
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", GNN_PORTED)
+@pytest.mark.parametrize("which", ["config", "smoke_config"])
+def test_gnn_config_fields_equal(arch, which):
+    port = getattr(t_registry.get_arch(arch), which)
+    ref = getattr(j_registry.get_arch(arch), which)
+    assert type(port).__name__ == type(ref).__name__ == "GNNConfig"
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+
+
+@pytest.mark.parametrize("arch", PORTED + GNN_PORTED)
 def test_spec_fields_equal(arch):
     port, ref = t_registry.get_arch(arch), j_registry.get_arch(arch)
     for f in ("arch_id", "family", "source", "notes"):
@@ -73,7 +83,8 @@ def test_moe_padding_equal():
 
 
 def test_registry_lists_only_what_the_port_runs():
-    ported = PORTED + RECSYS_PORTED
+    ported = PORTED + RECSYS_PORTED + GNN_PORTED
+    assert t_registry.list_archs() == j_registry.list_archs()
     assert t_registry.list_archs() == sorted(ported)
     assert set(t_registry.list_archs()) <= set(j_registry.list_archs())
     for arch in sorted(set(j_registry.list_archs()) - set(ported)):

@@ -1227,3 +1227,72 @@ def test_calibrate_maxplus_card_matches_cpu(cuda):
     for name in ("s_scale", "alpha"):
         torch.testing.assert_close(getattr(card, name).cpu(),
                                    getattr(cpu, name), rtol=1e-8, atol=0)
+
+
+# -------------------------------------------------- training through kernels
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
+                                       (torch.float32, 1e-5)])
+def test_bag_function_backward_matches_plain_autograd(cuda, dtype, tol):
+    """The bag's Function (kernel forward, plain backward) against
+    autograd of the plain version on the card: the table gradient, of
+    its largest entry; one launch, no plain call; the same bits twice."""
+    g = torch.Generator(device=cuda).manual_seed(31)
+    table = (0.01 * torch.randn((5000, 10), generator=g, device=cuda)
+             ).to(dtype).requires_grad_(True)
+    ids = torch.randint(0, 5000, (256, 39, 4), generator=g, device=cuda)
+    ids[:, :3] = torch.randint(0, 3, (256, 3, 4), generator=g, device=cuda)
+    mask = torch.rand((256, 39, 4), generator=g, device=cuda) < 0.7
+    dy = torch.randn((256, 39, 10), generator=g, device=cuda).to(dtype)
+    bag_ops.reset_counts()
+    grads = [torch.autograd.grad(bag_ops.embedding_bag(table, ids, mask),
+                                 table, dy)[0] for _ in range(2)]
+    assert bag_ops.launch_count() == 2 and bag_ops.plain_count() == 0
+    assert torch.equal(grads[0], grads[1])
+    (plain,) = torch.autograd.grad(
+        bag_ops.embedding_bag(table, ids, mask, impl="torch"), table, dy)
+    err = float((grads[0].float() - plain.float()).abs().max()
+                / plain.float().abs().max())
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
+                                       (torch.float32, 1e-4)])
+def test_cin_function_backward_matches_plain_autograd(cuda, dtype, tol):
+    """The CIN's Function (kernel forward, plain backward) against
+    autograd of the plain version: dxk, dx0 and dw, each of its largest
+    entry; one launch a call, no plain call; the same bits twice."""
+    g = torch.Generator(device=cuda).manual_seed(32)
+    xk = torch.randn((512, 200, 10), generator=g, device=cuda).to(dtype)
+    x0 = torch.randn((512, 39, 10), generator=g, device=cuda).to(dtype)
+    w = (torch.randn((200 * 39, 200), generator=g, device=cuda)
+         * 7800 ** -0.5).to(dtype)
+    for t in (xk, x0, w):
+        t.requires_grad_(True)
+    dy = torch.randn((512, 200, 10), generator=g, device=cuda).to(dtype)
+    cin_ops.reset_counts()
+    runs = [torch.autograd.grad(cin_ops.cin_layer(xk, x0, w), (xk, x0, w),
+                                dy) for _ in range(2)]
+    assert cin_ops.launch_count() == 2 and cin_ops.plain_count() == 0
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    plain = torch.autograd.grad(cin_ops.cin_layer(xk, x0, w, impl="torch"),
+                                (xk, x0, w), dy)
+    for got, want in zip(runs[0], plain):
+        err = float((got.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+        assert err <= tol, err
+
+
+def test_segment_sum_card_repeats_and_matches_cpu(cuda):
+    """`_segment.segment_sum` on the card: the same bits run to run, and
+    the CPU's sums to float32 rounding, over runs of 1 to 100,000 ids."""
+    from repro_torch._segment import segment_sum
+    g = torch.Generator().manual_seed(33)
+    ids = torch.cat([torch.zeros(100_000, dtype=torch.long),
+                     torch.randint(0, 5000, (50_000,), generator=g)])
+    ids = ids[torch.randperm(ids.numel(), generator=g)]
+    data = torch.randn((ids.numel(), 16), generator=g)
+    card = [segment_sum(data.to(cuda), ids.to(cuda), 5000) for _ in range(2)]
+    assert torch.equal(card[0], card[1])
+    torch.testing.assert_close(card[0].cpu(), segment_sum(data, ids, 5000),
+                               rtol=1e-5, atol=1e-4)
