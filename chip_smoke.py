@@ -105,7 +105,17 @@ version on the card, and drives the port's paths:
     minibatch_lg (1,024 seeds, fanouts 15 / 10 from a 232,965-node power
     law graph whose average degree is cut from 492 to 64; 25b), with
     where its device time goes; a repeated step bit for bit, bfloat16
-    against a float32 copy, and the smoke config card against CPU (25c).
+    against a float32 copy, and the smoke config card against CPU (25c);
+  * the production dry run (phase 26): one cell of each family (qwen3-8b
+    train_4k, xdeepfm train_batch, dimenet ogb_products) and two serving
+    cells traced on the host on the (16, 16) and (2, 16, 16) meshes of
+    meta devices, every figure finite and the argument bytes those of
+    the stand-ins' shards (26a); three cells on a (1, 1) mesh of the card
+    held against real steps: argument bytes and the plain path's FLOPs
+    exactly (xDeepFM's plain path at the largest halved batch that the
+    record says fits), temporaries and step time beside the record's
+    (26b); the (max,+) kernels on H100_SXM's roofline (26c); the records'
+    tables and examples/torch_plan_llm_serving.py's plans (26d).
 
 Phases 8 and 14 also print the wgmma kernels' ptxas reports (registers,
 spills, serialisation warnings) and take one tile through the shared
@@ -124,6 +134,7 @@ torch, numpy and repro_torch only.
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import itertools
 import json
 import math
@@ -4533,31 +4544,6 @@ REC_SMOKE_STEPS, REC_SMOKE_LR, REC_SMOKE_DROP = 30, 1e-3, 0.9
 REC_SMOKE_B = 32
 
 
-def _recsys_model_flops(cfg, batch: int, train: bool) -> float:
-    """Model FLOPs of a recommender step: a copy of the reference's
-    ``recsys_model_flops`` (`src/repro/launch/specs.py:323`)."""
-    d, f = cfg.embed_dim, cfg.n_sparse
-    flops = 0.0
-    sizes = (f * d,) + cfg.mlp + (1,)
-    flops += 2.0 * sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
-    if cfg.interaction == "fm":
-        flops += 4.0 * f * d
-    elif cfg.interaction == "cin":
-        h_prev = f
-        for h in cfg.cin_layers:
-            flops += 2.0 * h_prev * f * d * (1 + h)
-            h_prev = h
-    elif cfg.interaction == "self-attn":
-        da = cfg.n_heads * cfg.d_attn
-        flops += cfg.n_attn_layers * (
-            2.0 * f * cfg.embed_dim * da * 4 + 4.0 * f * f * da)
-    elif cfg.interaction == "multi-interest":
-        flops += cfg.capsule_iters * 4.0 * cfg.n_interests * cfg.hist_len * d
-        flops += 4.0 * cfg.n_interests * d   # label-aware scoring per cand
-        flops += 2.0 * d * d * 3             # out MLP per interest (coarse)
-    return batch * flops * (3.0 if train else 1.0)
-
-
 def _rec_batch(cfg, b: int, step: int, device="cuda") -> dict:
     """A `ctr_batch` (CTR) or `mind_batch` (MIND) train batch on
     ``device``: ids int32, masks bool, labels float32."""
@@ -4623,9 +4609,10 @@ def _rec_train(card: str, cfg, label: str, timed: int) -> dict:
     """``cfg`` at full width (random weights, seed 0), `TrainStep(AdamW(
     REC_TRAIN_LR))` on REC_TRAIN_B-sample train batches: a warm-up step,
     then ``timed`` timed steps.  Prints step wall, samples/s, model FLOP/s
-    (``_recsys_model_flops``) and peak memory; fails if a loss is not
+    (`repro_torch.launch.specs.recsys_model_flops`) and peak memory; fails if a loss is not
     finite or a plain version ran on the card."""
     import torch
+    from repro_torch.launch.specs import recsys_model_flops
     from repro_torch.models import recsys as RS
     from repro_torch.train.optimizer import AdamW, named_tensors
     from repro_torch.train.trainer import TrainStep
@@ -4661,7 +4648,7 @@ def _rec_train(card: str, cfg, label: str, timed: int) -> dict:
     counts = _recsys_counts()
     peak = torch.cuda.max_memory_allocated()
     wall = sorted(walls)[len(walls) // 2]
-    flops = _recsys_model_flops(cfg, REC_TRAIN_B, True)
+    flops = recsys_model_flops(cfg, REC_TRAIN_B, True)
     vals = torch.stack(losses).float().cpu()
     print(f"  step wall {', '.join(f'{w * 1e3:.2f}' for w in walls)} ms "
           f"(warm-up {warm * 1e3:.1f} ms), median {wall * 1e3:.2f} ms: "
@@ -4952,10 +4939,8 @@ def phase_rec_training(card: str) -> dict:
 
 # -- phase 25: DimeNet -------------------------------------------------------
 DN_MOLECULE = dict(n_molecules=128, n_atoms=30, n_bonds=64, d_feat=32)
-DN_MOLECULE_PAD_NODES = 4096     # gnn_cell_dims: 3,840 atoms padded to 512s
 DN_BASE = dict(n_nodes=232_965, avg_degree=64, d_feat=602)  # degree CUT
 DN_SEEDS, DN_FANOUTS = 1024, (15, 10)
-DN_BUFFERS = dict(pad_nodes=169_984, pad_edges=168_960, pad_triplets=675_840)
 DN_REF_DEGREE = 492              # 114,615,892 edges / 232,965 nodes
 # the sample (nodes, edges, triplets) from the same seeds at the reference's
 # degree: `PYTHONPATH=src python tools/dimenet_sample_sizes.py 492`
@@ -4963,6 +4948,14 @@ DN_REF_SAMPLE = (118_041, 163_270, 101_848)
 DN_TIMED = 3
 DN_F32_RTOL = 1e-2               # bfloat16 loss vs a float32 copy
 DN_FWD_RTOL, DN_GRAD_RTOL, DN_LOSS_RTOL = 1e-5, 1e-4, 1e-5
+
+
+def _dn_dims(shape_name: str) -> dict:
+    """A DimeNet cell's padded buffers (`specs.gnn_cell_dims`)."""
+    from repro_torch.configs import dimenet
+    from repro_torch.launch.specs import gnn_cell_dims
+    return gnn_cell_dims(next(s for s in dimenet.SPEC.shapes
+                              if s.name == shape_name))
 
 
 def _pad_nodes(g, n: int):
@@ -5135,7 +5128,7 @@ def phase_dimenet(card: str) -> None:
     t0 = time.perf_counter()
     mol, y = GS.make_molecule_batch(**DN_MOLECULE, pad_triplet_factor=4,
                                     seed=0)
-    mol = _pad_nodes(mol, DN_MOLECULE_PAD_NODES)
+    mol = _pad_nodes(mol, _dn_dims("molecule")["nodes"])
     print(f"== phase 25a: DimeNet FULL ({cfg.n_blocks} blocks, h "
           f"{cfg.d_hidden}, {cfg.n_bilinear} bilinear, "
           f"{cfg.n_spherical} x {cfg.n_radial} basis, {cfg.dtype}), random "
@@ -5154,7 +5147,10 @@ def phase_dimenet(card: str) -> None:
     t_graph = time.perf_counter() - t0
     nodes, es, ed = GS.neighbor_sample(base, np.arange(DN_SEEDS),
                                        DN_FANOUTS, seed=0)
-    g = GS.build_graph_batch(base, nodes, es, ed, **DN_BUFFERS, seed=0)
+    lg = _dn_dims("minibatch_lg")
+    buffers = dict(pad_nodes=lg["nodes"], pad_edges=lg["edges"],
+                   pad_triplets=lg["triplets"])
+    g = GS.build_graph_batch(base, nodes, es, ed, **buffers, seed=0)
     del base
     y_lg = torch.randn((1, cfg.d_out), generator=torch.Generator(
         device="cuda").manual_seed(25), device="cuda")
@@ -5169,8 +5165,8 @@ def phase_dimenet(card: str) -> None:
           + ", ".join(f"{n:,}" for n in DN_REF_SAMPLE) + "; "
           + ", ".join(f"{100 * (a / b - 1):+.2f} %" for a, b in zip(
               (len(nodes), len(es), n_tri), DN_REF_SAMPLE))
-          + f"; the cell's buffers {DN_BUFFERS['pad_nodes']:,}, "
-          f"{DN_BUFFERS['pad_edges']:,}, {DN_BUFFERS['pad_triplets']:,}); "
+          + f"; the cell's buffers {buffers['pad_nodes']:,}, "
+          f"{buffers['pad_edges']:,}, {buffers['pad_triplets']:,}); "
           f"sampled and padded in {time.perf_counter() - t0:.1f} s "
           "(set-up)")
     run = _dn_step(card, cfg, g, y_lg, "25b", "seeds", DN_SEEDS)
@@ -5200,6 +5196,254 @@ def phase_dimenet(card: str) -> None:
     del mol_params, p32
     _dn_smoke_card_vs_cpu(card)
     print(f"  (phase 25c: {time.perf_counter() - t0:.1f} s)")
+
+
+# -- phase 26: the production dry run and the roofline -----------------------
+# (a) one full-size cell of each family on both production meshes, and
+# (d) two serving cells for the plans; (b) cells held against real steps
+DRY_CELLS = (("qwen3-8b", "train_4k"), ("xdeepfm", "train_batch"),
+             ("dimenet", "ogb_products"))
+DRY_PLAN_CELLS = (("qwen3-8b", "decode_32k"), ("xdeepfm", "serve_p99"))
+DRY_REAL = (("xdeepfm", "train_batch"), ("dimenet", "molecule"),
+            ("qwen3-1.7b", "long_500k"))
+DRY_RECORD_KEYS = ("flops_global", "bytes_global",
+                   "collective_bytes_global", "compute_s", "memory_s",
+                   "collective_s", "model_flops", "useful_flops_ratio")
+
+
+def _dry_shape(arch: str, shape: str):
+    from repro_torch.configs.registry import get_arch
+    spec = get_arch(arch)
+    return spec, next(s for s in spec.shapes if s.name == shape)
+
+
+def _dry_check(rec: dict, build, mesh, what: str) -> None:
+    """Every figure of a record finite; its per-device argument bytes
+    those of its stand-ins' shard shapes (recomputed from each spec)."""
+    from repro_torch.launch import sharding, specs
+    vals = [rec[k] for k in DRY_RECORD_KEYS] + list(
+        rec["memory_analysis"].values())
+    if not all(math.isfinite(v) for v in vals):
+        raise AssertionError(f"26 {what}: a figure is not finite: {rec}")
+    args_b = sum(math.prod(sharding.shard_shape(t.shape, t.spec, mesh))
+                 * t.element_size() for t in specs.stand_ins(build.args))
+    if args_b != rec["memory_analysis"]["argument_bytes"]:
+        raise AssertionError(f"26 {what}: argument bytes "
+                             f"{rec['memory_analysis']['argument_bytes']} "
+                             f"but the stand-ins' shards hold {args_b}")
+
+
+def _dry_print(rec: dict) -> None:
+    ma = rec["memory_analysis"]
+    bound = max(rec["compute_s"], rec["memory_s"], rec["collective_s"])
+    print(f"  {rec['arch']} x {rec['shape']} x {rec['mesh']} "
+          f"({rec['n_chips']} chips): compute {rec['compute_s']:.4e} s, "
+          f"memory {rec['memory_s']:.4e} s, collective "
+          f"{rec['collective_s']:.4e} s, bound {rec['bound']} "
+          f"({bound * 1e3:.3f} ms); per device: args "
+          f"{ma['argument_bytes'] / 2**30:.3f} GiB, out "
+          f"{ma['output_bytes'] / 2**30:.3f} GiB, temp "
+          f"{ma['temp_bytes'] / 2**30:.3f} GiB, peak "
+          f"{ma['peak_bytes'] / 2**30:.3f} GiB; FLOPs "
+          f"{rec['flops_global']:.4e} (model/counted "
+          f"{rec['useful_flops_ratio']:.3f}); counted "
+          f"{rec['counted']}, estimated {rec['estimated']} (analytic, "
+          "H100_SXM)")
+
+
+def _dry_records(card: str) -> list:
+    """26a: DRY_CELLS and DRY_PLAN_CELLS on both production meshes, each
+    traced once on the host (meta stand-ins, fake CPU tensors)."""
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_production_mesh
+    print("== phase 26a: the dry run on the production meshes, (16, 16) and"
+          " (2, 16, 16) on meta devices (host only; figures analytic for "
+          "H100_SXM)")
+    records = []
+    for arch, shape_name in DRY_CELLS + DRY_PLAN_CELLS:
+        spec, shape = _dry_shape(arch, shape_name)
+        t0 = time.perf_counter()
+        trace = dryrun.cell_trace(arch, shape_name)
+        for multi in (False, True):
+            mesh = make_production_mesh(
+                multi_pod=multi, devices=["meta"] * (512 if multi else 256))
+            build = specs.build_cell(spec, shape, mesh, multi)
+            rec = dryrun.run_cell(arch, shape_name, multi, verbose=False,
+                                  trace=trace)
+            _dry_check(rec, build, mesh, f"{arch} x {shape_name}")
+            _dry_print(rec)
+            records.append(rec)
+        print(f"    (traced in {trace.seconds:.1f} s; both meshes "
+              f"{time.perf_counter() - t0:.1f} s)")
+    return records
+
+
+def _dry_real_args(arch: str, spec, shape):
+    """The real arguments of a (b) cell on the card, its step (the path
+    the card runs, impl="auto") and a description."""
+    import torch
+    from repro_torch.models import dimenet as DN
+    from repro_torch.models import recsys as RS
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainer import TrainStep
+    cfg = spec.config
+    if arch == "xdeepfm":
+        params = RS.init_xdeepfm(0, cfg)
+        batch = _rec_batch(cfg, shape["batch"], 0)
+        step = TrainStep(RS.ctr_train_loss(cfg), AdamW(lr=1e-4))
+        state = step.init_state(params)
+        args = (params, state, batch)
+        return args, lambda: step(*args), f"B = {shape['batch']:,}"
+    if arch == "dimenet":
+        from repro_torch.data import graph_sampler as GS
+        dims = _dn_dims(shape.name)
+        g, y = GS.make_molecule_batch(**DN_MOLECULE, pad_triplet_factor=4,
+                                      seed=0)
+        g = _pad_nodes(g, dims["nodes"])
+        # the cell's features are in the model's dtype (the forward casts)
+        g = dataclasses.replace(g, node_feat=g.node_feat.to(
+            getattr(torch, cfg.dtype)))
+        params = DN.init_params(0, cfg, dims["feat"])
+        step = TrainStep(lambda p, b: DN.train_step_loss(p, cfg, b["graph"],
+                                                         b["y"]),
+                         AdamW(lr=1e-4))
+        state = step.init_state(params)
+        args = (params, state, {"graph": g, "y": y})
+        return args, lambda: step(*args), (
+            f"{g.n_nodes:,} nodes, {g.n_edges:,} edges, "
+            f"{g.tri_kj.shape[0]:,} triplets")
+    b, s = shape["global_batch"], shape["seq_len"]
+    shape5 = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.d_head)
+    print(f"  {arch} x {shape.name}: the bf16 KV cache is "
+          f"{cfg.n_layers} x {s:,} x {cfg.n_kv_heads} x {cfg.d_head} x 2 "
+          f"(K, V) x 2 B = {2 * math.prod(shape5) * 2 / 1e9:.1f} GB and the "
+          f"weights {cfg.n_params * 2 / 1e9:.1f} GB; allocating")
+    model = T.init_params(0, cfg)
+    cache = T.init_kv_cache(cfg, b, s)
+    cache["len"] = s - 1
+    tokens = torch.zeros((b, 1), dtype=torch.int32, device="cuda")
+    args = (model, tokens, cache)
+    return args, lambda: T.decode_step(model, cfg, tokens, cache), (
+        f"cache len {s - 1:,}")
+
+
+def _dry_count(run) -> tuple[float, float]:
+    """(FlopCounterMode's count of one ``run()``, its peak allocation)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counter = FlopCounterMode(display=False)
+    with counter:
+        run()
+    torch.cuda.synchronize()
+    return (float(counter.get_total_flops()),
+            float(torch.cuda.max_memory_allocated()))
+
+
+def _dry_real(card: str) -> None:
+    """26b: each DRY_REAL cell's record on a (1, 1) mesh of cuda:0 against
+    its real step on the card: argument bytes and counted FLOPs exactly
+    (the kernels count by their custom operators' formulas on both
+    sides); temporaries and time printed beside the record's."""
+    import torch
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_mesh
+    print("== phase 26b: stand-ins against real steps, (1, 1) mesh of "
+          "cuda:0")
+    mesh = make_mesh((1, 1), ("data", "model"), devices=["cuda:0"])
+    for arch, shape_name in DRY_REAL:
+        t0 = time.perf_counter()
+        spec, shape = _dry_shape(arch, shape_name)
+        rec = dryrun.run_cell(arch, shape_name, False, verbose=False,
+                              mesh=mesh)
+        ma = rec["memory_analysis"]
+        torch.cuda.empty_cache()
+        args, run, what = _dry_real_args(arch, spec, shape)
+        real = float(sum(t.numel() * t.element_size()
+                         for t in specs.stand_ins(args)))
+        if real != ma["argument_bytes"]:
+            raise AssertionError(
+                f"26b {arch} x {shape_name} ({what}): arguments {real} B "
+                f"on the card, {ma['argument_bytes']} by the dry run")
+        flops, peak = _dry_count(run)
+        ms = _time_ms(run, n=3, warm=1)
+        del args, run
+        torch.cuda.empty_cache()
+        lower = max(rec["compute_s"], rec["memory_s"], rec["collective_s"])
+        temp = peak - real
+        print(f"  {arch} x {shape_name} ({what}): arguments {real:,.0f} B "
+              f"on the card = {ma['argument_bytes']:,.0f} B by the dry run;"
+              f" FLOPs {flops:.6e} counted on the card = "
+              f"{rec['flops_global']:.6e} by the dry run; "
+              f"max_memory_allocated less the arguments "
+              f"{temp / 2**30:.3f} GiB against the dry run's temp "
+              f"{ma['temp_bytes'] / 2**30:.3f} GiB (dry / card "
+              f"{ma['temp_bytes'] / max(temp, 1):.3f}), peak "
+              f"{ma['peak_bytes'] / 2**30:.3f} GiB; step {ms:.3f} ms (CUDA "
+              f"events) against the record's step_time_lower_bound "
+              f"{lower * 1e3:.3f} ms ({rec['bound']}-bound; card / record "
+              f"{ms / 1e3 / lower:.2f}) [{card}]")
+        if flops != rec["flops_global"]:
+            raise AssertionError(f"26b {arch} x {shape_name}: FLOPs "
+                                 f"{flops} on the card vs "
+                                 f"{rec['flops_global']} by the dry run")
+        print(f"    ({arch} x {shape_name}: "
+              f"{time.perf_counter() - t0:.1f} s)")
+
+
+def _dry_plans(card: str, records: list) -> None:
+    """26c-26d: the kernels on H100_SXM's roofline, then the records'
+    tables and serving plans."""
+    import importlib.util
+    from repro_torch.obs import profile as obs_profile
+    from repro_torch.roofline import report
+    print("== phase 26c: the port's kernels on H100_SXM's roofline "
+          "(profile_kernels on the card)")
+    kern = obs_profile.profile_kernels()
+    table = report.kernel_roofline(kern)
+    if report.kernel_roofline([r.to_json() for r in kern]) != table:
+        raise AssertionError("26c: kernel_roofline differs after to_json()")
+    print(table)
+    print(f"  run_s: " + ", ".join(f"{r.name} {r.run_s * 1e3:.4f} ms"
+                                   for r in kern)
+          + f"; records and their to_json() render identically [{card}]")
+    print("== phase 26d: tables and serving plans from the records")
+    with tempfile.TemporaryDirectory() as d:
+        for r in records:
+            with open(os.path.join(
+                    d, f"{r['arch']}__{r['shape']}__{r['mesh']}.json"),
+                    "w") as f:
+                json.dump(r, f)
+        recs = report.load_records(d)
+        if len(recs) != len(records):
+            raise AssertionError(f"26d: {len(recs)} records read back of "
+                                 f"{len(records)}")
+        print(report.dryrun_summary(recs))
+        print(report.roofline_table(recs))
+        print(report.roofline_table(recs, mesh="multi"))
+        spec = importlib.util.spec_from_file_location(
+            "torch_plan_llm_serving",
+            ROOT / "examples" / "torch_plan_llm_serving.py")
+        example = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(example)
+        if example.main(["--dryrun-dir", d]) != 0:
+            raise AssertionError("26d: the plan example failed")
+
+
+def phase_dryrun(card: str) -> None:
+    """26: the dry run (26a), its stand-ins against real steps (26b), the
+    kernels on the roofline (26c), and the tables and plans (26d)."""
+    t0 = time.perf_counter()
+    records = _dry_records(card)
+    print(f"  (phase 26a: {time.perf_counter() - t0:.1f} s)")
+    t1 = time.perf_counter()
+    _dry_real(card)
+    print(f"  (phase 26b: {time.perf_counter() - t1:.1f} s)")
+    t1 = time.perf_counter()
+    _dry_plans(card, records)
+    print(f"  (phase 26c-26d: {time.perf_counter() - t1:.1f} s)")
 
 
 def main() -> int:
@@ -5329,6 +5573,10 @@ def main() -> int:
     t25 = time.perf_counter()
     phase_dimenet(card)
     print(f"== phase 25: {time.perf_counter() - t25:.1f} s [{card}]")
+    torch.cuda.empty_cache()
+    t26 = time.perf_counter()
+    phase_dryrun(card)
+    print(f"== phase 26: {time.perf_counter() - t26:.1f} s [{card}]")
     print(json.dumps({"kernels": [scan, segment, jsq, flash, decode, bag,
                                   cin, fleet]}))
     print(card)

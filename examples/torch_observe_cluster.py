@@ -5,7 +5,7 @@ observability layer shows what actually happens inside one run.  This
 example replays the paper's Table-5 cluster (p=8 index servers) as
 three JSQ-routed replicas through a flash crowd — a 4x arrival burst in
 the middle of the horizon — and renders the port's observability views,
-as examples/observe_cluster.py does (without its roofline table):
+as examples/observe_cluster.py does:
 
   * streaming TIMELINES (`repro_torch.obs.TelemetrySpec`): per-time-bin
     throughput, utilization, queue depth, SLO violations and routing
@@ -17,7 +17,8 @@ as examples/observe_cluster.py does (without its roofline table):
     the same scenario as Chrome-trace JSON — open the file in
     chrome://tracing or https://ui.perfetto.dev;
   * kernel PROFILES (`repro_torch.obs.profile`): first-call time, bytes
-    and peak memory of the (max,+) kernel stack.
+    and peak memory of the (max,+) kernel stack, placed on the H100's
+    roofline by `repro_torch.roofline.report.kernel_roofline`.
 
 Run:   PYTHONPATH=src python examples/torch_observe_cluster.py \
            [--device cpu] [--quick] [--trace-json PATH]
@@ -36,6 +37,7 @@ from repro_torch.obs import TelemetrySpec
 from repro_torch.obs import profile as obs_profile
 from repro_torch.obs import report as obs_report
 from repro_torch.obs import trace_export
+from repro_torch.roofline.report import kernel_roofline
 
 ap = argparse.ArgumentParser()
 ap.add_argument("--device", default="cuda")
@@ -89,10 +91,12 @@ print(f"== span trace ==\n  {path} — {counts['X']} service spans, "
       f"ui.perfetto.dev)")
 print()
 
-# 4. kernel profiles
+# 4. kernel profiles on the machine roofline
 records = obs_profile.profile_kernels(n_runs=0 if args.quick else 3,
                                       device=dev)
 print(obs_report.render_profiles(records))
+print()
+print(kernel_roofline(records))
 
 assert pathlib.Path(path).stat().st_size > 0
 print("\nobserve_cluster: OK")

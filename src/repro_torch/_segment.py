@@ -17,7 +17,12 @@ writers) and rounded once to the data's dtype.
 Ids outside [0, n) are dropped, as ``jax.ops.segment_sum`` drops them:
 callers mark a masked entry by an id of n, and its row is never read.
 The number of steps (the longest run among the kept ids) and the runs'
-ends are read on the host: two synchronisations a call.
+ends are read on the host: two synchronisations a call.  The run sums
+are one operator, ``torch.ops.repro_torch.run_sums``, whose fake
+implementation gives only the output's shape and dtype, so a trace
+under ``FakeTensorMode`` (the dry run, `repro_torch.launch.dryrun`)
+passes through them without reading a value; on real tensors the
+operator runs the code below, bit for bit.
 """
 
 from __future__ import annotations
@@ -31,9 +36,14 @@ Tensor = torch.Tensor
 __all__ = ["segment_sum", "gather_rows"]
 
 
+def _acc_dtype(data: Tensor) -> torch.dtype:
+    return torch.float64 if data.dtype == torch.float64 else torch.float32
+
+
+@torch.library.custom_op("repro_torch::run_sums", mutates_args=())
 def _run_sums(data: Tensor, ids: Tensor, n: int) -> Tensor:
     """(N, ...) data, (N,) ids -> (n, ...) float32 sums, no autograd."""
-    acc = torch.float64 if data.dtype == torch.float64 else torch.float32
+    acc = _acc_dtype(data)
     out = torch.zeros((n + 1,) + tuple(data.shape[1:]), dtype=acc,
                       device=data.device)
     if ids.numel() == 0:
@@ -59,6 +69,12 @@ def _run_sums(data: Tensor, ids: Tensor, n: int) -> Tensor:
     ends = ends.nonzero().squeeze(1)                 # one row a run
     out.index_copy_(0, keys[ends], x[ends])
     return out[:n]
+
+
+@_run_sums.register_fake
+def _(data: Tensor, ids: Tensor, n: int) -> Tensor:
+    return data.new_empty((n,) + tuple(data.shape[1:]),
+                          dtype=_acc_dtype(data))
 
 
 class _SegmentSum(torch.autograd.Function):

@@ -11,7 +11,7 @@ import importlib
 
 from repro_torch.configs.base import ArchSpec
 
-__all__ = ["get_arch", "list_archs"]
+__all__ = ["get_arch", "list_archs", "all_cells"]
 
 _MODULES = {
     "qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
@@ -36,3 +36,9 @@ def get_arch(arch_id: str) -> ArchSpec:
 
 def list_archs() -> list[str]:
     return sorted(_MODULES)
+
+
+def all_cells() -> list[tuple[str, str]]:
+    """Every (arch, shape) pair, the 40 dry-run cells, in the
+    reference's order (archs sorted, each arch's shapes as listed)."""
+    return [(a, s.name) for a in list_archs() for s in get_arch(a).shapes]

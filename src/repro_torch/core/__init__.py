@@ -13,3 +13,21 @@ Modules:
   workload   — distribution fits, Zipf, folding (Sec 4)
   imbalance  — disk-cache model of per-server imbalance (Sec 3.4)
 """
+
+from repro_torch.core.queueing import (  # noqa: F401
+    ServerParams,
+    harmonic_number,
+    service_time_server,
+    mm1_residence_time,
+    utilization,
+    fork_join_lower_bound,
+    fork_join_upper_bound,
+    response_time_bounds,
+    response_time_with_result_cache,
+    saturation_rate,
+)
+
+__all__ = ["ServerParams", "harmonic_number", "service_time_server",
+           "mm1_residence_time", "utilization", "fork_join_lower_bound",
+           "fork_join_upper_bound", "response_time_bounds",
+           "response_time_with_result_cache", "saturation_rate"]

@@ -246,7 +246,8 @@ def plan_over_grid(
     frontier prices each policy by its observed replica-seconds; a
     ``fault=`` axis asks which failure scenarios still meet the SLO.
     Both are simulation-only; the analytic path raises.  ``mesh``
-    (scenario sharding) is not ported yet.
+    shards the scenarios over a `repro_torch.launch.mesh.DeviceMesh`
+    (`core.sweep`).
     """
     if simulate:
         result = sweep.sweep_simulated(

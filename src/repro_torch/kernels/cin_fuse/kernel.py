@@ -9,6 +9,11 @@ shared memory, split-K count) is `cin_plan`; float32 runs on FMAs.  Built
 by `repro_torch.kernels._cuda.CudaLibrary` at first use; ``launches``
 counts the calls this process launched (a split-K call is two device
 launches: the products and the fixed-order sum of the splits).
+
+`cin_layer_cuda` is the custom operator ``repro_torch::cin_layer``: a fake
+gives its output's shape and a FLOP formula its products, so a trace on
+fake tensors (`repro_torch.launch.dryrun`) and ``FlopCounterMode`` on the
+card see the kernel.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import functools
 import pathlib
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels._cuda import CudaLibrary, int64_array, ptr
 from repro_torch.kernels.hopper import HEADER, TmaMap, tma_map
@@ -165,6 +171,7 @@ def check_inputs(xk: Tensor, x0: Tensor, w: Tensor) -> None:
                              f"(strides {t.stride()})")
 
 
+@torch.library.custom_op("repro_torch::cin_layer", mutates_args=())
 def cin_layer_cuda(xk: Tensor, x0: Tensor, w: Tensor) -> Tensor:
     """Launch the kernel: xk (B, Hk, D), x0 (B, m, D), w (Hk*m, O) ->
     (B, O, D) in xk's dtype.
@@ -203,3 +210,15 @@ def cin_layer_cuda(xk: Tensor, x0: Tensor, w: Tensor) -> Tensor:
                  ptr(y), ptr(partial), plan.args, len(plan.args))
     launches += 1
     return y
+
+
+@cin_layer_cuda.register_fake
+def _(xk: Tensor, x0: Tensor, w: Tensor) -> Tensor:
+    return xk.new_empty((xk.shape[0], w.shape[1], xk.shape[2]))
+
+
+@register_flop_formula(torch.ops.repro_torch.cin_layer)
+def _flops(xk_shape, x0_shape, w_shape, *, out_shape=None, **kwargs) -> int:
+    """The contraction over (h, j) of every output (b, o, d)."""
+    b, hk, d = xk_shape
+    return 2 * b * d * hk * x0_shape[1] * w_shape[1]

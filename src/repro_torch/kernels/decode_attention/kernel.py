@@ -12,6 +12,12 @@ cache's full S, shared memory) is `decode_plan`, memoised on shapes and
 strides; the split of a call's positions is `split_plan`.  Built by
 `repro_torch.kernels._cuda.CudaLibrary` at first use; ``launches`` counts
 the launches this process made.
+
+`decode_attention_cuda` is the custom operator
+``repro_torch::decode_attention``: a fake gives its output's shape and a
+FLOP formula its products, so a trace on fake tensors
+(`repro_torch.launch.dryrun`) and ``FlopCounterMode`` on the card see the
+kernel.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import functools
 import pathlib
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels._cuda import (CudaLibrary, check_rows16,
                                        int64_array, ptr)
@@ -147,6 +154,7 @@ def _counter(index: int, rows: int) -> Tensor:
     return have
 
 
+@torch.library.custom_op("repro_torch::decode_attention", mutates_args=())
 def decode_attention_cuda(q: Tensor, k_cache: Tensor, v_cache: Tensor,
                           length: int) -> Tensor:
     """Launch the kernel: q (B, 1, H, D) against k/v (B, S, KV, D), cache
@@ -206,3 +214,16 @@ def decode_attention_cuda(q: Tensor, k_cache: Tensor, v_cache: Tensor,
              splits, chunk // BLOCK_N)
     launches += 1
     return out
+
+
+@decode_attention_cuda.register_fake
+def _(q: Tensor, k_cache: Tensor, v_cache: Tensor, length: int) -> Tensor:
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attention)
+def _flops(q_shape, k_shape, v_shape, length: int, *, out_shape=None,
+           **kwargs) -> int:
+    """QK^T and PV over cache positions 0..``length``."""
+    b, _, h, d = q_shape
+    return 4 * b * h * d * (int(length) + 1)

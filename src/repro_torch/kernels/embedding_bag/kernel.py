@@ -8,6 +8,12 @@ and never gathers its row.  Built by `repro_torch.kernels._cuda
 made.  `bag_plan` picks, in Python, what the launch depends on: the width
 of the unit a lane loads from a row, and whether a bag's mask and ids come
 in vector loads.
+
+`embedding_bag_cuda` is the custom operator
+``repro_torch::embedding_bag``: a fake gives its output's shape (no FLOP
+formula: gathers and sums, which `FlopCounterMode` counts nowhere), so a
+trace on fake tensors (`repro_torch.launch.dryrun`) and
+``FlopCounterMode`` on the card see the kernel.
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ def bag_plan(table: Tensor, ids: Tensor, mask: Tensor) -> BagPlan:
     return BagPlan(unit, vec4)
 
 
+@torch.library.custom_op("repro_torch::embedding_bag", mutates_args=())
 def embedding_bag_cuda(table: Tensor, ids: Tensor, mask: Tensor) -> Tensor:
     """Launch the kernel: table (R, D), ids (..., M), mask (..., M) ->
     (..., D) in the table's dtype.
@@ -99,3 +106,8 @@ def embedding_bag_cuda(table: Tensor, ids: Tensor, mask: Tensor) -> Tensor:
              rows, _ID_BYTES[ids.dtype], plan.unit_bytes, int(plan.vec4))
     launches += 1
     return out
+
+
+@embedding_bag_cuda.register_fake
+def _(table: Tensor, ids: Tensor, mask: Tensor) -> Tensor:
+    return table.new_empty((*ids.shape[:-1], table.shape[1]))

@@ -8,6 +8,12 @@ kernel, whose launch plan (grid, TMA boxes and strides, shared memory) is
 `flash_plan`; float32 runs the FMA kernel.  Built by
 `repro_torch.kernels._cuda.CudaLibrary` at first use; ``launches`` counts
 the launches this process made.
+
+`flash_attention_cuda` is the custom operator
+``repro_torch::flash_attention``: a fake gives its output's shape and a
+FLOP formula its products, so a trace on fake tensors
+(`repro_torch.launch.dryrun`) and ``FlopCounterMode`` on the card see the
+kernel.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import functools
 import pathlib
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels._cuda import (CudaLibrary, check_rows16,
                                        int64_array, ptr)
@@ -173,6 +180,7 @@ def check_inputs(q: Tensor, k: Tensor, v: Tensor) -> int:
     return groups
 
 
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
                          causal: bool = True) -> Tensor:
     """Launch the kernel: q (B, Sq, H, D), k/v (B, Sk, KV, D) -> (B, Sq, H, D).
@@ -205,3 +213,23 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, *,
                  ptr(out), strides, b, sq, sk, kv, groups, d, int(causal))
     launches += 1
     return out
+
+
+@flash_attention_cuda.register_fake
+def _(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True) -> Tensor:
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flops(q_shape, k_shape, v_shape, *, causal: bool = True,
+           out_shape=None, **kwargs) -> int:
+    """QK^T and PV over the (query, key) pairs the kernel visits: every
+    pair, or under ``causal`` query i's keys 0..i."""
+    b, sq, h, d = q_shape
+    sk = k_shape[1]
+    if not causal:
+        pairs = sq * sk
+    else:
+        full = min(sq, sk)
+        pairs = full * (full + 1) // 2 + (sq - full) * sk
+    return 4 * b * h * d * pairs

@@ -14,8 +14,11 @@ runs an n-way split on one card, shard after shard.  Asking for more
 CUDA devices than are visible raises, naming the count; nothing falls
 back to fewer devices or to the CPU.
 
-The 16 x 16 production mesh of the LM sharding (`make_production_mesh`)
-is not ported (ROADMAP queue 1 item 13.5).
+`make_production_mesh` gives the production meshes the dry run
+(`repro_torch.launch.dryrun`) lays every cell out on: (16, 16) over
+("data", "model"), or (2, 16, 16) with "pod" in front.  The dry run
+passes ``devices=["meta"] * 256`` (or 512): its stand-ins allocate
+nothing, so no machine needs that many cards.
 """
 
 from __future__ import annotations
@@ -28,8 +31,8 @@ import torch
 
 from repro_torch._tensor import DeviceLike
 
-__all__ = ["DeviceMesh", "make_sweep_mesh", "make_mesh", "mesh_axes",
-           "data_axes"]
+__all__ = ["DeviceMesh", "make_production_mesh", "make_sweep_mesh",
+           "make_mesh", "mesh_axes", "data_axes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +103,16 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str], *,
     shape = tuple(int(s) for s in shape)
     return DeviceMesh(_devices(math.prod(shape), devices), shape,
                       tuple(axis_names))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Optional[Sequence[DeviceLike]] = None
+                         ) -> DeviceMesh:
+    """16 x 16 single-pod (256 chips) or 2 x 16 x 16 multi-pod (512
+    chips), over the first 256 (512) of ``devices`` (default: the
+    visible CUDA devices; fewer raise)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    return make_mesh(shape, mesh_axes(multi_pod), devices=devices)
 
 
 def mesh_axes(multi_pod: bool) -> tuple[str, ...]:

@@ -45,7 +45,7 @@ from repro_torch.kernels.flash_attention import ops as flash_ops
 
 Tensor = torch.Tensor
 
-__all__ = ["RMSNorm", "rmsnorm", "rope_frequencies",
+__all__ = ["RMSNorm", "init_rmsnorm", "rmsnorm", "rope_frequencies",
            "apply_rope", "AttnDims", "Attention", "init_attention",
            "attention_train", "attention_prefill_chunked",
            "attention_decode", "MLP", "init_mlp", "mlp_swiglu"]
@@ -91,6 +91,14 @@ class RMSNorm(nn.Module):
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.scale = _frozen(torch.ones(d, device=device, dtype=dtype))
+
+
+def init_rmsnorm(d: int, dtype: Optional[torch.dtype] = None, *,
+                 device: DeviceLike = DEFAULT_DEVICE) -> RMSNorm:
+    """The reference's ``init_rmsnorm``: a norm of width ``d`` whose scale
+    is ones in ``dtype`` (an `RMSNorm`, the port's holder of that
+    scale)."""
+    return RMSNorm(d, device=device, dtype=dtype)
 
 
 def rmsnorm(params: RMSNorm, x: Tensor, eps: float = 1e-6) -> Tensor:

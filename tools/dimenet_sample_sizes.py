@@ -27,11 +27,15 @@ import time
 
 import numpy as np
 
+from repro_torch.configs import dimenet
 from repro_torch.data import graph_sampler as GS
+from repro_torch.launch.specs import gnn_cell_dims
 
 N_NODES, D_FEAT = 232_965, 602
 SEEDS, FANOUTS, BUDGET = 1024, (15, 10), 4
-BUFFERS = (169_984, 168_960, 675_840)    # gnn_cell_dims: nodes, edges, triplets
+_DIMS = gnn_cell_dims(next(s for s in dimenet.SPEC.shapes
+                           if s.name == "minibatch_lg"))
+BUFFERS = (_DIMS["nodes"], _DIMS["edges"], _DIMS["triplets"])
 
 
 def sample_sizes(avg_degree: int) -> dict:
