@@ -115,7 +115,16 @@ version on the card, and drives the port's paths:
     exactly (xDeepFM's plain path at the largest halved batch that the
     record says fits), temporaries and step time beside the record's
     (26b); the (max,+) kernels on H100_SXM's roofline (26c); the records'
-    tables and examples/torch_plan_llm_serving.py's plans (26d).
+    tables and examples/torch_plan_llm_serving.py's plans (26d);
+  * the port's static analysis (phase 27): `repro_torch.staticcheck`
+    over the checkout on the card's host, nothing active (27a); its
+    host-sync rule held against the card's own sync debug mode on two
+    chunks each of the r = 1 main path, r = 4 JSQ with the cache, 17b's
+    autoscaled and 17c's faulted slab with telemetry: every sync inside
+    the chunk loop must be at a site the rule reports, suppressed; a
+    sync seeded into the loop is caught; a DimeNet-sized segment sum
+    syncs at exactly the rule's two sites (27b); the shape contract's
+    probes on the card equal the CPU's specs (27c).
 
 Phases 8 and 14 also print the wgmma kernels' ptxas reports (registers,
 spills, serialisation warnings) and take one tile through the shared
@@ -5446,6 +5455,228 @@ def phase_dryrun(card: str) -> None:
     print(f"  (phase 26c-26d: {time.perf_counter() - t1:.1f} s)")
 
 
+# -- phase 27: the port's static analysis and the card's sync audit ---------
+AUDIT_CHUNKS = 2            # chunks a path is audited over (after a warm-up)
+# the positive control: one DimeNet segment sum of minibatch_lg's triplets
+# into its edges (the reference degree's sample, DN_REF_SAMPLE)
+AUDIT_SEGMENT = (DN_REF_SAMPLE[2], DN_REF_SAMPLE[1], 128)   # (T, E, hidden)
+SYNC_WARNING = "synchronizing CUDA operation"
+
+
+class _SyncLog:
+    """The card's own account of host syncs: under
+    ``torch.cuda.set_sync_debug_mode("warn")`` every synchronizing CUDA
+    call warns; each warning is kept with the Python stack it was raised
+    from (its port frames, innermost first, as (repo path, line))."""
+
+    def __init__(self):
+        self.events: list[list[tuple[str, int]]] = []
+
+    def __enter__(self):
+        import traceback
+        import warnings
+        import torch
+        self._ctx = warnings.catch_warnings()
+        self._ctx.__enter__()
+        warnings.simplefilter("always")
+        port = str(ROOT / "src" / "repro_torch")
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if SYNC_WARNING not in str(message):
+                return
+            self.events.append([
+                (pathlib.Path(fr.filename).resolve().relative_to(ROOT)
+                 .as_posix(), fr.lineno)
+                for fr in reversed(traceback.extract_stack())
+                if str(pathlib.Path(fr.filename).resolve()).startswith(port)])
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.set_sync_debug_mode("default")
+        self._ctx.__exit__(*exc)
+        return False
+
+
+def _rule_sites() -> tuple[dict, list]:
+    """RPT101's sites over the port, {(path, line): suppressed}, and the
+    chunk loops of its hot path, [(path, first line, last line)]."""
+    from repro_torch.staticcheck import cli, rules_hostsync
+    sites = {(f.path, f.line): f.suppressed
+             for f in cli.run(["src/repro_torch"], ROOT)
+             if f.rule_id == "RPT101"}
+    loops = [(info.mod.rel, loop.lineno, loop.end_lineno)
+             for info, loop in rules_hostsync.hot_path().loops]
+    return sites, loops
+
+
+def _audit(log: _SyncLog, loops, sites, what: str, n_chunks: int) -> dict:
+    """Split ``log``'s syncs into those inside a chunk loop (each at its
+    innermost port frame) and the rest; fail on an in-loop sync the rule
+    does not report, suppressed."""
+    inside, outside = {}, {}
+    for stack in log.events:
+        in_loop = any(path == lp and lo <= line <= hi
+                      for path, line in stack for lp, lo, hi in loops)
+        site = stack[0] if stack else ("(no port frame)", 0)
+        tally = inside if in_loop else outside
+        tally[site] = tally.get(site, 0) + 1
+    n_in, n_out = sum(inside.values()), sum(outside.values())
+
+    def at(tally):
+        return ", ".join(f"{p.rsplit('/', 1)[-1]}:{n} x{k}"
+                         for (p, n), k in sorted(tally.items()))
+    print(f"  {what}: {n_in} syncs in {n_chunks} chunks = "
+          f"{n_in / n_chunks:g} a chunk" + (f" ({at(inside)})" if inside
+                                            else "")
+          + f"; {n_out} outside the loop, in set-up and epilogue"
+          + (f" ({at(outside)})" if outside else ""))
+    missed = [s for s in inside if not sites.get(s, False)]
+    if missed:
+        raise AssertionError(f"27b {what}: syncs inside the chunk loop at "
+                             f"{missed}, which RPT101 does not report "
+                             "suppressed with a reason")
+    return {"in_loop": n_in, "per_chunk": n_in / n_chunks,
+            "outside": n_out, "sites": sorted(inside)}
+
+
+def phase_staticcheck(card: str) -> dict:
+    """27: the port's checker on the card's host (27a), the host-sync rule
+    held against the card's sync debug mode on four simulator paths and a
+    segment sum (27b), the shape contract's probes on the card (27c)."""
+    import collections
+    import torch
+    from repro_torch._segment import segment_sum
+    from repro_torch.core import simulator
+    from repro_torch.core.cluster import ClusterSpec
+    from repro_torch.launch.elastic import AutoscalePolicy
+    from repro_torch.obs import TelemetrySpec
+    from repro_torch.staticcheck import cli, contract
+    t27 = time.perf_counter()
+    print("== phase 27a: python -m repro_torch.staticcheck src/repro_torch "
+          "tests examples chip_smoke.py")
+    findings = cli.run(list(cli.DEFAULT_TARGETS), ROOT)
+    active = [f for f in findings if not f.suppressed]
+    if active:
+        raise AssertionError("27a: active findings:\n"
+                             + "\n".join(f.render() for f in active))
+    by_rule = collections.Counter(f.rule_id for f in findings)
+    print(f"  0 active findings, {len(findings)} suppressed over "
+          f"{len(cli.collect_files(list(cli.DEFAULT_TARGETS), ROOT))} "
+          f"files; by rule {dict(sorted(by_rule.items()))}")
+    for f in findings:
+        print(f"    {f.path}:{f.line} {f.rule_id}")
+    print(f"  (phase 27a: {time.perf_counter() - t27:.1f} s)")
+
+    t0 = time.perf_counter()
+    sites, loops = _rule_sites()
+    print(f"== phase 27b: sync audit, {AUDIT_CHUNKS} chunks a path under "
+          "torch.cuda.set_sync_debug_mode('warn'); chunk loops "
+          + ", ".join(f"{p}:{lo}-{hi}" for p, lo, hi in loops))
+    lam1, params = _table6_batch()
+    lam17, params17 = _slab17(SIM16_LAM, SIM16_SPEEDS)
+    profile, arrival, chunk17 = _profile17(lam17)
+    pol = AutoscalePolicy(**SIM17_POLICY)
+    fault17 = _fault17(profile)
+    paths = {
+        "r = 1 main path": lambda n: simulator.simulate_fork_join_batch(
+            11, lam1, params, n * CHUNK, p=P, chunk_size=CHUNK),
+        f"r = {R} JSQ, result cache":
+            lambda n: simulator.simulate_fork_join_batch(
+                11, R * lam1, params, n * CHUNK, p=P, chunk_size=CHUNK,
+                cluster=ClusterSpec(r=R, routing="jsq",
+                                    result_cache=RESULT_CACHE)),
+        # (not through _sim17: its filter would hide the card's warnings)
+        "17b autoscaled slab (JSQ)":
+            lambda n: simulator.simulate_fork_join_batch(
+                SIM17_SEED, arrival, params17, n * chunk17, p=P,
+                chunk_size=CHUNK, cluster=ClusterSpec(
+                    routing="jsq", result_cache=RESULT_CACHE,
+                    autoscale=pol)),
+        "17c faulted slab (JSQ), telemetry on":
+            lambda n: simulator.simulate_fork_join_batch(
+                SIM17_SEED, arrival, params17, n * chunk17, p=P,
+                chunk_size=CHUNK, cluster=ClusterSpec(
+                    r=R, routing="jsq", result_cache=RESULT_CACHE,
+                    fault=fault17),
+                telemetry=TelemetrySpec(n_bins=OBS_BINS)),
+    }
+    import warnings
+    audit = {}
+    for what, run in paths.items():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)   # chunk clamp
+            run(1)                                         # warm-up
+            torch.cuda.synchronize()
+        with _SyncLog() as log:                # (the clamp's warning is
+            run(AUDIT_CHUNKS)                  # dropped: not a sync)
+        torch.cuda.synchronize()
+        audit[what] = _audit(log, loops, sites, what, AUDIT_CHUNKS)
+    # the audit's own check: a sync seeded into the loop (a draws callback
+    # that reads a value back) is caught, at the loop's call of it
+    def seeded_draws(c):
+        base = simulator.chunk_random_draws(11, c, N_SCEN, CHUNK, P, params,
+                                            "exponential", device="cuda")
+        float(base[0][0, 0])                       # the seeded sync
+        return base
+    with _SyncLog() as log:
+        simulator.simulate_fork_join_batch(
+            11, lam1, params, AUDIT_CHUNKS * CHUNK, p=P, chunk_size=CHUNK,
+            draws=seeded_draws)
+    torch.cuda.synchronize()
+    try:
+        _audit(log, loops, sites, "seeded sync in draws()", AUDIT_CHUNKS)
+    except AssertionError as exc:
+        print(f"    caught, as it must be: {str(exc)[:120]}")
+    else:
+        raise AssertionError("27b: the audit missed a seeded in-loop sync")
+    # the positive control: the segment sums' two deliberate reads
+    t, e, h = AUDIT_SEGMENT
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(27)
+    data = torch.randn((t, h), device="cuda", generator=gen)
+    ids = torch.randint(0, e + 1, (t,), device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    with _SyncLog() as log:
+        out = segment_sum(data, ids, e)
+    seen = {stack[0] for stack in log.events if stack}
+    want = {s for s, sup in sites.items()
+            if s[0] == "src/repro_torch/_segment.py" and sup}
+    plain = torch.zeros((e + 1, h), device="cuda").index_add_(
+        0, ids.long(), data)[:e]
+    err = float((out - plain).abs().max())
+    print(f"  control: segment_sum of ({t:,}, {h}) into {e:,} rows: the card "
+          f"reports syncs at {sorted(seen)}; the rule reports "
+          f"{sorted(want)}; against index_add_ max abs err {err:.3g}")
+    if len(want) != 2 or not want <= seen or not seen <= set(sites):
+        raise AssertionError(f"27b control: card {sorted(seen)}, rule "
+                             f"{sorted(want)}")
+    if not err <= 1e-3:
+        raise AssertionError(f"27b control: segment_sum vs index_add_ {err}")
+    print(f"  (phase 27b: {time.perf_counter() - t0:.1f} s) [{card}]")
+
+    t0 = time.perf_counter()
+    print("== phase 27c: the shape contract's probes on the card")
+    modes: dict = {}
+    live = contract.snapshot("cuda", modes=modes)
+    committed = contract.load()["probes"]
+    bad = contract.check(live=live)
+    if bad:
+        raise AssertionError("27c: the card's specs differ from the "
+                             "contract:\n" + "\n".join(f.render()
+                                                       for f in bad))
+    print(f"  {len(live)} probes, {sum(map(len, live.values()))} leaves: "
+          f"the card's specs equal the committed contract (the CPU's; "
+          f"{sum(m == 'fake' for m in contract.load()['modes'].values())} "
+          f"probe traced under FakeTensorMode there) "
+          f"[{len(committed)} committed]")
+    print(f"  (phase 27c: {time.perf_counter() - t0:.1f} s)")
+    print(f"  phase 27: {time.perf_counter() - t27:.1f} s [{card}]")
+    return audit
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5577,6 +5808,9 @@ def main() -> int:
     t26 = time.perf_counter()
     phase_dryrun(card)
     print(f"== phase 26: {time.perf_counter() - t26:.1f} s [{card}]")
+    t27 = time.perf_counter()
+    phase_staticcheck(card)
+    print(f"== phase 27: {time.perf_counter() - t27:.1f} s [{card}]")
     print(json.dumps({"kernels": [scan, segment, jsq, flash, decode, bag,
                                   cin, fleet]}))
     print(card)

@@ -54,7 +54,7 @@ def _run_sums(data: Tensor, ids: Tensor, n: int) -> Tensor:
     # an element's place in its run: its index less its run's first
     run_pos = (torch.arange(keys.numel(), device=keys.device)
                - torch.searchsorted(keys, keys))
-    longest = int(run_pos.masked_fill(keys == n, 0).max()) + 1
+    longest = int(run_pos.masked_fill(keys == n, 0).max()) + 1  # staticcheck-torch: disable=RPT101 (the step count, read on purpose: ROADMAP queue 2, held item 4)
     shape = (-1,) + (1,) * (x.ndim - 1)
     y = torch.empty_like(x)
     s = 1
@@ -66,7 +66,7 @@ def _run_sums(data: Tensor, ids: Tensor, n: int) -> Tensor:
         s *= 2
     ends = torch.ones_like(keys, dtype=torch.bool)
     ends[:-1] = keys[1:] != keys[:-1]
-    ends = ends.nonzero().squeeze(1)                 # one row a run
+    ends = ends.nonzero().squeeze(1)  # one row a run  # staticcheck-torch: disable=RPT101 (the run ends, read on purpose: ROADMAP queue 2, held item 4)
     out.index_copy_(0, keys[ends], x[ends])
     return out[:n]
 

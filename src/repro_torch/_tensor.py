@@ -61,5 +61,5 @@ def from_host(x: Any, device: DeviceLike, dtype: torch.dtype
     ``dtype``; integers stay integers.  Numbers and arrays pass through a
     float64 numpy copy, so a float64 run receives them unrounded."""
     t = (x.to(device) if isinstance(x, torch.Tensor)
-         else torch.as_tensor(np.array(x), device=device))
+         else torch.as_tensor(np.array(x), device=device))  # staticcheck-torch: disable=RPT101 (hot callers pass tensors: the branch above)
     return t.to(dtype) if t.is_floating_point() else t

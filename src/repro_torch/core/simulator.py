@@ -790,7 +790,7 @@ def _simulate_stream(
         rep_secs, elapsed = zeros(), zeros()
     f_up = None
     if faulty:
-        (f_up,) = fault_init(  # staticcheck: disable=RPR007  (the engine drives the recurrence)
+        (f_up,) = fault_init(  # staticcheck: disable=RPR007  (the engine drives the recurrence)  # staticcheck-torch: disable=RPT007 (the engine drives it)
             fault, n_scen, r, device=device)
         # the absolute clock of the outage windows (t_origin wraps with
         # the profile's period; outages must not)
@@ -1246,7 +1246,7 @@ def _simulate_stream(
     if telemetry is not None:
         ch = {k: v.contiguous() for k, v in zip(tl_chan, tm_chan.unbind(1))}
         busy = tm_busy.view(n_scen, p + 1, tl_bins, r)
-        extra["timeline"] = Timeline(  # staticcheck: disable=RPR005  (the engine's own output)
+        extra["timeline"] = Timeline(  # staticcheck: disable=RPR005  (the engine's own output)  # staticcheck-torch: disable=RPT005 (the engine's own output)
             bin_seconds=tl_bin_w, count=tm_count, resp_sum=ch["resp"],
             busy_broker=busy[:, 0].contiguous(),
             busy_server=busy[:, 1:].permute(0, 2, 3, 1).contiguous(),

@@ -112,7 +112,7 @@ class Timeline:
 
     def map(self, fn: Callable[[Tensor], Tensor]) -> "Timeline":
         """A timeline with ``fn`` applied to every field that is set."""
-        return Timeline(**{  # staticcheck: disable=RPR005  (copies output)
+        return Timeline(**{  # staticcheck: disable=RPR005  (copies output)  # staticcheck-torch: disable=RPT005 (copies output)
             f.name: None if getattr(self, f.name) is None
             else fn(getattr(self, f.name))
             for f in dataclasses.fields(self)})
@@ -301,7 +301,7 @@ def timeline_from_trace(
         slo_count = sums((response > spec.slo_seconds).to(dtype)).sum(dim=1)
     else:
         slo_count = torch.zeros((B,), dtype=dtype, device=device)
-    return Timeline(  # staticcheck: disable=RPR005  (the trace binner itself)
+    return Timeline(  # staticcheck: disable=RPR005  (the trace binner itself)  # staticcheck-torch: disable=RPT005 (the trace binner itself)
         bin_seconds=bin_w, count=count, resp_sum=resp_sum,
         busy_broker=busy_broker, busy_server=busy_server,
         replica_count=replica_count, hit_count=hit_count,
