@@ -124,7 +124,17 @@ version on the card, and drives the port's paths:
     the chunk loop must be at a site the rule reports, suppressed; a
     sync seeded into the loop is caught; a DimeNet-sized segment sum
     syncs at exactly the rule's two sites (27b); the shape contract's
-    probes on the card equal the CPU's specs (27c).
+    probes on the card equal the CPU's specs (27c);
+  * the three late examples (phase 28): examples/torch_simulate_cluster
+    .py's table at p = 8 .. 1024, 40,000 queries, three service modes,
+    Eq 7 against the CPU's, the exponential means inside Eq 7, p = 1024
+    kernel against plain path, the scan's time at (1024, 4096) (28a);
+    examples/torch_replicated_sweep.py's three frontiers against the
+    CPU's, its 4 x 100 JSQ plan and the 3x flash crowd at r = 4 and 12
+    (150,000 queries, launches asserted, the crowd's first chunks at r
+    = 12 against the plain path) (28b); examples/torch_serve_search.py's
+    open loop for 15 s on the card's engine, one batch's top-k against
+    the CPU engine, the backlog and the latency drift printed (28c).
 
 Phases 8 and 14 also print the wgmma kernels' ptxas reports (registers,
 spills, serialisation warnings) and take one tile through the shared
@@ -5676,6 +5686,288 @@ def phase_staticcheck(card: str) -> dict:
     print(f"  phase 27: {time.perf_counter() - t27:.1f} s [{card}]")
     return audit
 
+CLUSTER28_QUERIES = 40_000      # examples/simulate_cluster.py's defaults
+CLUSTER28_LAM = 15.0
+CLUSTER28_WIDE = 1024           # the p whose runs are held to the plain path
+EQ7_MARGIN = 0.05               # the exponential mean inside Eq 7 +- 5 %
+BOUNDS_RTOL = 1e-6              # card vs CPU bounds and frontiers
+SIM28_RTOL = 1e-5               # kernel vs plain path, mean and p95
+CROWD28_PLAIN_CHUNKS = 2        # 28b's kernel-vs-plain crowd chunks
+SERVE28_SECONDS = 15.0          # examples/serve_search.py's default
+
+
+def _cluster28(card: str, cluster_ex) -> None:
+    """28a: examples/torch_simulate_cluster.py's table on the card."""
+    import torch
+    from repro_torch.core import capacity, queueing
+    from repro_torch.kernels.maxplus_scan import kernel, ops
+    ps, modes = cluster_ex.PS, cluster_ex.MODES
+    n_chunks = -(-CLUSTER28_QUERIES // min(CHUNK, CLUSTER28_QUERIES))
+    print(f"== phase 28a: examples/torch_simulate_cluster.py on the card: "
+          f"p = {', '.join(map(str, ps))}, {CLUSTER28_QUERIES:,} queries, "
+          f"lam {CLUSTER28_LAM:g}, modes {', '.join(modes)}")
+    cluster_ex.rows([8], CLUSTER28_LAM, CHUNK, device="cuda")   # warm-up
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    rows = cluster_ex.rows(ps, CLUSTER28_LAM, CLUSTER28_QUERIES,
+                           device="cuda")
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    want = {"maxplus_scan": 2 * n_chunks * len(ps) * len(modes),
+            "maxplus_segment_scan": 0, "jsq_route": 0, "fleet_scan": 0}
+    if counts != want:
+        raise AssertionError(f"28a: launches {counts}, expected {want}")
+    print(f"  {'p':>5s} {'lower':>8s} {'upper':>8s} | {'exp':>8s} "
+          f"{'cache':>8s} {'balanced':>9s} {'wall_s':>7s}")
+    for row in rows:
+        m = row["mean"]
+        print(f"  {row['p']:5d} {row['lower']:8.3f} {row['upper']:8.3f} | "
+              f"{m['exponential']:8.3f} {m['cache']:8.3f} "
+              f"{m['balanced']:9.3f} {row['wall_s']:7.2f}")
+    print(f"  launches {counts} ({n_chunks} chunks a run, 2 scans a "
+          f"chunk); {wall:.2f} s for the table [{card}]")
+    for row in rows:
+        pr = dataclasses.replace(capacity.TABLE5_PARAMS, p=row["p"])
+        lo, hi = (float(x) for x in queueing.response_time_bounds(
+            CLUSTER28_LAM, pr, device="cpu"))
+        err = max(abs(row["lower"] - lo) / lo, abs(row["upper"] - hi) / hi)
+        if not err <= BOUNDS_RTOL:
+            raise AssertionError(f"28a p = {row['p']}: Eq 7 card vs CPU "
+                                 f"{err} > {BOUNDS_RTOL}")
+        exp, bal = row["mean"]["exponential"], row["mean"]["balanced"]
+        if not (1 - EQ7_MARGIN) * lo < exp < (1 + EQ7_MARGIN) * hi:
+            raise AssertionError(f"28a p = {row['p']}: exponential mean "
+                                 f"{exp} outside Eq 7 [{lo}, {hi}] +- "
+                                 f"{EQ7_MARGIN:.0%}")
+        if not bal <= exp:
+            raise AssertionError(f"28a p = {row['p']}: balanced mean {bal} "
+                                 f"above the exponential {exp}")
+    print(f"  Eq 7 card vs CPU within {BOUNDS_RTOL:g}; the exponential "
+          f"means inside Eq 7 +- {EQ7_MARGIN:.0%}; balanced <= exponential "
+          "at every p")
+    kern = next(r for r in rows if r["p"] == CLUSTER28_WIDE)
+    t0 = time.perf_counter()
+    plain, = cluster_ex.rows([CLUSTER28_WIDE], CLUSTER28_LAM,
+                             CLUSTER28_QUERIES, device="cuda", impl="torch")
+    plain_wall = time.perf_counter() - t0
+    for mode in modes:
+        err = max(abs(kern[k][mode] - plain[k][mode]) / abs(plain[k][mode])
+                  for k in ("mean", "p95"))
+        print(f"  p = {CLUSTER28_WIDE} {mode}: kernel vs plain path mean "
+              f"{kern['mean'][mode] * 1e3:.4f} / "
+              f"{plain['mean'][mode] * 1e3:.4f} ms, p95 "
+              f"{kern['p95'][mode] * 1e3:.4f} / "
+              f"{plain['p95'][mode] * 1e3:.4f} ms: max rel err {err:.2e} "
+              f"(limit {SIM28_RTOL:g})")
+        if not err <= SIM28_RTOL:
+            raise AssertionError(f"28a p = {CLUSTER28_WIDE} {mode}: kernel "
+                                 f"vs plain {err} > {SIM28_RTOL}")
+    print(f"  (the plain path's three runs at p = {CLUSTER28_WIDE}: "
+          f"{plain_wall:.2f} s; the kernel's {kern['wall_s']:.2f} s)")
+    # the scan at the widest chunk's shape, reckoned as for phase 2
+    shape = (CLUSTER28_WIDE, CHUNK)
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    a, b, carry = _inputs(shape, torch.float32, gen)
+    ka, _ = ops.maxplus_scan_seeded(a, b, carry, impl="cuda", with_b=False)
+    pa, _ = ops.maxplus_scan_seeded(a, b, carry, impl="torch", with_b=False)
+    err = _rel_err(ka, pa)
+    if not err <= 1e-5:
+        raise AssertionError(f"28a: the scan at {shape} vs plain {err}")
+    ms = _device_ms(lambda: kernel.maxplus_scan_cuda(a, b, carry,
+                                                     with_b=False))
+    plain_ms = _device_ms(lambda: ops.maxplus_scan_seeded(
+        a, b, carry, impl="torch", with_b=False))
+
+    def yardstick():             # timed only; the port never calls it
+        big_b = torch.cumsum(b, -1)
+        return big_b + torch.cummax(a - big_b, -1).values
+    library_ms = _device_ms(yardstick)
+    moved = shape[0] * shape[1] * 3 * a.element_size()
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = shape[0] * shape[1] * 3 / FP32_OPS_PER_S * 1e3
+    bound = max(bytes_ms, ops_ms)
+    print(f"  the scan at {shape} float32, out_a only, device time of one "
+          f"chunk's launch: kernel {ms:.4f} ms, bound {bound:.4f} ms "
+          f"({'bytes' if bytes_ms >= ops_ms else 'operations'}: "
+          f"{moved / 1e6:.1f} MB at 3.35 TB/s), {100 * bound / ms:.1f} %; "
+          f"plain {plain_ms:.4f} ms, cumsum + cummax {library_ms:.4f} ms; "
+          f"vs plain max rel err {err:.2e} [{card}]")
+
+
+def _replicated28(card: str, rep) -> None:
+    """28b: examples/torch_replicated_sweep.py on the card."""
+    import torch
+    from repro_torch.core import capacity
+    from repro_torch.core.cluster import ClusterSpec
+    print("== phase 28b: examples/torch_replicated_sweep.py on the card: "
+          f"three strategy grids, the JSQ plan at {rep.TARGET:g} qps, the "
+          f"3x flash crowd at {rep.CROWD_QUERIES:,} queries, chunk "
+          f"{rep.CROWD_CHUNK}")
+    t0 = time.perf_counter()
+    card_f, cpu_f = rep.frontiers("cuda"), rep.frontiers("cpu")
+    for name, f in card_f.items():
+        g = cpu_f[name]
+        for field in ("feasible", "r", "cost"):
+            if not torch.equal(getattr(f, field).cpu(), getattr(g, field)):
+                raise AssertionError(f"28b {name}: {field} card "
+                                     f"{getattr(f, field)} vs CPU "
+                                     f"{getattr(g, field)}")
+        fin = g.feasible
+        err = (_rel_err(f.response.cpu()[fin], g.response[fin])
+               if bool(fin.any()) else 0.0)
+        if not err <= BOUNDS_RTOL:
+            raise AssertionError(f"28b {name}: responses card vs CPU {err}")
+        print(f"  {name}: feasible, r and cost equal to the CPU's, "
+              f"responses max rel err {err:.2e}")
+        for i in range(len(rep.LAM)):
+            print("     ", f.describe(i))
+    for lam, (costs, best) in zip(rep.LAM, rep.head_to_head(card_f)):
+        print(f"  lam={lam:5.0f} qps: "
+              + "  ".join(f"{n}: {c:7.1f}" for n, c in costs.items())
+              + f"   -> {best}")
+    print(f"  (frontiers, card and CPU: {time.perf_counter() - t0:.2f} s)")
+    t0 = time.perf_counter()
+    params, plan = rep.cross_check("cuda", n_queries=rep.PLAN_QUERIES)
+    torch.cuda.synchronize()
+    plan_wall = time.perf_counter() - t0
+    cpu_plan = capacity.plan_capacity(
+        capacity.scenario_params(memory=4, p=100, device="cpu"), rep.TARGET,
+        rep.SLO, cluster=ClusterSpec(routing="jsq"))
+    if (plan.n_replicas, plan.servers_per_replica) != (4, 100) or (
+            (plan.n_replicas, plan.servers_per_replica)
+            != (cpu_plan.n_replicas, cpu_plan.servers_per_replica)):
+        raise AssertionError(f"28b: the card plans {plan.n_replicas} x "
+                             f"{plan.servers_per_replica}, the CPU "
+                             f"{cpu_plan.n_replicas} x "
+                             f"{cpu_plan.servers_per_replica}")
+    err = abs(plan.response_upper_ms - cpu_plan.response_upper_ms) / \
+        cpu_plan.response_upper_ms
+    if not err <= BOUNDS_RTOL:
+        raise AssertionError(f"28b: Eq 7 upper card vs CPU {err}")
+    print(f"  plan: {plan.n_replicas} x {plan.servers_per_replica} (CPU "
+          f"{cpu_plan.n_replicas} x {cpu_plan.servers_per_replica}), util "
+          f"{plan.utilization:.4f}, Eq 7 upper {plan.response_upper_ms:.1f}"
+          f" ms (card vs CPU {err:.1e}); simulated under JSQ at "
+          f"{rep.TARGET:g} qps ({rep.PLAN_QUERIES:,} queries): mean "
+          f"{plan.response_simulated_ms:.1f} ms, p95 "
+          f"{plan.response_simulated_p95_ms:.1f} ms; {plan_wall:.2f} s "
+          f"[{card}]")
+    r_peak = 3 * plan.n_replicas
+    n_chunks = -(-rep.CROWD_QUERIES // rep.CROWD_CHUNK)
+    p95 = {}
+    for r in (plan.n_replicas, r_peak):
+        rep.crowd_run(params, r, "cuda", n_queries=rep.CROWD_CHUNK)  # warm
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        res = rep.crowd_run(params, r, "cuda", n_queries=rep.CROWD_QUERIES)
+        p95[r] = float(res.quantile(0.95))
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        # the broker's and the servers' segmented scans, one route a chunk
+        want = {"maxplus_scan": 0, "maxplus_segment_scan": 2 * n_chunks,
+                "jsq_route": n_chunks, "fleet_scan": 0}
+        if counts != want:
+            raise AssertionError(f"28b r = {r}: launches {counts}, expected "
+                                 f"{want}")
+        tag = "planned" if r == plan.n_replicas else "peak-provisioned"
+        print(f"  crowd r = {r} ({tag}): mean "
+              f"{float(res.mean_response) * 1e3:.1f} ms, p95 "
+              f"{p95[r] * 1e3:.1f} ms ("
+              f"{'meets' if p95[r] <= rep.SLO else 'MISSES'} the SLO); "
+              f"{wall:.2f} s = {rep.CROWD_QUERIES / wall:.4g} queries/s; "
+              f"launches {counts} [{card}]")
+    if not p95[r_peak] < p95[plan.n_replicas]:
+        raise AssertionError(f"28b: the peak-provisioned p95 {p95[r_peak]} "
+                             f"is not below the planned {p95[plan.n_replicas]}")
+    n = CROWD28_PLAIN_CHUNKS * rep.CROWD_CHUNK
+    kern = rep.crowd_run(params, r_peak, "cuda", n_queries=n)
+    t0 = time.perf_counter()
+    plain = rep.crowd_run(params, r_peak, "cuda", n_queries=n, impl="torch")
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    if not torch.equal(kern.count, plain.count):
+        raise AssertionError("28b: kernel vs plain path counts differ")
+    err = _rel_err(kern.mean_response, plain.mean_response)
+    print(f"  r = {r_peak}: kernel path vs plain path over the crowd's first "
+          f"{CROWD28_PLAIN_CHUNKS} chunks: counts equal, means max rel err "
+          f"{err:.2e} (limit 1e-5; plain path {plain_wall:.2f} s)")
+    if not err <= 1e-5:
+        raise AssertionError(f"28b r = {r_peak}: kernel vs plain {err}")
+
+
+def _serve28(card: str, serve) -> None:
+    """28c: examples/torch_serve_search.py's open loop on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.engine import cache as cache_lib
+    from repro_torch.engine import server
+    from repro_torch.workloadgen import loadgen, querygen
+    print(f"== phase 28c: examples/torch_serve_search.py on the card: "
+          f"{SERVE28_SECONDS:g} s open loop at {serve.LOAD:g} x capacity, "
+          f"batch {serve.BATCH}, 20 ms window, {serve.CACHE_ENTRIES}-entry "
+          "result cache")
+    t0 = time.perf_counter()
+    srv, uni = serve.build_engine("cuda")
+    cpu_srv = server.IndexServer(srv.index, k_local=srv.k_local,
+                                 device="cpu")
+    _, qterms = querygen.sample_query_stream(uni, 4096, seed=7)
+    qt = qterms[:serve.BATCH]
+    _same_topk(srv.process(qt), cpu_srv.process(qt),
+               "28c one batch, card vs CPU engine")
+    s_query = serve.measure_s_query(srv, uni)
+    rate = serve.LOAD / s_query
+    lo, hi, hedge = serve.model_figures(s_query, rate, "cuda")
+    print(f"  measured S_query {s_query * 1e3:.4f} ms, capacity "
+          f"{1 / s_query:.0f} qps, offering {rate:.0f} qps; model "
+          f"{lo * 1e3:.3f} <= R <= {hi * 1e3:.3f} ms; hedged-duplicate "
+          f"threshold {hedge * 1e3:.3f} ms; set-up "
+          f"{time.perf_counter() - t0:.1f} s")
+    arrivals = loadgen.poisson_arrivals(rate, SERVE28_SECONDS, seed=3)
+    qids, qterms = querygen.sample_query_stream(uni, len(arrivals), seed=9)
+    t0 = time.perf_counter()
+    run = serve.serve_open_loop(
+        srv.process, arrivals, qids, qterms, batch=serve.BATCH,
+        window_s=0.020,
+        cache=cache_lib.ResultCache(capacity_entries=serve.CACHE_ENTRIES))
+    wall = time.perf_counter() - t0
+    if run.served != len(arrivals):
+        raise AssertionError(f"28c: served {run.served} of "
+                             f"{len(arrivals)} arrivals")
+    if not (run.latencies >= 0).all():
+        raise AssertionError("28c: a negative latency (a request admitted "
+                             "before it arrived)")
+    lat = run.latencies
+    first, last = run.drift()
+    print(f"  served {run.served} of {len(arrivals)} in {wall:.2f} s "
+          f"({run.served / wall:.0f} qps), result-cache hit "
+          f"{run.cache_hits / run.served:.3f}; latency mean "
+          f"{lat.mean() * 1e3:.2f} ms p50 {np.quantile(lat, .5) * 1e3:.2f} "
+          f"p95 {np.quantile(lat, .95) * 1e3:.2f} p99 "
+          f"{np.quantile(lat, .99) * 1e3:.2f} ms against the model's "
+          f"[{lo * 1e3:.3f}, {hi * 1e3:.3f}] ms + the 20 ms window "
+          f"[{card}]")
+    print(f"  {run.behind} of {run.batches} batches started behind "
+          f"schedule; mean latency first second {first * 1e3:.2f} ms, last "
+          f"second {last * 1e3:.2f} ms (no gate on latencies)")
+    torch.cuda.synchronize()
+
+
+def phase_examples(card: str) -> None:
+    """28: the three late examples' bodies on the card: the fork-join
+    table to p = 1024 (28a), replicate vs upgrade vs cache with its JSQ
+    plan and the flash crowd (28b), the live serving loop (28c)."""
+    t28 = time.perf_counter()
+    for label, name, sub in (
+            ("28a", "torch_simulate_cluster", _cluster28),
+            ("28b", "torch_replicated_sweep", _replicated28),
+            ("28c", "torch_serve_search", _serve28)):
+        t0 = time.perf_counter()
+        sub(card, _load_example(name))
+        print(f"  (phase {label}: {time.perf_counter() - t0:.1f} s)")
+    print(f"  phase 28: {time.perf_counter() - t28:.1f} s [{card}]")
+
 
 def main() -> int:
     import torch
@@ -5811,6 +6103,9 @@ def main() -> int:
     t27 = time.perf_counter()
     phase_staticcheck(card)
     print(f"== phase 27: {time.perf_counter() - t27:.1f} s [{card}]")
+    t28 = time.perf_counter()
+    phase_examples(card)
+    print(f"== phase 28: {time.perf_counter() - t28:.1f} s [{card}]")
     print(json.dumps({"kernels": [scan, segment, jsq, flash, decode, bag,
                                   cin, fleet]}))
     print(card)
