@@ -1,0 +1,102 @@
+"""Find a cell, its configuration and its traffic mix by name."""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import json
+import pathlib
+import re
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+
+# Every key a file of each kind may hold.  A key outside these (a fault,
+# an autoscaler, a hedge) is refused: the harness and the reference would
+# not run it, and a cell that silently ran without it could read correct.
+KEYS = {
+    "workloads": {"config", "traffic", "chips", "why", "check_dispatches",
+                  "limits"},
+    "configs": {"name", "source", "deployment", "p", "pages", "replicas",
+                "routing", "result_cache", "queries_per_scenario", "dtype",
+                "guarantees", "reduced", "assumed"},
+    "traffic": {"description", "slab", "service_mode", "chunk",
+                "warmup_fraction", "hist_bins", "quantile", "loop"},
+}
+# The values the harness and the reference run, where a file could state
+# another: float32 (the JSQ tracker's precision on both sides), Table 6's
+# 10M pages, and the routings and service models the reference knows.
+RUNS = {
+    ("configs", "dtype"): {"float32"},
+    ("configs", "pages"): {10_000_000},
+    ("configs", "routing"): {"round_robin", "random", "jsq"},
+    ("traffic", "service_mode"): {"cache", "exponential"},
+}
+
+
+def _load(kind: str, name: str, root: pathlib.Path) -> dict:
+    if not NAME.match(name):
+        raise ValueError(f"bad {kind} name {name!r}")
+    path = root / kind / f"{name}.json"
+    if not path.is_file():
+        raise FileNotFoundError(f"no {kind} named {name!r} ({path})")
+    data = json.loads(path.read_text())
+    unknown = sorted(set(data) - KEYS[kind])
+    if unknown:
+        raise ValueError(f"{path}: keys the harness does not run: {unknown}")
+    for (k, key), allowed in RUNS.items():
+        if k == kind and key in data and data[key] not in allowed:
+            raise ValueError(f"{path}: {key} = {data[key]!r}; the harness "
+                             f"runs only {sorted(allowed)}")
+    return data
+
+
+@dataclasses.dataclass(frozen=True)
+class Cell:
+    """One workload: a deployment under a traffic mix, with its checks."""
+
+    name: str
+    workload: dict
+    config: dict
+    traffic: dict
+
+    @property
+    def chips(self) -> int:
+        return int(self.workload["chips"])
+
+    @property
+    def limits(self) -> dict:
+        return self.workload["limits"]
+
+    @property
+    def n_chunks(self) -> int:
+        return -(-int(self.config["queries_per_scenario"])
+                 // int(self.traffic["chunk"]))
+
+
+def load_cell(name: str, root: pathlib.Path = ROOT) -> Cell:
+    workload = _load("workloads", name, root)
+    return Cell(name=name, workload=workload,
+                config=_load("configs", workload["config"], root),
+                traffic=_load("traffic", workload["traffic"], root))
+
+
+def names(kind: str, root: pathlib.Path = ROOT) -> list[str]:
+    """Every name of one kind (``workloads``, ``configs``, ``traffic``, or
+    ``metrics`` for the readers)."""
+    suffix = ".py" if kind == "metrics" else ".json"
+    return sorted(p.stem for p in (root / kind).glob(f"*{suffix}")
+                  if not p.stem.startswith("_"))
+
+
+def load_metric(name: str, root: pathlib.Path = ROOT):
+    """The per-layer reader ``metrics/<name>.py``: a module with ``UNIT``
+    and ``read(view) -> float | None``."""
+    if not NAME.match(name):
+        raise ValueError(f"bad metric name {name!r}")
+    path = root / "metrics" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(
+        "portbench_metric_" + re.sub(r"\W", "_", name), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod

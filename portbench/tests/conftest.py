@@ -1,0 +1,35 @@
+"""Shared fixtures: the benchmark's folder copied at a size the CPU holds."""
+
+from __future__ import annotations
+
+import json
+import shutil
+
+import pytest
+
+from portbench.bench.cells import ROOT
+
+TINY_SLAB = {"memory": [1, 4], "cpu": [1, 4], "disk": [1], "rho": [0.3, 0.85]}
+
+
+def shrink(root, *, p=8, queries=1024, chunk=256):
+    """Cut every configuration and traffic mix under ``root`` in place:
+    8 scenarios, ``p`` servers, ``queries`` a scenario in ``chunk``s."""
+    for path in (root / "configs").glob("*.json"):
+        cfg = json.loads(path.read_text())
+        cfg.update(p=p, queries_per_scenario=queries)
+        path.write_text(json.dumps(cfg))
+    for path in (root / "traffic").glob("*.json"):
+        tr = json.loads(path.read_text())
+        tr.update(slab=TINY_SLAB, chunk=chunk)
+        path.write_text(json.dumps(tr))
+
+
+@pytest.fixture
+def tiny_root(tmp_path):
+    """A copy of the benchmark's data and readers, cut to a tiny size."""
+    for kind in ("workloads", "configs", "traffic", "metrics"):
+        shutil.copytree(ROOT / kind, tmp_path / kind,
+                        ignore=shutil.ignore_patterns("__pycache__"))
+    shrink(tmp_path)
+    return tmp_path

@@ -1,0 +1,117 @@
+"""The check against faults: a run whose timed path is broken underneath
+must come out not correct.  Each case drives the rest of a run on the CPU
+at a tiny size (the look for a card skipped) with one fault planted in
+the program, or the control (the reference in bfloat16) in its place."""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import pytest
+import torch
+
+from portbench import run
+from portbench.bench import cells
+from portbench.reference import forkjoin
+
+CELLS = ["t6-r1-whatif", "t6-r4-jsq-whatif"]
+
+
+def _run(root, name, seed=2**32 + 17):
+    cell = cells.load_cell(name, root)
+    return run.run_cell(cell, seed=seed, seconds=0.1, trace=False,
+                        device="cpu", setup_clock=lambda: 1.0, root=root)
+
+
+def _drop_carries(monkeypatch):
+    """A step that returns its state unchanged: every chunk starts from
+    empty queues, as if the carries were never written."""
+    from repro_torch.core import simulator
+    plain, segmented = (simulator.fcfs_completion_times,
+                        simulator._fcfs_segmented)
+
+    def fcfs(arrivals, services, impl="auto", carry=None):
+        return plain(arrivals, services, impl=impl)
+
+    def seg(arrivals, services, flags, heads, carry, impl):
+        return segmented(arrivals, services, flags, heads,
+                         torch.full_like(carry, -math.inf), impl)
+
+    monkeypatch.setattr(simulator, "fcfs_completion_times", fcfs)
+    monkeypatch.setattr(simulator, "_fcfs_segmented", seg)
+
+
+def _half_batch(monkeypatch):
+    """Half of the batch left out, the mean taken over the rest: the
+    queries of the second half are never simulated, and the count says
+    they were."""
+    from repro_torch.core import simulator
+    plain = simulator.simulate_fork_join_batch
+
+    def half(seed, lam, params, n_queries, **kw):
+        res = plain(seed, lam, params, n_queries // 2, **kw)
+        full = n_queries - int(n_queries * kw["warmup_fraction"])
+        return dataclasses.replace(
+            res, count=torch.full_like(res.count, float(full)),
+            sum_response=res.sum_response * full / res.count)
+
+    monkeypatch.setattr(simulator, "simulate_fork_join_batch", half)
+
+
+def _altered_answer(monkeypatch):
+    """One answer altered where it is produced: scenario 0's response sum
+    off by one part in a thousand."""
+    from repro_torch.core import simulator
+    plain = simulator.simulate_fork_join_batch
+
+    def altered(*args, **kw):
+        res = plain(*args, **kw)
+        res.sum_response[0] *= 1.001
+        return res
+
+    monkeypatch.setattr(simulator, "simulate_fork_join_batch", altered)
+
+
+def _control(monkeypatch):
+    """The control: the reference in bfloat16 in the program's place."""
+    from repro_torch.core import simulator
+
+    class Out:
+        def __init__(self, ref):
+            self.mean_response = ref["mean"].float()
+            self.q = ref["quantile"].float()
+            self.count = ref["count"].float()
+
+        def quantile(self, q):
+            return self.q
+
+    def control(seed, lam, params, n_queries, *, p, mode, warmup_fraction,
+                chunk_size, hist_bins, cluster, device, dtype):
+        fields = {f: getattr(params, f) for f in
+                  ("s_broker", "s_hit", "s_miss", "s_disk", "hit")}
+        return Out(forkjoin.simulate(
+            seed, lam, fields, p=p, n_queries=n_queries, chunk=chunk_size,
+            warmup_fraction=warmup_fraction, hist_bins=hist_bins,
+            quantile=0.95, mode=mode, r=cluster.r, routing=cluster.routing,
+            result_cache=cluster.result_cache, dtype=torch.bfloat16,
+            route_dtype=torch.bfloat16))
+
+    monkeypatch.setattr(simulator, "simulate_fork_join_batch", control)
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_sound_run_is_correct(tiny_root, name):
+    assert _run(tiny_root, name)["correct"] is True
+
+
+@pytest.mark.parametrize("fault", [_drop_carries, _half_batch,
+                                   _altered_answer, _control],
+                         ids=["state_unchanged", "half_batch",
+                              "altered_answer", "control_bf16"])
+@pytest.mark.parametrize("name", CELLS)
+def test_fault_is_not_correct(tiny_root, monkeypatch, name, fault):
+    fault(monkeypatch)
+    line = _run(tiny_root, name)
+    assert line["correct"] is False
+    assert any(c["value"] > c["limit"] for c in line["checks"].values())
