@@ -88,6 +88,16 @@ replica, routing counts, cache hits, SLO misses and, under change, the
 active, up, spilled and degraded counts; the result gains ``timeline``.
 It draws no random numbers, so ``telemetry=None`` runs the program
 without it op for op.
+
+Layer spans (`repro_torch.obs.profile.layer_span`): under any
+``torch.profiler`` session a dispatch shows ``repro_torch.sim.dispatch``,
+``.setup``, one ``.chunk`` a chunk and, inside it, leaf spans over every
+operation the chunk launches (``.draws``, ``.arrivals``, ``.fleet``,
+``.route``, ``.compact``, ``.fcfs.cache`` / ``.broker`` / ``.servers``,
+``.join``, ``.stats``, ``.telemetry``).  The names are a contract of the
+benchmark's readers.  Off the profiler a span is one flag check, and no
+span launches or reads anything, so results are bitwise the same either
+way.
 """
 
 from __future__ import annotations
@@ -112,6 +122,7 @@ from repro_torch.launch.elastic import AutoscalePolicy, autoscale_init
 from repro_torch.kernels.maxplus_scan import autodiff as mp_autodiff
 from repro_torch.kernels.maxplus_scan import ops as mp_ops
 from repro_torch.kernels.maxplus_scan.ref import maxplus_combine
+from repro_torch.obs.profile import LayerSpans, layer_span
 from repro_torch.obs.timeline import TelemetrySpec, Timeline, segment_sums
 
 Tensor = torch.Tensor
@@ -152,6 +163,7 @@ _FAULT_SALT = 0xFA17
 _HIST_DECADES_BELOW = 3.0
 _HIST_DECADES_TOTAL = 6.0
 _MIN_PROFILE_CHUNK = 64
+_SPAN = "repro_torch.sim."              # the layer spans' common prefix
 
 
 def fcfs_completion_times(arrivals: Tensor, services: Tensor,
@@ -686,6 +698,8 @@ def _simulate_stream(
     autoscale: Optional[AutoscalePolicy] = None,
     fault: Optional[FaultSpec] = None,
     telemetry: Optional[TelemetrySpec] = None,
+    *,
+    spans: LayerSpans,
 ) -> SimResult:
     """The chunked engine behind every entry point.
 
@@ -704,6 +718,9 @@ def _simulate_stream(
     fast path included) of the fault-free program.  ``telemetry`` adds
     its tallies the same way, and draws nothing.  The chunk loop issues
     device work only: no host sync, no branch on a tensor value.
+    ``spans`` (the caller's, holding its ``setup`` span open) marks the
+    chunk loop's layers for a profiler; each ``spans.open`` starts the
+    leaf that the code after it belongs to.
     """
     dtype = proc.rates.dtype
     device = proc.rates.device
@@ -844,12 +861,14 @@ def _simulate_stream(
         late = full > deadline
         return torch.where(late, torch.maximum(t_k, deadline), full), late
 
-    for c_idx in range(n_chunks):
+    for c_idx in spans.chunks(n_chunks):
+        spans.open("draws")
         u_gaps, u_brk, services, *rest = draws(c_idx)
         side = rest[0] if rest else {}
         if not need <= side.keys():
             raise ValueError(f"draws({c_idx}) lacks the side stream(s) "
                              f"{sorted(need - side.keys())}")
+        spans.open("arrivals")
         if gap_chunks is not None:
             gaps = gap_chunks[c_idx][None, :].expand(n_scen, chunk)
         else:
@@ -877,6 +896,9 @@ def _simulate_stream(
         s_broker_c = u_brk * s_broker[:, None]
 
         up_q = n_act = None
+        if elastic or faulty:
+            # the fleet scan, the outage windows' clock, the cost integral
+            spans.open("fleet")
         if elastic or f_outage:
             # the fleet scan, one launch: the replica-up mask at each
             # arrival (outage windows on the absolute clock, the MTBF/MTTR
@@ -906,6 +928,7 @@ def _simulate_stream(
             elapsed = elapsed + torch.sum(gaps_v, -1)
 
         if telemetry is not None:
+            spans.open("telemetry")
             # chunk-order captures BEFORE the branches below permute or
             # rescale anything: arrival offsets and each query's
             # EFFECTIVE demand (cache hits never reach broker or servers)
@@ -924,23 +947,29 @@ def _simulate_stream(
         perm = None
         if r == 1:
             if has_cache:
+                spans.open("arrivals")              # the miss masks
                 s_broker_c = s_broker_c * miss_f
                 services = services * miss_f[:, None, :]
+                spans.open("fcfs.cache")
                 cache_done = fcfs_completion_times(
                     arrivals, t_cache, impl=impl, carry=c_cache[:, 0])
                 c_cache_new = cache_done[:, -1:]
+            spans.open("fcfs.broker")
             broker_done = fcfs_completion_times(arrivals, s_broker_c,
                                                 impl=impl, carry=c_brk[:, 0])
+            spans.open("fcfs.servers")
             # fork: every server sees the broker's completions as arrivals
             completions = fcfs_completion_times(
                 broker_done[:, None, :], services, impl=impl,
                 carry=c_srv[:, 0])
+            spans.open("join")
             join, degr = quorum_join(completions, broker_done, 1)
             server0 = completions[:, 0, :]
             c_brk_new = broker_done[:, -1:]
             c_srv_new = completions[:, None, :, -1]
             w_jsq_new = w_jsq
         else:
+            spans.open("route")
             live = miss_f if has_cache else torch.ones_like(gaps)
             w_jsq_new = w_jsq
             up_route = up_q if f_outage else None
@@ -962,6 +991,7 @@ def _simulate_stream(
             # Reference oracle: every replica scans the FULL stream;
             # phantom (zero-service) entries cannot delay later real
             # queries.  ~r x redundant work.
+            spans.open("compact")
             mask = (assign[:, None, :] == torch.arange(
                 r, device=device)[None, :, None]).to(dtype)
             # hits occupy their replica's cache queue; only misses enter
@@ -969,20 +999,26 @@ def _simulate_stream(
             mask_srv = mask * miss_f[:, None, :] if has_cache else mask
             arr_r = arrivals[:, None, :].expand(n_scen, r, chunk)
             if has_cache:
+                spans.open("fcfs.cache")
                 cache_done_r = fcfs_completion_times(
                     arr_r, t_cache[:, None, :] * mask, impl=impl,
                     carry=c_cache)
+                spans.open("compact")
                 cache_done = torch.sum(cache_done_r * mask, dim=1)
                 c_cache_new = cache_done_r[:, :, -1]
+            spans.open("fcfs.broker")
             broker_done_r = fcfs_completion_times(
                 arr_r, s_broker_c[:, None, :] * mask_srv, impl=impl,
                 carry=c_brk)
+            spans.open("fcfs.servers")
             completions = fcfs_completion_times(
                 broker_done_r[:, :, None, :],
                 services[:, None, :, :] * mask_srv[:, :, None, :],
                 impl=impl, carry=c_srv)
+            spans.open("join")
             join_r, degr_r = quorum_join(completions, broker_done_r, 2)
             # read each query off its OWN replica's sample path
+            spans.open("compact")
             broker_done = torch.sum(broker_done_r * mask_srv, dim=1)
             join = torch.sum(join_r * mask_srv, dim=1)
             if f_quorum:
@@ -1011,22 +1047,28 @@ def _simulate_stream(
             svc_q = services.reshape(n_scen, p, ct, r).permute(0, 3, 1, 2)
             brk_q = to_rep(s_broker_c)
             if has_cache:
+                spans.open("arrivals")              # the miss masks
                 miss_q = to_rep(miss_f)
                 brk_q = brk_q * miss_q
                 svc_q = svc_q * miss_q[:, :, None, :]
+                spans.open("fcfs.cache")
                 cache_done_q = fcfs_completion_times(
                     arr_q, to_rep(t_cache), impl=impl, carry=c_cache)
                 cache_done = cache_done_q.reshape(n_scen, chunk)
                 c_cache_new = cache_done_q[..., -1]
+            spans.open("fcfs.broker")
             broker_done_q = fcfs_completion_times(arr_q, brk_q, impl=impl,
                                                   carry=c_brk)
+            spans.open("fcfs.servers")
             completions = fcfs_completion_times(
                 broker_done_q[:, :, None, :], svc_q, impl=impl, carry=c_srv)
             broker_done = broker_done_q.reshape(n_scen, chunk)
+            spans.open("join")
             join_q, degr_q = quorum_join(completions, broker_done_q, 2)
             join = join_q.reshape(n_scen, chunk)
             if f_quorum:
                 degr = degr_q.reshape(n_scen, chunk)
+            spans.open("compact")               # back to chunk layout
             server0 = completions[:, :, 0, :].reshape(n_scen, chunk)
             c_brk_new = broker_done_q[..., -1]
             c_srv_new = completions[..., -1]
@@ -1038,6 +1080,7 @@ def _simulate_stream(
             # order), seed segment heads from the carries, and run ONE
             # segmented (max, +) scan per queue level.  Gathers index with
             # expanded views, so no (S, p, chunk) index tensor exists.
+            spans.open("compact")
             order, flags, counts, heads, ends = _compact(assign, r)
 
             def perm(x):
@@ -1049,19 +1092,28 @@ def _simulate_stream(
             brk_s = perm(s_broker_c)
             if has_cache:
                 miss_s = perm(miss_f)
+                spans.open("arrivals")              # the miss masks
                 brk_s = brk_s * miss_s
                 svc_s = svc_s * miss_s[:, None, :]
-                cache_done = _fcfs_segmented(arrivals, perm(t_cache), flags,
+                spans.open("compact")
+                t_cache_s = perm(t_cache)
+                spans.open("fcfs.cache")
+                cache_done = _fcfs_segmented(arrivals, t_cache_s, flags,
                                              heads, c_cache, impl)
+                spans.open("compact")
                 c_cache_new = torch.where(
                     counts > 0, torch.gather(cache_done, -1, ends), c_cache)
+            spans.open("fcfs.broker")
             broker_done = _fcfs_segmented(arrivals, brk_s, flags, heads,
                                           c_brk, impl)
+            spans.open("fcfs.servers")
             completions = _fcfs_segmented(
                 broker_done[:, None, :], svc_s, flags[:, None, :],
                 heads[:, None, :], c_srv.transpose(1, 2), impl)
+            spans.open("join")
             join, degr = quorum_join(completions, broker_done, 1)
             server0 = completions[:, 0, :]
+            spans.open("compact")               # the carries at the ends
             c_brk_new = torch.where(
                 counts > 0, torch.gather(broker_done, -1, ends), c_brk)
             srv_ends = torch.gather(completions, -1, ends[:, None, :].expand(
@@ -1076,6 +1128,7 @@ def _simulate_stream(
             # with fresh draws from the salted fault stream.  A response
             # the hedge wins is a full-quorum result: it clears the
             # degraded flag.
+            spans.open("join")
             cand = None
             for h_j, h_delay in enumerate(fault.hedge_delays()):
                 dup = torch.amax(side["hedge"][h_j], dim=1) * s_mean[:, None]
@@ -1089,7 +1142,9 @@ def _simulate_stream(
 
         if has_cache:
             if perm is not None:
+                spans.open("compact")
                 is_hit = perm(is_hit)
+            spans.open("stats")
             if degr is not None:
                 degr = degr & ~is_hit   # hits never fork: always whole
             resp_cache = cache_done - arrivals
@@ -1099,6 +1154,7 @@ def _simulate_stream(
             cluster_res = torch.where(is_hit, 0.0, join - broker_done)
             server_res = torch.where(is_hit, 0.0, server0 - broker_done)
         else:
+            spans.open("stats")
             response = join - arrivals
             broker_res = broker_done - arrivals
             cluster_res = join - broker_done
@@ -1107,7 +1163,9 @@ def _simulate_stream(
         mf = ((gidx >= n_warm) & (gidx < n_queries)).to(dtype)[None, :]
         mf0 = mf                 # chunk order, for the chunk-order flags
         if perm is not None:
+            spans.open("compact")
             mf = perm(mf)
+            spans.open("stats")
         count = count + torch.sum(mf, -1).expand(n_scen)
         s_resp = s_resp + torch.sum(response * mf, -1)
         ss_resp = ss_resp + torch.sum(response * response * mf, -1)
@@ -1141,7 +1199,9 @@ def _simulate_stream(
             # unfilled (NaN) slot.
             pri = side["tap"]
             if perm is not None:
+                spans.open("compact")
                 pri = perm(pri)
+                spans.open("stats")
             pri = torch.where(mf > 0, pri, -math.inf)
             cat_pri = torch.cat([tap_pri, pri], dim=-1)
             cat_val = torch.cat([tap_val, response.expand(n_scen, chunk)],
@@ -1161,6 +1221,7 @@ def _simulate_stream(
             # over (S, [p,] chunk), so the busy tally of the servers
             # never builds the (S, r, p, chunk) product of the
             # replica mask and the services.
+            spans.open("telemetry")
             t_arr = t_abs[:, None] + tm_arr                # (S, chunk)
             t_bin = torch.clamp_min(torch.searchsorted(
                 tl_edges, t_arr, right=True) - 1, 0)
@@ -1218,6 +1279,7 @@ def _simulate_stream(
                 torch.stack([c.expand(n_scen, chunk) for c in chans], 1),
                 pos_bin[:, None])
             t_abs = t_abs + last_arrival
+            spans.open("stats")                 # the carries' rebase
 
         shift = last_arrival
         c_brk = c_brk_new - shift[:, None]
@@ -1299,52 +1361,57 @@ def simulate_fork_join_batch(
     Peak memory of the fused replicated engine is S x p x chunk values,
     independent of ``n_queries`` and of r; the carries grow with r, at
     S x r x p values.  The "masked" oracle needs S x r x p x chunk.
-    """
-    spec = ClusterSpec() if cluster is None else cluster
-    if not isinstance(spec, ClusterSpec):
-        raise TypeError("cluster must be a repro_torch ClusterSpec; got "
-                        f"{type(spec).__name__}")
-    dev = torch.device(device)
-    mp_ops.resolve_scan_impl(impl, dev)       # reject a bad impl up front
-    proc = _as_batch_process(lam, dev, dtype)
-    _check_trace(proc, n_queries)
-    chunk = _clamp_chunk_for_profile(
-        proc, max(1, min(chunk_size, n_queries)))
-    vp = _vec_params(params, dev, dtype)
-    n_scen = proc.rates.shape[0]
-    r = spec.engine_r
-    cache = None
-    if spec.result_cache is not None:
-        cache = tuple(torch.full((n_scen,), v, dtype=dtype, device=dev)
-                      for v in spec.result_cache)
-    if draws is None:
-        with_gaps = proc.trace_gaps is None
-        random = r > 1 and spec.routing == "random"
-        elastic = spec.autoscale is not None
-        fault = spec.fault
-        side_kw = dict(
-            route_r=r if random and not elastic else None,
-            route_uniform=random and elastic,
-            cache_hit=None if cache is None else cache[0],
-            tap=tap_size > 0,
-            fault_r=(r if fault is not None
-                     and fault.mtbf_seconds is not None else None),
-            hedge=((int(fault.hedge_attempts), p) if fault is not None
-                   and fault.hedge_after_seconds is not None else None))
 
-        def draws(chunk_idx: int):
-            base = chunk_random_draws(seed, chunk_idx, n_scen, chunk, p, vp,
-                                      mode, with_gaps=with_gaps, device=dev,
-                                      dtype=dtype)
-            side = chunk_side_draws(seed, chunk_idx, n_scen, chunk,
-                                    device=dev, dtype=dtype, **side_kw)
-            return (*base, side) if side else base
-    return _simulate_stream(draws, proc, vp, n_queries, p, impl, chunk,
-                            warmup_fraction, hist_bins, tap_size, r=r,
-                            routing=spec.routing, cache=cache,
-                            replica_impl=spec.replica_impl,
-                            autoscale=spec.autoscale, fault=spec.fault,
-                            telemetry=telemetry)
+    Under a profiler the call is one ``repro_torch.sim.dispatch`` span:
+    ``setup`` up to the first chunk, then the chunk loop's spans.
+    """
+    with layer_span(_SPAN + "dispatch"), LayerSpans(_SPAN) as spans:
+        spans.open("setup")
+        spec = ClusterSpec() if cluster is None else cluster
+        if not isinstance(spec, ClusterSpec):
+            raise TypeError("cluster must be a repro_torch ClusterSpec; got "
+                            f"{type(spec).__name__}")
+        dev = torch.device(device)
+        mp_ops.resolve_scan_impl(impl, dev)       # reject a bad impl up front
+        proc = _as_batch_process(lam, dev, dtype)
+        _check_trace(proc, n_queries)
+        chunk = _clamp_chunk_for_profile(
+            proc, max(1, min(chunk_size, n_queries)))
+        vp = _vec_params(params, dev, dtype)
+        n_scen = proc.rates.shape[0]
+        r = spec.engine_r
+        cache = None
+        if spec.result_cache is not None:
+            cache = tuple(torch.full((n_scen,), v, dtype=dtype, device=dev)
+                          for v in spec.result_cache)
+        if draws is None:
+            with_gaps = proc.trace_gaps is None
+            random = r > 1 and spec.routing == "random"
+            elastic = spec.autoscale is not None
+            fault = spec.fault
+            side_kw = dict(
+                route_r=r if random and not elastic else None,
+                route_uniform=random and elastic,
+                cache_hit=None if cache is None else cache[0],
+                tap=tap_size > 0,
+                fault_r=(r if fault is not None
+                         and fault.mtbf_seconds is not None else None),
+                hedge=((int(fault.hedge_attempts), p) if fault is not None
+                       and fault.hedge_after_seconds is not None else None))
+
+            def draws(chunk_idx: int):
+                base = chunk_random_draws(seed, chunk_idx, n_scen, chunk, p,
+                                          vp, mode, with_gaps=with_gaps,
+                                          device=dev, dtype=dtype)
+                side = chunk_side_draws(seed, chunk_idx, n_scen, chunk,
+                                        device=dev, dtype=dtype, **side_kw)
+                return (*base, side) if side else base
+        return _simulate_stream(draws, proc, vp, n_queries, p, impl, chunk,
+                                warmup_fraction, hist_bins, tap_size, r=r,
+                                routing=spec.routing, cache=cache,
+                                replica_impl=spec.replica_impl,
+                                autoscale=spec.autoscale, fault=spec.fault,
+                                telemetry=telemetry, spans=spans)
 
 
 def simulate_fork_join(

@@ -1,5 +1,43 @@
-"""Profiling hooks: first-call time, steady time, flops and bytes, peak
-device memory.
+"""Profiling hooks: the simulator's layer spans; first-call time, steady
+time, flops and bytes, peak device memory.
+
+**Layer spans.**  The streaming simulator opens named spans around its
+own layers, so any ``torch.profiler.profile(...)`` around a planning
+call (``simulate_fork_join_batch``, ``sweep_simulated``,
+``plan_capacity(simulate=True)``) shows them beside the kernels, on the
+profiler's one clock, with no other set-up:
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        simulate_fork_join_batch(...)
+    prof.key_averages().table(sort_by="cpu_time_total")
+
+Every name starts with ``repro_torch.sim.``: ``dispatch`` (one a batch
+call, so one a shard of a sharded sweep) holds ``setup`` (arguments,
+parameters, bounds, the histogram scale, the carries) and one ``chunk``
+a chunk; inside a chunk, consecutive leaf spans cover every operation
+the chunk launches: ``draws``, ``arrivals``, ``fleet``, ``route``,
+``compact``, ``fcfs.cache``, ``fcfs.broker``, ``fcfs.servers``,
+``join``, ``stats``, ``telemetry`` (each only where its layer runs, and
+``arrivals``, ``compact`` and ``stats`` may open more than once a chunk).
+A device operation belongs to the innermost span around its launch, by
+the profiler's correlation id.
+
+:func:`layer_span` is on exactly while a profiler records
+(``torch.autograd.profiler._is_profiler_enabled``, or where a torch
+lacks that flag ``torch._C._autograd._profiler_enabled()``), with no
+knob: off,
+it returns one shared ``contextlib.nullcontext()``; on, a
+``torch._C._profiler._RecordFunctionFast`` (``record_function`` where a
+build lacks that class).  Those spans are not user annotations, so the
+profiler mirrors none of them onto the device's timeline.  They touch no
+tensor: the chunk loop keeps its contract of no host sync.
+:class:`LayerSpans` runs consecutive spans through straight-line code.
+Cost an enter/exit on an H100 machine's host (torch 2.11, four runs):
+off 0.35-0.67 us (a ``LayerSpans.open`` 0.12-0.21 us), on 1.34-3.34
+us, against 14.3-15.6 us for ``record_function``; 114 spans a dispatch
+at r = 1, 274 at r = 4 (Table 6, 16 chunks).
 
 PyTorch port of `repro.obs.profile`.  The reference reads XLA's
 ``cost_analysis()`` and ``memory_analysis()`` off a compiled program;
@@ -32,16 +70,87 @@ kernels move for the call.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import statistics
 import time
-from typing import Any, Callable, Optional
+from typing import Any, Callable, ContextManager, Iterator, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from repro_torch._tensor import DEFAULT_DEVICE, DeviceLike
 
-__all__ = ["ProfileRecord", "profile_jit", "profile_kernels"]
+__all__ = ["LayerSpans", "ProfileRecord", "layer_span", "profile_jit",
+           "profile_kernels"]
+
+_OFF = contextlib.nullcontext()
+_RecordFunction = getattr(torch._C._profiler, "_RecordFunctionFast",
+                          torch.profiler.record_function)
+
+
+def _reader(flags) -> Callable[[], bool]:
+    """Whether a profiler records: ``flags._is_profiler_enabled``, the
+    module flag ``torch.profiler`` sets, read at each call; where a torch
+    lacks that flag, the C++ query (slower, and still right)."""
+    if hasattr(flags, "_is_profiler_enabled"):
+        return lambda: flags._is_profiler_enabled
+    return torch._C._autograd._profiler_enabled
+
+
+_recording = _reader(_autograd_profiler)
+
+
+def layer_span(name: str) -> ContextManager:
+    """A profiler span named ``name`` while a profiler records; else one
+    shared ``contextlib.nullcontext()``."""
+    if not _recording():
+        return _OFF
+    return _RecordFunction(name)
+
+
+class LayerSpans:
+    """Consecutive layer spans of one run, ``prefix`` before each name.
+
+    ``open(name)`` closes the span this object holds open and opens the
+    next, so a run of ``open`` calls splits straight-line code into
+    layers without indenting it.  ``chunks(n)`` yields ``range(n)``, each
+    index inside a ``chunk`` span; the open span closes before each
+    chunk span opens and before it closes, so leaves nest in their
+    chunk.  Leaving the ``with`` block closes whatever is still open.
+    """
+
+    def __init__(self, prefix: str):
+        self.prefix = prefix
+        self._open = None
+
+    def __enter__(self) -> "LayerSpans":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def open(self, name: str) -> None:
+        self.close()
+        if _recording():
+            span = _RecordFunction(self.prefix + name)
+            span.__enter__()
+            self._open = span
+
+    def close(self) -> None:
+        if self._open is not None:
+            span, self._open = self._open, None
+            span.__exit__(None, None, None)
+
+    def chunks(self, n: int) -> Iterator[int]:
+        self.close()
+        name = self.prefix + "chunk"
+        for i in range(n):
+            with layer_span(name):
+                try:
+                    yield i
+                finally:
+                    self.close()
 
 
 @dataclasses.dataclass(frozen=True)
