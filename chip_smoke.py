@@ -5,9 +5,10 @@
 
 Builds the hand-written CUDA kernels from the checkout's sources (the
 (max,+) scan, the segmented (max,+) scan, the JSQ router, flash attention,
-decode attention, the embedding bag, the fused CIN layer and the fleet
-scan, one nvcc each, in parallel), holds each against its plain PyTorch
-version on the card, and drives the port's paths:
+decode attention, the embedding bag, the fused CIN layer, the fleet scan
+and the service sampler, one nvcc each, in parallel), holds each against
+its plain PyTorch version on the card (the service sampler bit for bit
+against the plain draws, phase 5c), and drives the port's paths:
 
   * the simulator over Table 6's 100-server case study, 64 scenarios:
     the single-replica engine (phases 3-4) and the replicated cluster,
@@ -29,7 +30,8 @@ version on the card, and drives the port's paths:
     1,000,000-scenario grid in one `sweep_analytical` call, both held
     against the CPU (16a); a simulated sweep of 3 x 64 scenarios at
     1,048,576 queries each under random and JSQ routing, its kernel
-    launches asserted, Eq 7, the plain path, p95 frontiers and a
+    launches asserted (the service sampler's too, with no call to the
+    plain draws), Eq 7, the plain path, p95 frontiers and a
     diurnal plan (16b); the paper's 4 x 100 plan with its simulated
     cross-check (16c); and the disk-cache imbalance model over the
     TodoBR universe against the CPU (16d);
@@ -260,10 +262,12 @@ def _reset_counts() -> None:
     from repro_torch.kernels.fleet_scan import ops as fleet_ops
     from repro_torch.kernels.jsq_route import ops as jsq_ops
     from repro_torch.kernels.maxplus_scan import ops
+    from repro_torch.kernels.service_sample import ops as sample_ops
     ops.reset_launch_count()
     ops.reset_segment_launch_count()
     jsq_ops.reset_launch_count()
     fleet_ops.reset_launch_count()
+    sample_ops.reset_counts()
     fa_ops.reset_counts()
     dec_ops.reset_counts()
 
@@ -276,6 +280,13 @@ def _counts() -> dict:
             "maxplus_segment_scan": ops.segment_launch_count(),
             "jsq_route": jsq_ops.launch_count(),
             "fleet_scan": fleet_ops.launch_count()}
+
+
+def _sample_counts() -> dict:
+    """Service-sampler launches, and calls that took the plain draws."""
+    from repro_torch.kernels.service_sample import ops as sample_ops
+    return {"service_sample": sample_ops.launch_count(),
+            "plain": sample_ops.plain_count()}
 
 
 def _attention_counts() -> dict:
@@ -775,6 +786,69 @@ def phase_jsq_kernel(card: str) -> dict:
                   "bound_by": ("bytes" if bytes_ms >= ops_ms
                                else "operations"),
                   "library_ms": None}
+    return report
+
+
+SAMPLE_SHAPES = ((256, P, CHUNK),       # the benchmark cells' chunk
+                 (N_SCEN, P, CHUNK))    # the main path's
+
+
+def phase_sample_kernel(card: str) -> dict:
+    """The service sampler against the plain draws (torch's generators,
+    the broadcast products, the mixture), bit for bit, in cache and
+    exponential mode at the benchmark cells' and the main path's chunk,
+    each scenario its own means and hit ratio."""
+    import dataclasses
+    import torch
+    from repro_torch.core import capacity, simulator
+    print("== phase 5c: service sampler vs plain draws on the card")
+    report = None
+    for shape in SAMPLE_SHAPES:
+        n_scen, p, n = shape
+        gen = torch.Generator().manual_seed(n_scen)
+
+        def spread(lo, hi):
+            return lo + (hi - lo) * torch.rand(n_scen, generator=gen,
+                                               dtype=torch.float64)
+        params = simulator._vec_params(dataclasses.replace(
+            capacity.TABLE5_PARAMS, s_hit=spread(1e-3, 9e-3),
+            s_miss=spread(5e-3, 2e-2), s_disk=spread(1e-3, 3e-2),
+            hit=spread(0.05, 0.95)), torch.device("cuda"), torch.float32)
+        for mode in ("cache", "exponential"):
+            seed = simulator._mix(5, n_scen, p, n)
+
+            def run(impl):
+                return simulator.sample_service_times_batch(
+                    seed, n_scen, n, p, params, mode, device="cuda",
+                    impl=impl)
+            before = _sample_counts()
+            got = run("cuda")
+            after = _sample_counts()
+            want = run("torch")
+            torch.cuda.synchronize()
+            same = bool(torch.equal(got, want))
+            steps = {k: after[k] - before[k] for k in after}
+            if not same or steps != {"service_sample": 1, "plain": 0}:
+                raise AssertionError(f"5c {shape} {mode}: kernel equals the "
+                                     f"plain draws: {same}; counts {steps}")
+            ms = _device_ms(lambda: run("cuda"), n=20)
+            plain_ms = _time_ms(lambda: run("torch"), n=5, warm=1)
+            bound_ms = got.numel() * 4 / HBM_BYTES_PER_S * 1e3
+            print(f"  {str(shape):18s} {mode:11s} equal bit for bit; kernel "
+                  f"{ms:.4f} ms (device, mean of 20)  plain draws "
+                  f"{plain_ms:.4f} ms  bound {bound_ms:.4f} ms (one 4-byte "
+                  f"write an element at 3.35 TB/s), {100 * bound_ms / ms:.1f}"
+                  f" % [{card}]")
+            if report is None:
+                report = {"name": "service_sample", "route": "cuda",
+                          "source": "src/repro_torch/kernels/service_sample/"
+                                    "csrc/service_sample.cu",
+                          "replaces": "src/repro/core/simulator.py:360 "
+                                      "(jax.random and XLA ops, no Pallas "
+                                      "kernel)",
+                          "launches": None, "max_abs_err": 0.0, "ms": ms,
+                          "plain_ms": plain_ms, "bound_ms": bound_ms,
+                          "bound_by": "bytes", "library_ms": None}
     return report
 
 
@@ -2018,6 +2092,7 @@ def phase_sim_sweep(card: str) -> dict:
             torch.cuda.synchronize()
             total = time.perf_counter() - t0
         counts = _counts()
+        sampled = _sample_counts()
         peak = torch.cuda.max_memory_allocated()
         # r = 1: cache, broker and servers on the plain scan; r > 1: the
         # same three levels segmented; JSQ routes each r > 1 chunk once
@@ -2028,9 +2103,15 @@ def phase_sim_sweep(card: str) -> dict:
         if counts != expect:
             raise AssertionError(f"16b {routing}: launches {counts}, "
                                  f"expected {expect}")
+        # one sampler launch a chunk of each of the 3 dispatches, and no
+        # call to the plain draws
+        if sampled != {"service_sample": 3 * n_chunks, "plain": 0}:
+            raise AssertionError(f"16b {routing}: sampler {sampled}, "
+                                 f"expected {3 * n_chunks} launches and no "
+                                 "plain draws")
         n_scen = math.prod(grid.shape) // len(SIM16_R)
-        print(f"  {routing}: launches {counts}; {total:.3f} s for 3 "
-              f"dispatches = {3 * n_scen * SIM16_QUERIES / total:.4g} "
+        print(f"  {routing}: launches {counts}, {sampled}; {total:.3f} s "
+              f"for 3 dispatches = {3 * n_scen * SIM16_QUERIES / total:.4g} "
               f"queries/s; peak {peak / 2**20:.0f} MiB [{card}]")
         for r, wall in walls.walls:
             print(f"    r = {r}: {wall:.3f} s = "
@@ -2057,7 +2138,8 @@ def phase_sim_sweep(card: str) -> dict:
             sim_s, ana_s = fr_sim.describe(i), fr_ana.describe(i)
             print(f"      {sim_s}" + ("" if ana_s == sim_s
                                       else f"\n        analytic: {ana_s}"))
-        out[routing] = {"counts": counts, "walls": walls.walls}
+        out[routing] = {"counts": counts, "sampled": sampled,
+                        "walls": walls.walls}
     wall_r4 = next(w for r, w in out["random"]["walls"] if r == 4)
     traced = phase_profile(
         card, wall_r4, lambda: sweep.sweep_simulated(
@@ -2068,13 +2150,26 @@ def phase_sim_sweep(card: str) -> dict:
     _kernel_share(traced, "maxplus_segment_scan_kernel", "segmented scan")
 
     # the kernel path against the plain path on the same draws, on the
-    # r = 2 dispatch; JSQ's plain loop is ~8 launches a query: 2 chunks
+    # r = 2 dispatch; JSQ's plain loop is ~8 launches a query: 2 chunks.
+    # The plain path samples with the plain draws, the kernel path with
+    # the sampler: one call a chunk each
     sub = grid_of([2.0])
     for routing, n in (("random", 25 * CHUNK), ("jsq", 2 * CHUNK)):
         kw = dict(n_queries=n, chunk_size=CHUNK,
                   cluster=ClusterSpec(routing=routing))
+        before = _sample_counts()
         kern = sweep.sweep_simulated(sub, 16, **kw).mean
+        mid = _sample_counts()
         plain = sweep.sweep_simulated(sub, 16, impl="torch", **kw).mean
+        after = _sample_counts()
+        steps = [{k: b[k] - a[k] for k in a}
+                 for a, b in ((before, mid), (mid, after))]
+        want = [{"service_sample": n // CHUNK, "plain": 0},
+                {"service_sample": 0, "plain": n // CHUNK}]
+        if steps != want:
+            raise AssertionError(f"16b {routing}: sampler calls of the "
+                                 f"kernel and plain paths {steps}, "
+                                 f"expected {want}")
         err = _rel_err(kern, plain)
         print(f"  {routing}, r = 2 dispatch, {n:,} queries: kernel path vs "
               f"plain path means max rel err {err:.2e} (limit 1e-4)")
@@ -5994,6 +6089,7 @@ def main() -> int:
         "phase 4: device time by kernel, main path (exponential)")
     segment = phase_segment_kernel(card)
     jsq = phase_jsq_kernel(card)
+    sample = phase_sample_kernel(card)
     launches, wall = phase_replicated(card)
     segment["launches"] = launches["random"]["maxplus_segment_scan"]
     jsq["launches"] = launches["jsq"]["jsq_route"]
@@ -6039,7 +6135,8 @@ def main() -> int:
     del params, batches
     torch.cuda.empty_cache()
     phase_whatif(card)
-    phase_sim_sweep(card)
+    sample["launches"] = phase_sim_sweep(card)["jsq"]["sampled"][
+        "service_sample"]
     phase_plans(card)
     phase_imbalance(card)
     t17 = time.perf_counter()
@@ -6107,7 +6204,7 @@ def main() -> int:
     phase_examples(card)
     print(f"== phase 28: {time.perf_counter() - t28:.1f} s [{card}]")
     print(json.dumps({"kernels": [scan, segment, jsq, flash, decode, bag,
-                                  cin, fleet]}))
+                                  cin, fleet, sample]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

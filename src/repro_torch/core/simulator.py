@@ -122,6 +122,7 @@ from repro_torch.launch.elastic import AutoscalePolicy, autoscale_init
 from repro_torch.kernels.maxplus_scan import autodiff as mp_autodiff
 from repro_torch.kernels.maxplus_scan import ops as mp_ops
 from repro_torch.kernels.maxplus_scan.ref import maxplus_combine
+from repro_torch.kernels.service_sample import ops as sample_ops
 from repro_torch.obs.profile import LayerSpans, layer_span
 from repro_torch.obs.timeline import TelemetrySpec, Timeline, segment_sums
 
@@ -456,50 +457,44 @@ def sample_service_times_batch(
     params: ServerParams, mode: str, *,
     device: DeviceLike = DEFAULT_DEVICE,
     dtype: torch.dtype = torch.float32,
+    impl: str = "auto",
 ) -> Tensor:
     """(n_scenarios, p, n_queries) service times; params fields are (S,).
 
     Every scenario gets independent randomness but its own means / hit
-    ratio.  In "balanced" mode the result is a broadcast view.
+    ratio.  In "balanced" mode the result is a broadcast view.  ``impl``
+    picks the sampler's path (`repro_torch.kernels.service_sample.ops`):
+    on the card "auto" takes the kernel for float32 "cache" and
+    "exponential" draws, which gives the plain draws' values bit for bit.
     """
     dev = torch.device(device)
     shape = (n_scenarios, p, n_queries)
-
-    def field(x):
-        return from_host(x, dev, dtype)[:, None, None]
-
-    s_mean = service_time_server(params, device=dev,
-                                 dtype=dtype).to(dtype)[:, None, None]
-    if mode == "exponential":
-        return _unit_exponential(_mix(seed, 0), shape, dev, dtype) * s_mean
-    if mode == "balanced":
-        one = _unit_exponential(_mix(seed, 0), (n_scenarios, 1, n_queries),
-                                dev, dtype)
-        return (one * s_mean).expand(shape)
     if mode == "cache":
-        is_hit = _unit_uniform(_mix(seed, 1), shape, dev, dtype) < field(
-            params.hit)
-        t_hit = (_unit_exponential(_mix(seed, 2), shape, dev, dtype)
-                 * field(params.s_hit))
-        t_miss = (_unit_exponential(_mix(seed, 3), shape, dev, dtype)
-                  * field(params.s_miss)
-                  + _unit_exponential(_mix(seed, 4), shape, dev, dtype)
-                  * field(params.s_disk))
-        return torch.where(is_hit, t_hit, t_miss)
-    raise ValueError(f"unknown service mode: {mode}")
+        fields = tuple(from_host(getattr(params, name), dev, dtype)
+                       for name in ("hit", "s_hit", "s_miss", "s_disk"))
+        seeds = tuple(_mix(seed, i) for i in range(1, 5))
+    elif mode in ("exponential", "balanced"):
+        fields = (service_time_server(params, device=dev,
+                                      dtype=dtype).to(dtype),)
+        seeds = (_mix(seed, 0),)
+    else:
+        raise ValueError(f"unknown service mode: {mode}")
+    return sample_ops.service_times(seeds, shape, fields, mode, impl=impl)
 
 
 def chunk_random_draws(seed: int, chunk_idx: int, n_scen: int, chunk: int,
                        p: int, params: ServerParams, mode: str, *,
                        with_gaps: bool = True,
                        device: DeviceLike = DEFAULT_DEVICE,
-                       dtype: torch.dtype = torch.float32):
+                       dtype: torch.dtype = torch.float32,
+                       impl: str = "auto"):
     """The canonical per-chunk RNG plan, seeded by ``hash(seed, chunk_idx)``.
 
     Returns (unit-rate gap draws (S, chunk), unit-mean broker draws
     (S, chunk), service times (S, p, chunk)).  ``with_gaps=False`` skips
     the gap draw (trace replay supplies its own gaps); the broker and
     service streams have their own sub-seeds, so they are unchanged.
+    ``impl`` picks the service sampler's path (`sample_service_times_batch`).
     """
     dev = torch.device(device)
     kc = _mix(seed, chunk_idx)
@@ -508,7 +503,7 @@ def chunk_random_draws(seed: int, chunk_idx: int, n_scen: int, chunk: int,
     u_broker = _unit_exponential(_mix(kc, 1), (n_scen, chunk), dev, dtype)
     services = sample_service_times_batch(_mix(kc, 2), n_scen, chunk, p,
                                           params, mode, device=dev,
-                                          dtype=dtype)
+                                          dtype=dtype, impl=impl)
     return u_gaps, u_broker, services
 
 
@@ -1351,7 +1346,9 @@ def simulate_fork_join_batch(
     ``cluster=ClusterSpec(...)`` (None: one replica, no cache; an
     autoscale policy provisions its ``max_r``).  The
     per-chunk FCFS recurrences flatten onto the rows of one kernel launch
-    per queue level.  ``tap_size > 0`` carries a reservoir sample of
+    per queue level.  ``impl="torch"`` runs every kernel's plain version,
+    the service sampler's included; "auto" and "cuda" sample with
+    `chunk_random_draws`'s "auto".  ``tap_size > 0`` carries a reservoir sample of
     responses.  ``draws`` replaces the port's own RNG plan (see the
     module docstring); it is called with the chunk chosen here, after
     the profile clamp.  ``telemetry=TelemetrySpec(...)`` streams the
@@ -1399,10 +1396,13 @@ def simulate_fork_join_batch(
                 hedge=((int(fault.hedge_attempts), p) if fault is not None
                        and fault.hedge_after_seconds is not None else None))
 
+            sample_impl = "torch" if impl == "torch" else "auto"
+
             def draws(chunk_idx: int):
                 base = chunk_random_draws(seed, chunk_idx, n_scen, chunk, p,
                                           vp, mode, with_gaps=with_gaps,
-                                          device=dev, dtype=dtype)
+                                          device=dev, dtype=dtype,
+                                          impl=sample_impl)
                 side = chunk_side_draws(seed, chunk_idx, n_scen, chunk,
                                         device=dev, dtype=dtype, **side_kw)
                 return (*base, side) if side else base

@@ -159,5 +159,6 @@ def all_libraries() -> tuple[CudaLibrary, ...]:
     from repro_torch.kernels.hopper import TILE_LIB
     from repro_torch.kernels.jsq_route import kernel as jsq
     from repro_torch.kernels.maxplus_scan import kernel as scan
+    from repro_torch.kernels.service_sample import kernel as sample
     return (scan.SCAN_LIB, scan.SEGMENT_LIB, jsq.LIB, flash.LIB, decode.LIB,
-            bag.LIB, cin.LIB, fleet.LIB, TILE_LIB)
+            bag.LIB, cin.LIB, fleet.LIB, sample.LIB, TILE_LIB)

@@ -35,9 +35,13 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.fleet_scan import ops as fleet_ops
 from repro_torch.kernels.jsq_route import ops as jsq_ops
 from repro_torch.kernels.maxplus_scan import kernel, ops
+from repro_torch.kernels.service_sample import kernel as sample_kernel
+from repro_torch.kernels.service_sample import ops as sample_ops
 from repro_torch.models import recsys as RS
 from repro_torch.models import transformer as T
 from repro_torch.serving.engine import LMServer
+
+import torch_philox_model as philox_model
 
 pytestmark = pytest.mark.gpu
 
@@ -687,6 +691,134 @@ def test_elastic_faulted_engine_goes_through_the_fleet_scan(cuda, routing):
                  "availability", "degraded_fraction"):
         _assert_rel(getattr(res, name), getattr(plain, name), 1e-4)
     assert 1.0 <= float(res.mean_active_replicas) <= 4.0
+
+
+# ------------------------------------------------------- service sampling
+
+def _sampling_params(n_scen, device, seed=3):
+    """(S,) float32 fields of the cache mixture, each scenario its own."""
+    g = torch.Generator().manual_seed(seed)
+
+    def u(lo, hi):
+        return (lo + (hi - lo) * torch.rand(n_scen, generator=g,
+                                            dtype=torch.float64)).to(device)
+    return simulator._vec_params(dataclasses.replace(
+        capacity.TABLE5_PARAMS, s_hit=u(1e-3, 9e-3), s_miss=u(5e-3, 2e-2),
+        s_disk=u(1e-3, 3e-2), hit=u(0.05, 0.95)), device, torch.float32)
+
+
+@pytest.mark.parametrize("mode", ["cache", "exponential"])
+@pytest.mark.parametrize("shape", [
+    (256, 100, 4096),       # the benchmark's chunk
+    (5, 37, 6007),          # numel above 4T and no multiple of it
+    (2, 3, 50),             # a grid below the card's full one
+    (1, 100, 4096),         # one scenario
+    (128, 1024, 4096),      # 2^29: the largest draw torch makes at once
+    (129, 1024, 4096),      # past it: two pieces, at their own offsets
+    (257, 1024, 4096),      # four pieces, the split taken twice
+])
+def test_service_sampler_kernel_is_the_plain_draws(cuda, mode, shape):
+    """The kernel's services equal the plain draws' bit for bit (torch's
+    own generators, the broadcast products, the mixture), in one launch a
+    piece of torch's draw (one up to 2^29 elements)."""
+    n_scen, p, n = shape
+    params = _sampling_params(n_scen, cuda)
+    seed = simulator._mix(2026, n_scen, p, n)
+    props = torch.cuda.get_device_properties(cuda)
+    pieces = len(sample_kernel.draw_launches(
+        n_scen * p * n, props.multi_processor_count,
+        props.max_threads_per_multi_processor))
+    assert (pieces == 1) == (n_scen * p * n <= 2 ** 29)
+    before, plain = sample_ops.launch_count(), sample_ops.plain_count()
+    got = simulator.sample_service_times_batch(seed, n_scen, n, p, params,
+                                               mode, device=cuda,
+                                               impl="cuda")
+    assert sample_ops.launch_count() == before + pieces
+    assert sample_ops.plain_count() == plain
+    want = simulator.sample_service_times_batch(seed, n_scen, n, p, params,
+                                                mode, device=cuda,
+                                                impl="torch")
+    assert sample_ops.launch_count() == before + pieces
+    assert sample_ops.plain_count() == plain + 1
+    assert got.shape == want.shape == shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("numel", [300, 1_111_295])
+def test_philox_layout_model_is_torch_on_the_card(cuda, numel):
+    """The numpy model of torch's CUDA draws (Philox4x32-10 in torch's
+    grid-stride layout) gives ``torch.rand`` bit for bit and
+    ``exponential_`` within ``__logf``'s error (absolute 2^-21.41 on
+    [0.5, 2], 3 ulp elsewhere): a torch whose layout moved fails here by
+    name."""
+    props = torch.cuda.get_device_properties(cuda)
+    grid = sample_kernel.grid_size(numel, props.multi_processor_count,
+                                   props.max_threads_per_multi_processor)
+    seed = simulator._mix(31, numel)
+    u = simulator._unit_uniform(seed, (numel,), cuda, torch.float32)
+    assert np.array_equal(u.cpu().numpy(),
+                          philox_model.torch_rand(seed, numel, grid))
+    e = simulator._unit_exponential(seed, (numel,), cuda, torch.float32)
+    np.testing.assert_allclose(
+        e.cpu().numpy(), philox_model.torch_exponential(seed, numel, grid),
+        rtol=2.0 ** -20, atol=2.0 ** -21)
+
+
+@pytest.mark.parametrize("numel", [2 ** 29 + 2 ** 22, 2 ** 30 + 2 ** 22 + 9])
+def test_philox_split_layout_model_is_torch_on_the_card(cuda, numel):
+    """Past 2^29 elements torch draws in pieces (`kernel.draw_launches`):
+    the model gives ``torch.rand`` bit for bit at each piece's first and
+    last 2,000 elements and at 20,000 elements drawn at random."""
+    props = torch.cuda.get_device_properties(cuda)
+    launches = sample_kernel.draw_launches(
+        numel, props.multi_processor_count,
+        props.max_threads_per_multi_processor)
+    assert len(launches) > 1
+    edges = [np.arange(a, a + 2000) for a, n, _, _ in launches] + [
+        np.arange(a + n - 2000, a + n) for a, n, _, _ in launches]
+    rng = np.random.default_rng(numel)
+    index = np.concatenate(edges + [rng.integers(0, numel, 20_000)])
+    seed = simulator._mix(37, numel)
+    u = simulator._unit_uniform(seed, (numel,), cuda, torch.float32)
+    got = u[torch.as_tensor(index, device=cuda)].cpu().numpy()
+    assert np.array_equal(got, philox_model.torch_rand_at(seed, index,
+                                                          launches))
+
+
+def test_engine_services_from_the_kernel_are_the_plain_draws(cuda):
+    """A cache-mode dispatch on the card: the sampler launches once a
+    chunk, and every field equals the same dispatch fed the plain draws.
+    The engine's ``impl="torch"`` samples with the plain draws, and
+    ``impl="cuda"`` in float64 too, without an error."""
+    n_scen, p, chunk, n_chunks = 6, 16, 1024, 4
+    params = dataclasses.replace(_sampling_params(n_scen, cuda),
+                                 s_broker=torch.full((n_scen,), 2e-4,
+                                                     device=cuda))
+    vp = simulator._vec_params(params, cuda, torch.float32)
+    lam = torch.linspace(5.0, 15.0, n_scen, device=cuda)
+    kw = dict(p=p, mode="cache", chunk_size=chunk, device=cuda)
+    before = sample_ops.launch_count()
+    card = simulator.simulate_fork_join_batch(11, lam, params,
+                                              n_chunks * chunk, **kw)
+    assert sample_ops.launch_count() == before + n_chunks
+    plain = simulator.simulate_fork_join_batch(
+        11, lam, params, n_chunks * chunk,
+        draws=lambda c: simulator.chunk_random_draws(
+            11, c, n_scen, chunk, p, vp, "cache", device=cuda,
+            impl="torch"), **kw)
+    assert sample_ops.launch_count() == before + n_chunks
+    for impl, dtype in (("torch", torch.float32), ("cuda", torch.float64)):
+        plain_calls = sample_ops.plain_count()
+        simulator.simulate_fork_join_batch(11, lam, params, n_chunks * chunk,
+                                           impl=impl, dtype=dtype, **kw)
+        assert sample_ops.launch_count() == before + n_chunks, impl
+        assert sample_ops.plain_count() == plain_calls + n_chunks, impl
+    for f in dataclasses.fields(card):
+        a, b = getattr(card, f.name), getattr(plain, f.name)
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b), f.name
+        else:
+            assert a == b, f.name
 
 
 # ------------------------------------------------------------ attention
