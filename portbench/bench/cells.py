@@ -20,8 +20,11 @@ KEYS = {
     "configs": {"name", "source", "deployment", "p", "pages", "replicas",
                 "routing", "result_cache", "queries_per_scenario", "dtype",
                 "guarantees", "reduced", "assumed"},
-    "traffic": {"description", "slab", "service_mode", "chunk",
+    "traffic": {"description", "slab", "grid", "service_mode", "chunk",
                 "warmup_fraction", "hist_bins", "quantile", "loop"},
+    # a traffic mix's what-if grid: Table 6's memory column and the axes
+    # of `SweepGrid` (total queries/s, CPU and disk speed-ups)
+    "grid": {"memory", "lam", "cpu", "disk"},
 }
 # The values the harness and the reference run, where a file could state
 # another: float32 (the JSQ tracker's precision on both sides), Table 6's
@@ -31,7 +34,18 @@ RUNS = {
     ("configs", "pages"): {10_000_000},
     ("configs", "routing"): {"round_robin", "random", "jsq"},
     ("traffic", "service_mode"): {"cache", "exponential"},
+    ("grid", "memory"): {1, 2, 3, 4},
 }
+
+
+def _check(kind: str, data: dict, path: pathlib.Path) -> None:
+    unknown = sorted(set(data) - KEYS[kind])
+    if unknown:
+        raise ValueError(f"{path}: keys the harness does not run: {unknown}")
+    for (k, key), allowed in RUNS.items():
+        if k == kind and key in data and data[key] not in allowed:
+            raise ValueError(f"{path}: {key} = {data[key]!r}; the harness "
+                             f"runs only {sorted(allowed)}")
 
 
 def _load(kind: str, name: str, root: pathlib.Path) -> dict:
@@ -41,13 +55,16 @@ def _load(kind: str, name: str, root: pathlib.Path) -> dict:
     if not path.is_file():
         raise FileNotFoundError(f"no {kind} named {name!r} ({path})")
     data = json.loads(path.read_text())
-    unknown = sorted(set(data) - KEYS[kind])
-    if unknown:
-        raise ValueError(f"{path}: keys the harness does not run: {unknown}")
-    for (k, key), allowed in RUNS.items():
-        if k == kind and key in data and data[key] not in allowed:
-            raise ValueError(f"{path}: {key} = {data[key]!r}; the harness "
-                             f"runs only {sorted(allowed)}")
+    _check(kind, data, path)
+    if kind == "traffic":
+        if ("slab" in data) == ("grid" in data):
+            raise ValueError(f"{path}: a traffic mix holds a slab or a "
+                             "grid, and only one")
+        if "grid" in data:
+            _check("grid", data["grid"], path)
+            missing = sorted(KEYS["grid"] - set(data["grid"]))
+            if missing:
+                raise ValueError(f"{path}: the grid lacks {missing}")
     return data
 
 
@@ -69,6 +86,11 @@ class Cell:
         return self.workload["limits"]
 
     @property
+    def grid(self) -> dict | None:
+        """The traffic's what-if grid, or None for a slab."""
+        return self.traffic.get("grid")
+
+    @property
     def n_chunks(self) -> int:
         return -(-int(self.config["queries_per_scenario"])
                  // int(self.traffic["chunk"]))
@@ -76,9 +98,13 @@ class Cell:
 
 def load_cell(name: str, root: pathlib.Path = ROOT) -> Cell:
     workload = _load("workloads", name, root)
-    return Cell(name=name, workload=workload,
+    cell = Cell(name=name, workload=workload,
                 config=_load("configs", workload["config"], root),
                 traffic=_load("traffic", workload["traffic"], root))
+    if cell.grid is None and cell.chips != 1:
+        raise ValueError(f"{name}: a slab runs on one card; give its "
+                         f"{cell.chips} cards a grid")
+    return cell
 
 
 def names(kind: str, root: pathlib.Path = ROOT) -> list[str]:

@@ -1,12 +1,15 @@
 """The system under test: the port's streaming simulator, one what-if
 dispatch at a time.
 
-Only this module calls the program: its batch entry
-(`repro_torch.core.simulator.simulate_fork_join_batch`), its topology
-(`repro_torch.core.cluster.ClusterSpec`) and the parameter record it
-takes.  (`run.py` imports the package to see where it lies; the traced
-run wraps its layer functions in spans.)  Dispatches run the program's
-own random numbers.
+Only this module calls the program.  A slab runs through its batch
+entry (`repro_torch.core.simulator.simulate_fork_join_batch`) on one
+card, with its topology (`repro_torch.core.cluster.ClusterSpec`) and the
+parameter record it takes; a grid through its multi-card path
+(`repro_torch.core.sweep.SweepGrid`, ``sweep_simulated`` on a
+`repro_torch.launch.mesh.make_sweep_mesh` over the cell's cards).
+(`run.py` imports the package to see where it lies; the traced run
+wraps its layer functions in spans.)  Dispatches run the program's own
+random numbers.
 """
 
 from __future__ import annotations
@@ -33,9 +36,19 @@ def warm_seed(seed: int, k: int) -> int:
     return rng_plan.mix(_WARM_WORD, seed, k) >> 1
 
 
+def cards(device, n: int) -> list[torch.device]:
+    """The ``n`` cards a cell runs on: the first ``n`` CUDA devices, or
+    ``device`` ``n`` times over where it is no card (the CPU tests)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return [torch.device("cuda", i) for i in range(n)]
+    return [device] * n
+
+
 @dataclasses.dataclass(frozen=True)
 class Inputs:
-    """One slab of what-if scenarios: (S,) float32 rates and parameters."""
+    """One dispatch's what-if scenarios: (S,) float32 rates and
+    parameters (those of a grid in the grid's order)."""
 
     lam: torch.Tensor
     fields: dict
@@ -48,8 +61,12 @@ class Inputs:
 def make_inputs(cell: Cell, device) -> Inputs:
     """The cell's scenarios, from the frozen Table 6 arithmetic."""
     cfg = cell.config
-    rates, cols = table6.what_if_slab(cell.traffic["slab"], p=int(cfg["p"]),
-                                      load_scale=float(cfg["replicas"]))
+    if cell.grid is not None:
+        rates, cols = table6.what_if_grid(cell.grid, p=int(cfg["p"]))
+    else:
+        rates, cols = table6.what_if_slab(cell.traffic["slab"],
+                                          p=int(cfg["p"]),
+                                          load_scale=float(cfg["replicas"]))
 
     def t(v):
         return torch.tensor(v, dtype=getattr(torch, cfg["dtype"])).to(device)
@@ -72,9 +89,11 @@ def run_kwargs(cell: Cell) -> dict:
 
 def make_dispatch(cell: Cell, inputs: Inputs, device):
     """``dispatch(seed) -> (3, S) float64 host tensor``: one call of the
-    program's batch entry over the slab, then its per-scenario mean,
+    program over the cell's scenarios, then its per-scenario mean,
     q-quantile and count of the response read back to the host (what a
     planner reads off the surface)."""
+    if cell.grid is not None:
+        return _grid_dispatch(cell, device)
     from repro_torch.core import simulator
     from repro_torch.core.cluster import ClusterSpec
     from repro_torch.core.queueing import ServerParams
@@ -93,6 +112,39 @@ def make_dispatch(cell: Cell, inputs: Inputs, device):
             chunk_size=kw["chunk"], hist_bins=kw["hist_bins"], cluster=spec,
             device=device, dtype=dtype)
         out = torch.stack([res.mean_response, res.quantile(q), res.count])
+        return out.to("cpu", torch.float64)
+
+    return dispatch
+
+
+def _grid_dispatch(cell: Cell, device):
+    """A grid's dispatch: `SweepGrid.build` once, on the first card, then
+    ``sweep_simulated`` over a mesh of the cell's cards a dispatch (one
+    (p, r) dispatch of the sweep, sharded one block of scenarios a card
+    and gathered onto the first)."""
+    from repro_torch.core import sweep
+    from repro_torch.core.cluster import ClusterSpec
+    from repro_torch.launch.mesh import make_sweep_mesh
+
+    kw = run_kwargs(cell)
+    g = cell.grid
+    devices = cards(device, cell.chips)
+    grid = sweep.SweepGrid.build(lam=g["lam"], p=[kw["p"]], cpu=g["cpu"],
+                                 disk=g["disk"], memory=g["memory"],
+                                 r=kw["r"], device=devices[0])
+    mesh = make_sweep_mesh(devices=devices)
+    spec = ClusterSpec(routing=kw["routing"],
+                       result_cache=kw["result_cache"])
+    q = kw["quantile"]
+    dtype = getattr(torch, cell.config["dtype"])
+
+    def dispatch(seed: int) -> torch.Tensor:
+        res = sweep.sweep_simulated(
+            grid, seed, n_queries=kw["n_queries"], mode=kw["mode"],
+            warmup_fraction=kw["warmup_fraction"], chunk_size=kw["chunk"],
+            hist_bins=kw["hist_bins"], cluster=spec, mesh=mesh, dtype=dtype)
+        out = torch.stack([res.mean.reshape(-1), res.quantile(q).reshape(-1),
+                           res.stats.count.reshape(-1)])
         return out.to("cpu", torch.float64)
 
     return dispatch

@@ -6,7 +6,9 @@ program's layer functions are wrapped in ``torch.profiler``
 ``record_function`` scopes (their module attributes, restored after).
 Each device operation is tied to the host call that launched it by the
 profiler's correlation id, and so to the innermost span and ``aten::``
-operator around that launch.
+operator around that launch, and to the dispatch (a ``DISPATCH`` span
+the traced loop opens around each) it belongs to.  Busy and idle time
+are each card's own; a cell's is the mean over its cards.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Callable, Optional
 import torch
 
 PREFIX = "portbench."
+DISPATCH = PREFIX + "dispatch"          # one traced dispatch, host side
 # span -> the program functions it wraps (module, attribute)
 SPANS = {
     PREFIX + "sampling": (("repro_torch.core.simulator", "chunk_random_draws"),
@@ -74,6 +77,8 @@ class DeviceOp:
     kind: str                 # "kernel", "memcpy" or "memset"
     span: Optional[str]       # innermost layer span around its launch
     aten: Optional[str]       # innermost aten operator around its launch
+    device: int = 0           # the card it ran on
+    dispatch: Optional[int] = None  # the traced dispatch that launched it
 
     @property
     def seconds(self) -> float:
@@ -83,7 +88,10 @@ class DeviceOp:
 @dataclasses.dataclass(frozen=True)
 class TraceView:
     """What a per-layer reader reads: the traced window's device
-    operations, its length, the work it held and the cell's shapes."""
+    operations, its length, the work it held and the cell's shapes.
+    ``chunks`` counts every shard's chunks and ``shape`` is one card's,
+    so that a reader's "a chunk" is a card's chunk on any number of
+    cards."""
 
     ops: tuple
     window_s: float
@@ -92,30 +100,46 @@ class TraceView:
     shape: dict
     peaks: Optional[dict]
     spans_seen: frozenset
+    cards: int = 1
 
     def kernels(self) -> list:
         return [op for op in self.ops if op.kind == "kernel"]
 
-    def busy_s(self) -> float:
-        """Seconds in which some operation ran on the device."""
-        busy, end = 0.0, -float("inf")
+    def by_card(self) -> dict:
+        """{card: its operations in order of start}; on one card every
+        operation is the card's."""
+        out: dict = {}
         for op in sorted(self.ops, key=lambda o: o.start_us):
-            if op.end_us <= end:
-                continue
-            busy += op.end_us - max(op.start_us, end)
-            end = op.end_us
-        return busy * 1e-6
+            out.setdefault(op.device if self.cards > 1 else 0, []).append(op)
+        return out
+
+    def busy_s(self) -> float:
+        """Seconds in which some operation ran on a card, the mean over
+        the cell's cards."""
+        busy = 0.0
+        for ops in self.by_card().values():
+            end = -float("inf")
+            for op in ops:
+                if op.end_us <= end:
+                    continue
+                busy += op.end_us - max(op.start_us, end)
+                end = op.end_us
+        return busy * 1e-6 / self.cards
 
     def idle_gaps(self) -> list:
-        """(name, seconds) of every gap between device operations, named
-        by the host call that launched the operation after it."""
-        gaps, end = [], None
-        for op in sorted(self.ops, key=lambda o: o.start_us):
-            if end is not None and op.start_us > end:
-                where = " ".join(x for x in (op.span, op.aten) if x)
-                gaps.append((f"before {where or op.name[:60]}",
-                             (op.start_us - end) * 1e-6))
-            end = op.end_us if end is None else max(end, op.end_us)
+        """(name, seconds) of every gap between one card's operations,
+        named by the host call that launched the operation after it (and,
+        on several cards, by the card)."""
+        gaps = []
+        for card, ops in self.by_card().items():
+            tag = f"cuda:{card} " if self.cards > 1 else ""
+            end = None
+            for op in ops:
+                if end is not None and op.start_us > end:
+                    where = " ".join(x for x in (op.span, op.aten) if x)
+                    gaps.append((f"{tag}before {where or op.name[:60]}",
+                                 (op.start_us - end) * 1e-6))
+                end = op.end_us if end is None else max(end, op.end_us)
         return gaps
 
 
@@ -145,15 +169,18 @@ class _Intervals:
 
 
 def view_from_events(events, *, window_s: float, dispatches: int,
-                     chunks: int, shape: dict, peaks) -> TraceView:
+                     chunks: int, shape: dict, peaks,
+                     cards: int = 1) -> TraceView:
     """Build the reader's view from ``torch.profiler`` function events."""
     cuda = torch.autograd.DeviceType.CUDA
-    launches, spans, atens, device = {}, [], [], []
+    launches, spans, atens, device, marks = {}, [], [], [], []
     for e in events:
         start, end = e.time_range.start, e.time_range.end
         if e.device_type == cuda:
             if not e.name.startswith(PREFIX):   # not a span's device copy
                 device.append(e)
+        elif e.name == DISPATCH:
+            marks.append((start, end))
         elif e.name.startswith(PREFIX):
             if e.name in SPANS:
                 spans.append((e.name, start, end))
@@ -162,6 +189,8 @@ def view_from_events(events, *, window_s: float, dispatches: int,
         elif e.name.startswith("cuda"):
             launches[e.id] = start
     span_at, aten_at = _Intervals(spans), _Intervals(atens)
+    dispatch_at = _Intervals([(i, s, e) for i, (s, e) in
+                              enumerate(sorted(marks))])
     ops = []
     for e in device:
         t = launches.get(e.id)
@@ -169,10 +198,20 @@ def view_from_events(events, *, window_s: float, dispatches: int,
             name=e.name, start_us=e.time_range.start,
             end_us=e.time_range.end, kind=_kind(e.name),
             span=None if t is None else span_at.at(t),
-            aten=None if t is None else aten_at.at(t)))
+            aten=None if t is None else aten_at.at(t),
+            device=e.device_index,
+            dispatch=None if t is None else dispatch_at.at(t)))
     return TraceView(ops=tuple(ops), window_s=window_s, dispatches=dispatches,
                      chunks=chunks, shape=shape, peaks=peaks,
-                     spans_seen=frozenset(s[0] for s in spans))
+                     spans_seen=frozenset(s[0] for s in spans), cards=cards)
+
+
+def dispatch_span(dispatch: Callable) -> Callable:
+    """``dispatch`` inside a ``DISPATCH`` span, for the traced loop."""
+    def spanned(*args, **kwargs):
+        with torch.profiler.record_function(DISPATCH):
+            return dispatch(*args, **kwargs)
+    return spanned
 
 
 def traced(run: Callable[[], object], **view_kw) -> tuple[object, TraceView]:

@@ -3,8 +3,10 @@
 A frozen copy of the arithmetic in the port's `core/capacity.py`
 (``MEMORY_TABLE``, ``broker_service_time``, ``scenario_params``) and
 `core/queueing.py` (``service_time_server``, Eq 1), in plain Python
-floats.  The benchmark builds every scenario from these and hands the
-same numbers to the program and to the reference.
+floats.  The benchmark builds every scenario of a slab from these and
+hands the same numbers to the program and to the reference.  A grid's
+scenarios the program builds itself (`SweepGrid.build`, in float32);
+the reference gets them from here.
 """
 
 from __future__ import annotations
@@ -61,6 +63,24 @@ def what_if_slab(axes: dict, *, p: int, load_scale: float = 1.0
             axes["memory"], axes["cpu"], axes["disk"], axes["rho"]):
         prm = scenario_params(memory=memory, cpu=cpu, disk=disk, p=p)
         rates.append(load_scale * rho / service_time_server(prm))
+        for f in FIELDS:
+            cols[f].append(prm[f])
+    return rates, cols
+
+
+def what_if_grid(grid: dict, *, p: int) -> tuple[list[float], dict]:
+    """The scenarios of a what-if grid, in `SweepGrid`'s axis order
+    ``grid["lam"]`` x (the one ``p``) x ``["cpu"]`` x ``["disk"]``, all
+    in Table 6's column ``grid["memory"]``.
+
+    Each scenario's rate is the grid's total rate, as `SweepGrid` takes
+    it.  Returns (rates, {field: values}), plain floats.
+    """
+    rates, cols = [], {f: [] for f in FIELDS}
+    for lam, cpu, disk in itertools.product(grid["lam"], grid["cpu"],
+                                            grid["disk"]):
+        prm = scenario_params(memory=grid["memory"], cpu=cpu, disk=disk, p=p)
+        rates.append(float(lam))
         for f in FIELDS:
             cols[f].append(prm[f])
     return rates, cols

@@ -1,5 +1,6 @@
-"""The device's idle share of the traced window: 1 - (the union of the
-device operations' intervals) / (the window on the host clock)."""
+"""The cards' idle share of the traced window: for each card, 1 - (the
+union of its operations' intervals) / (the window on the host clock),
+the mean over the cell's cards (on one card, that card's share)."""
 
 UNIT = "%"
 

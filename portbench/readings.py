@@ -3,8 +3,8 @@
     python3 portbench/readings.py --workload <cell> --first-seed N \
         [--out FILE]
 
-On the card, at the cell's own size and load (one dispatch at a time, as
-the window runs them): for each of 12 seeds from ``--first-seed``, the
+On the cell's cards, at its own size and load (one dispatch at a time,
+as the window runs them): for each of 12 seeds from ``--first-seed``, the
 program's dispatch against the float64 reference (the lower readings,
 from sound runs), and for the first 3 the control, the reference itself
 computed in bfloat16 and put in the program's place (the upper
@@ -37,41 +37,30 @@ def main(argv=None) -> int:
     import torch
 
     from portbench.bench import cells, check, system
-    from portbench.reference import forkjoin
 
     cell = cells.load_cell(args.workload)
     inputs = system.make_inputs(cell, DEVICE)
     dispatch = system.make_dispatch(cell, inputs, DEVICE)
     dispatch(system.warm_seed(0, 0))
-    kw = system.run_kwargs(cell)
     records = []
+
+    def record(seed, side, got, want):
+        rec = {"cell": cell.name, "seed": seed, "side": side,
+               **check.errors(cell, got, want)}
+        records.append(rec)
+        print(json.dumps(rec), flush=True)
+
     for i in range(SEEDS):
         seed = args.first_seed + i
         t0 = time.perf_counter()
         out = dispatch(system.dispatch_seed(seed, 0))
-        ref = forkjoin.simulate(system.dispatch_seed(seed, 0), inputs.lam,
-                                inputs.fields, **kw)
-        rec = {"cell": cell.name, "seed": seed, "side": "program",
-               "mean_rel_err": check.rel_err(out[0], ref["mean"].cpu()),
-               "p95_rel_err": check.rel_err(out[1], ref["quantile"].cpu()),
-               "count_diff": float((out[2] - check.expected_count(cell))
-                                   .abs().max())}
-        records.append(rec)
-        print(json.dumps(rec), flush=True)
+        ref = check.reference(cell, inputs, system.dispatch_seed(seed, 0))
+        record(seed, "program", out, ref)
         if i < CONTROL_SEEDS:
-            ctl = forkjoin.simulate(system.dispatch_seed(seed, 0), inputs.lam,
-                                    inputs.fields, dtype=torch.bfloat16,
-                                    route_dtype=torch.bfloat16, **kw)
-            rec = {"cell": cell.name, "seed": seed, "side": "control_bf16",
-                   "mean_rel_err": check.rel_err(ctl["mean"].cpu(),
-                                                 ref["mean"].cpu()),
-                   "p95_rel_err": check.rel_err(ctl["quantile"].cpu(),
-                                                ref["quantile"].cpu()),
-                   "count_diff": float((ctl["count"].cpu()
-                                        - check.expected_count(cell))
-                                       .abs().max())}
-            records.append(rec)
-            print(json.dumps(rec), flush=True)
+            ctl = check.reference(cell, inputs, system.dispatch_seed(seed, 0),
+                                  dtype=torch.bfloat16,
+                                  route_dtype=torch.bfloat16)
+            record(seed, "control_bf16", ctl, ref)
         print(f"# seed {seed}: {time.perf_counter() - t0:.1f} s", flush=True)
     if args.out:
         pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)

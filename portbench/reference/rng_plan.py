@@ -11,6 +11,12 @@ the variates (means, mixtures, queues, statistics) is the reference's
 own.  A program change to this plan (hash, salts, stream words, draw
 order or shapes) changes the simulated results, and has to be carried
 here in a benchmark change.
+
+A sharded sweep (`core.sweep.sweep_simulated(mesh=)`) seeds its flat
+(p, r) dispatch k from ``mix(seed, k)`` and that dispatch's shard d from
+``mix(mix(seed, k), d)``; a shard holds a contiguous block of the
+dispatch's scenarios, the last block padded with copies of the last
+scenario (``shard_seeds``, ``shard_rows``).
 """
 
 from __future__ import annotations
@@ -31,6 +37,21 @@ def mix(*words: int) -> int:
         h = ((h ^ (h >> 27)) * 0x94D049BB133111EB) & _MASK64
         h ^= h >> 31
     return h
+
+
+def shard_seeds(seed: int, n_shards: int) -> list[int]:
+    """Each shard's seed in the first (p, r) dispatch, k = 0, of a sharded
+    sweep run from ``seed``: a grid of one p and one r has no other."""
+    k = mix(seed, 0)
+    return [mix(k, d) for d in range(n_shards)]
+
+
+def shard_rows(n_scen: int, n_shards: int) -> list[list[int]]:
+    """Each shard's scenarios, as indices into the dispatch's ``n_scen``:
+    equal contiguous blocks, padded at the end by edge replication."""
+    per = -(-n_scen // n_shards)
+    return [[min(i, n_scen - 1) for i in range(d * per, (d + 1) * per)]
+            for d in range(n_shards)]
 
 
 def _gen(seed: int, device: torch.device) -> torch.Generator:

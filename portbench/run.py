@@ -4,9 +4,9 @@
         --trace <0|1>
 
 from the root of a checkout that holds the program under ``src/``.  Set-up
-(imports, the CUDA context, the kernels' libraries, the scenario slab and
-two warm-up dispatches at the window's shapes) is timed from process
-start.  Then a closed loop, one planner waiting for each dispatch, runs
+(imports, the CUDA context, the kernels' libraries, the scenarios and two
+warm-up dispatches at the window's shapes) is timed from process start.
+Then a closed loop, one planner waiting for each dispatch, runs
 ``--seconds`` of what-if dispatches through the program; with ``--trace
 1`` a fixed number of dispatches runs under the profiler instead, and the
 per-layer readers of ``metrics/`` read the trace.  After the window the
@@ -73,6 +73,7 @@ def run_cell(cell, *, seed: int, seconds: float, trace: bool, device,
     from portbench.bench import cells, check, system
     from portbench.bench import trace as tr
     from portbench.bench.peaks import peaks_for
+    from portbench.reference import rng_plan
 
     marks = {"start": setup_clock()}
     inputs = system.make_inputs(cell, device)
@@ -83,6 +84,8 @@ def run_cell(cell, *, seed: int, seconds: float, trace: bool, device,
     on_card = torch.device(device).type == "cuda"
     kind = torch.cuda.get_device_name(0) if on_card else "cpu"
     setup_s = marks["warm"] = setup_clock()
+    if trace:
+        dispatch = tr.dispatch_span(dispatch)
 
     def closed_loop(stop):
         outs, walls = [], []
@@ -98,17 +101,23 @@ def run_cell(cell, *, seed: int, seconds: float, trace: bool, device,
     view = None
     if trace:
         n_traced = TRACE_DISPATCHES
-        shape = dict(n_scen=inputs.n_scen, p=int(cell.config["p"]),
+        # one card's shapes: a shard's scenarios, edge padding included
+        # (a slab's cell has one card, so its one shard is the slab)
+        per_card = len(rng_plan.shard_rows(inputs.n_scen, cell.chips)[0])
+        shape = dict(n_scen=per_card,
+                     p=int(cell.config["p"]),
                      r=int(cell.config["replicas"]),
                      chunk=int(cell.traffic["chunk"]), itemsize=4,
                      result_cache=cell.config["result_cache"] is not None)
         (outs, walls, window_s), view = tr.traced(
             lambda: closed_loop(lambda n, t: n >= n_traced),
-            dispatches=n_traced, chunks=n_traced * cell.n_chunks,
-            shape=shape, peaks=peaks_for(kind))
+            dispatches=n_traced,
+            chunks=n_traced * cell.n_chunks * cell.chips,
+            shape=shape, peaks=peaks_for(kind), cards=cell.chips)
     else:
         outs, walls, window_s = closed_loop(lambda n, t: t >= seconds)
-    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    peaks = [torch.cuda.max_memory_allocated(d) if on_card else 0
+             for d in system.cards(device, cell.chips)]
     if on_card:
         torch.cuda.empty_cache()
 
@@ -119,7 +128,8 @@ def run_cell(cell, *, seed: int, seconds: float, trace: bool, device,
     failed = check.bad_dispatches(cell, outs)
 
     device_rec = {"platform": "gpu" if on_card else "cpu", "kind": kind,
-                  "count": 1, "memory_peak_bytes": peak}
+                  "count": cell.chips, "memory_peak_bytes": max(peaks),
+                  "memory_peak_bytes_per_card": peaks}
     line = {"correct": correct and failed == 0, "attempted": len(outs),
             "failed": failed}
     if trace:

@@ -10,18 +10,22 @@ import pytest
 from portbench.bench.cells import ROOT
 
 TINY_SLAB = {"memory": [1, 4], "cpu": [1, 4], "disk": [1], "rho": [0.3, 0.85]}
+TINY_GRID = {"memory": 1, "lam": [2.0, 8.5], "cpu": [1.0, 4.0],
+             "disk": [1.0, 4.0]}
 
 
 def shrink(root, *, p=8, queries=1024, chunk=256):
     """Cut every configuration and traffic mix under ``root`` in place:
-    8 scenarios, ``p`` servers, ``queries`` a scenario in ``chunk``s."""
+    8 scenarios (a slab's or a grid's), ``p`` servers, ``queries`` a
+    scenario in ``chunk``s."""
     for path in (root / "configs").glob("*.json"):
         cfg = json.loads(path.read_text())
         cfg.update(p=p, queries_per_scenario=queries)
         path.write_text(json.dumps(cfg))
     for path in (root / "traffic").glob("*.json"):
         tr = json.loads(path.read_text())
-        tr.update(slab=TINY_SLAB, chunk=chunk)
+        tr.update({"grid" if "grid" in tr else "slab":
+                   TINY_GRID if "grid" in tr else TINY_SLAB}, chunk=chunk)
         path.write_text(json.dumps(tr))
 
 

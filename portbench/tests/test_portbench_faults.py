@@ -7,15 +7,16 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import types
 
 import pytest
 import torch
 
 from portbench import run
 from portbench.bench import cells
-from portbench.reference import forkjoin
+from portbench.reference import forkjoin, rng_plan
 
-CELLS = ["t6-r1-whatif", "t6-r4-jsq-whatif"]
+CELLS = ["t6-r1-whatif", "t6-r4-jsq-whatif", "t6-r1-shard4"]
 
 
 def _run(root, name, seed=2**32 + 17):
@@ -74,8 +75,9 @@ def _altered_answer(monkeypatch):
 
 
 def _control(monkeypatch):
-    """The control: the reference in bfloat16 in the program's place."""
-    from repro_torch.core import simulator
+    """The control: the reference in bfloat16 in the program's place (the
+    batch entry a slab runs, and the sweep a grid runs, shard by shard)."""
+    from repro_torch.core import simulator, sweep
 
     class Out:
         def __init__(self, ref):
@@ -97,7 +99,32 @@ def _control(monkeypatch):
             result_cache=cluster.result_cache, dtype=torch.bfloat16,
             route_dtype=torch.bfloat16))
 
+    def control_sweep(grid, seed, *, n_queries, mode, warmup_fraction,
+                      chunk_size, hist_bins, cluster, mesh, dtype):
+        from repro_torch.core.cluster import ClusterSpec
+        lam, params = grid.broadcast_full()
+        lam = lam.reshape(-1)
+        spec = ClusterSpec(r=int(grid.r[0]), routing=cluster.routing,
+                           result_cache=cluster.result_cache)
+        rows = []
+        for s, idx in zip(rng_plan.shard_seeds(seed, mesh.size),
+                          rng_plan.shard_rows(lam.shape[0], mesh.size)):
+            shard = types.SimpleNamespace(**{
+                f: getattr(params, f).reshape(-1)[idx] for f in
+                ("s_broker", "s_hit", "s_miss", "s_disk", "hit")})
+            ref = control(s, lam[idx], shard, n_queries, p=int(grid.p[0]),
+                          mode=mode, warmup_fraction=warmup_fraction,
+                          chunk_size=chunk_size, hist_bins=hist_bins,
+                          cluster=spec, device=None, dtype=dtype)
+            rows.append(torch.stack([ref.mean_response, ref.q, ref.count]))
+        out = torch.cat(rows, dim=1)[:, :lam.shape[0]].reshape(
+            (3,) + grid.shape)
+        return types.SimpleNamespace(
+            mean=out[0], quantile=lambda q: out[1],
+            stats=types.SimpleNamespace(count=out[2]))
+
     monkeypatch.setattr(simulator, "simulate_fork_join_batch", control)
+    monkeypatch.setattr(sweep, "sweep_simulated", control_sweep)
 
 
 @pytest.mark.parametrize("name", CELLS)

@@ -14,6 +14,9 @@ CHECKOUT = cells.ROOT.parent
 BENCH = json.loads((CHECKOUT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+# Files of a cell that BENCHMARK.json does not name yet, and of the reader
+# only that cell has something to read for (PERF.md, Open questions).
+HELD_BACK = {"workloads": ["t6-r1-shard4"], "metrics": ["shard_start_lag_ms"]}
 
 
 @pytest.mark.parametrize("name", cells.names("workloads"))
@@ -42,8 +45,8 @@ def test_benchmark_json_matches_files():
         assert data["name"] == cfg["name"]
         assert data["reduced"] == cfg["reduced"]
         assert data["source"] == cfg["source"]
-    assert sorted(w["name"] for w in BENCH["workloads"]) == \
-        cells.names("workloads")
+    assert sorted([x["name"] for x in BENCH["workloads"]]
+                  + HELD_BACK["workloads"]) == cells.names("workloads")
     for w in BENCH["workloads"]:
         cell = cells.load_cell(w["name"])
         assert (w["config"], w["traffic"], w["chips"], w["why"]) == (
@@ -56,8 +59,8 @@ def test_benchmark_json_matches_files():
         assert m["moves"] == "sim_queries_per_s"
         assert set(m["workloads"]) <= set(cells.names("workloads"))
         layers.setdefault(m["layer"], set()).add(m["name"])
-    assert sorted(m["name"] for m in BENCH["per_layer"]) == \
-        cells.names("metrics")
+    assert sorted([x["name"] for x in BENCH["per_layer"]]
+                  + HELD_BACK["metrics"]) == cells.names("metrics")
     e2e = {m["name"]: m for m in BENCH["end_to_end"]}
     assert set(e2e) == {"sim_queries_per_s", "dispatch_p95_ms", "setup_s"}
     assert e2e["setup_s"]["bound"] == 0.25

@@ -10,7 +10,8 @@ from portbench import run
 from portbench.bench import cells
 
 
-@pytest.mark.parametrize("name", ["t6-r1-whatif", "t6-r4-jsq-whatif"])
+@pytest.mark.parametrize("name", ["t6-r1-whatif", "t6-r4-jsq-whatif",
+                                  "t6-r1-shard4"])
 def test_untraced_line(tiny_root, name):
     cell = cells.load_cell(name, tiny_root)
     line = json.loads(json.dumps(run.run_cell(
@@ -26,7 +27,10 @@ def test_untraced_line(tiny_root, name):
     assert line["metrics"]["setup_s"]["value"] == 3.5
     assert all(v["value"] > 0 for v in line["metrics"].values())
     assert set(line["device"]) == {"platform", "kind", "count",
-                                   "memory_peak_bytes"}
+                                   "memory_peak_bytes",
+                                   "memory_peak_bytes_per_card"}
+    assert line["device"]["count"] == cell.chips
+    assert len(line["device"]["memory_peak_bytes_per_card"]) == cell.chips
     for c in line["checks"].values():
         assert set(c) == {"value", "limit"} and c["value"] <= c["limit"]
 

@@ -22,7 +22,8 @@ SIM = ly.SIM
 
 def _ev(name, start, end, *, device=CPU, id=0, user=False):
     return types.SimpleNamespace(
-        name=name, device_type=device, id=id, is_user_annotation=user,
+        name=name, device_type=device, device_index=0, id=id,
+        is_user_annotation=user,
         time_range=types.SimpleNamespace(start=float(start),
                                          end=float(end)))
 
@@ -100,6 +101,8 @@ def test_existing_readers_read_the_same_with_program_spans():
     assert base == spanned
     got = _readers(spanned)
     assert got == _readers(base)
+    # every reader reads, but the lag between cards, on this one card
+    assert got.pop("shard_start_lag_ms") is None
     assert all(v is not None for v in got.values()), got
     assert got["launches_per_chunk"] == 14 / 2
 
