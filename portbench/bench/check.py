@@ -7,8 +7,13 @@ held against it; every dispatch of the window is held to the exact
 post-warm-up count.  A dispatch of a grid is simulated shard by shard,
 each shard's scenarios from that shard's seed (`reference.rng_plan`'s
 copy of the sweep's plan), and the shards' rows are put in grid order
-as the sweep gathers them.  Each number compared has its limit in the
-cell's workload file.
+as the sweep gathers them.  A faulted cell (a configuration with a
+``fault``) is simulated again with its faults (`reference.faulted`), and
+each scenario's post-warm-up counts of degraded, spilled and unavailable
+queries are held against it too: the first two as shares of the
+queries (an answer parted from the reference at a deadline tie moves a
+count by one, a large share of a small count), the last exactly.  Each
+number compared has its limit in the cell's workload file.
 """
 
 from __future__ import annotations
@@ -48,13 +53,23 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(err.max()) if bool(torch.isfinite(err).all()) else math.inf
 
 
+def share_gap(got: torch.Tensor, want: torch.Tensor, n: int) -> float:
+    """Largest gap of a count over the scenarios, as a share of the ``n``
+    queries it counts among (inf if any is not finite)."""
+    err = (got.double() - want.double()).abs() / n
+    return float(err.max()) if bool(torch.isfinite(err).all()) else math.inf
+
+
 def reference(cell: Cell, inputs: system.Inputs, dispatch_seed: int,
               **precision) -> torch.Tensor:
     """(3, S) float64 host tensor: the reference's mean, q-quantile and
     count of the dispatch seeded ``dispatch_seed``, laid out as the
-    program's answer.  ``precision`` (``dtype``, ``route_dtype``) makes
-    the control."""
+    program's answer (a faulted cell's (6, S), with the counts of
+    ``system.FAULT_ROWS``).  ``precision`` (``dtype``, ``route_dtype``)
+    makes the control."""
     kw = {**system.run_kwargs(cell), **precision}
+    keys = ("mean", "quantile", "count") + (
+        () if cell.fault is None else system.FAULT_ROWS)
     if cell.grid is None:
         parts = [(dispatch_seed, None)]
     else:
@@ -67,34 +82,46 @@ def reference(cell: Cell, inputs: system.Inputs, dispatch_seed: int,
             idx = torch.tensor(idx, device=lam.device)
             lam, fields = lam[idx], {k: v[idx] for k, v in fields.items()}
         ref = forkjoin.simulate(seed, lam, fields, **kw)
-        rows.append(torch.stack([ref["mean"].double(),
-                                 ref["quantile"].double(),
-                                 ref["count"].double()]).cpu())
+        rows.append(torch.stack([ref[k].double() for k in keys]).cpu())
     return torch.cat(rows, dim=1)[:, :inputs.n_scen]
 
 
 def errors(cell: Cell, got: torch.Tensor, want: torch.Tensor) -> dict:
-    """One dispatch's compared numbers against the reference's rows."""
-    return {"count_diff": float((got[2] - expected_count(cell)).abs().max()),
-            "mean_rel_err": rel_err(got[0], want[0]),
-            "p95_rel_err": rel_err(got[1], want[1])}
+    """One dispatch's compared numbers against the reference's rows; a
+    faulted cell's add the worst gap of the degraded and of the spilled
+    share of the post-warm-up queries (``degraded_frac_gap``,
+    ``spill_frac_gap``) and the largest gap of the unavailable count
+    (``unavail_diff``)."""
+    out = {"count_diff": float((got[2] - expected_count(cell)).abs().max()),
+           "mean_rel_err": rel_err(got[0], want[0]),
+           "p95_rel_err": rel_err(got[1], want[1])}
+    if cell.fault is not None:
+        n = expected_count(cell)
+        gap = (got[5] - want[5]).abs().max()
+        out.update(degraded_frac_gap=share_gap(got[3], want[3], n),
+                   spill_frac_gap=share_gap(got[4], want[4], n),
+                   unavail_diff=float(gap) if bool(torch.isfinite(gap))
+                   else math.inf)
+    return out
 
 
 def numbers(cell: Cell, inputs: system.Inputs, outs: list, seed: int,
             picks: list[int]) -> dict:
     """The compared numbers: ``count_diff`` over every dispatch, and over
-    the picked ones the worst relative gap of the mean (``mean_rel_err``)
-    and of the q-quantile (``p95_rel_err``) from the float64 reference."""
+    the picked ones the worst of each other number of `errors` (the
+    relative gap of the mean, ``mean_rel_err``, and of the q-quantile,
+    ``p95_rel_err``, and a faulted cell's counts) from the float64
+    reference."""
     want = expected_count(cell)
-    count_diff = max(float((o[2] - want).abs().max()) for o in outs)
-    mean_err = p95_err = 0.0
+    values = {"count_diff": max(float((o[2] - want).abs().max())
+                                for o in outs)}
     for k in picks:
         err = errors(cell, outs[k],
                      reference(cell, inputs, system.dispatch_seed(seed, k)))
-        mean_err = max(mean_err, err["mean_rel_err"])
-        p95_err = max(p95_err, err["p95_rel_err"])
-    return {"count_diff": count_diff, "mean_rel_err": mean_err,
-            "p95_rel_err": p95_err}
+        del err["count_diff"]
+        for name, value in err.items():
+            values[name] = max(values.get(name, 0.0), value)
+    return values
 
 
 def judge(values: dict, limits: dict) -> tuple[bool, dict]:

@@ -9,12 +9,14 @@ parameter record it takes; a grid through its multi-card path
 `repro_torch.launch.mesh.make_sweep_mesh` over the cell's cards).
 (`run.py` imports the package to see where it lies; the traced run
 wraps its layer functions in spans.)  Dispatches run the program's own
-random numbers.
+random numbers.  A configuration's ``fault`` goes to the program as
+``ClusterSpec(fault=FaultSpec(...))`` (`repro_torch.core.faults`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
@@ -74,24 +76,46 @@ def make_inputs(cell: Cell, device) -> Inputs:
     return Inputs(lam=t(rates), fields={k: t(v) for k, v in cols.items()})
 
 
+# The rows a faulted cell's dispatch adds after (mean, q-quantile, count):
+# the program's post-warm-up counts of its fault channels.
+FAULT_ROWS = ("degraded_count", "spill_count", "unavail_count")
+
+
 def run_kwargs(cell: Cell) -> dict:
-    """The keyword arguments both the program and the reference take."""
+    """The keyword arguments both the program and the reference take
+    (``fault``, the configuration's own dict, only where it has one)."""
     cfg, tr = cell.config, cell.traffic
     cache = cfg["result_cache"]
-    return dict(p=int(cfg["p"]), n_queries=int(cfg["queries_per_scenario"]),
-                chunk=int(tr["chunk"]),
-                warmup_fraction=float(tr["warmup_fraction"]),
-                hist_bins=int(tr["hist_bins"]), quantile=float(tr["quantile"]),
-                mode=tr["service_mode"], r=int(cfg["replicas"]),
-                routing=cfg["routing"],
-                result_cache=None if cache is None else tuple(cache))
+    kw = dict(p=int(cfg["p"]), n_queries=int(cfg["queries_per_scenario"]),
+              chunk=int(tr["chunk"]),
+              warmup_fraction=float(tr["warmup_fraction"]),
+              hist_bins=int(tr["hist_bins"]), quantile=float(tr["quantile"]),
+              mode=tr["service_mode"], r=int(cfg["replicas"]),
+              routing=cfg["routing"],
+              result_cache=None if cache is None else tuple(cache))
+    if cell.fault is not None:
+        kw["fault"] = cell.fault
+    return kw
+
+
+def fault_spec(fault: dict):
+    """The program's `FaultSpec` of a configuration's ``fault``."""
+    from repro_torch.core.faults import FaultSpec
+    return FaultSpec(
+        outages=tuple(map(tuple, fault["outages"])),
+        mtbf_seconds=float(fault["mtbf_seconds"]),
+        mttr_seconds=float(fault["mttr_seconds"]),
+        degraded=tuple(map(tuple, fault["degraded"])),
+        broker_timeout_seconds=float(fault["broker_timeout_seconds"]),
+        quorum_k=int(fault["quorum_k"]))
 
 
 def make_dispatch(cell: Cell, inputs: Inputs, device):
     """``dispatch(seed) -> (3, S) float64 host tensor``: one call of the
     program over the cell's scenarios, then its per-scenario mean,
     q-quantile and count of the response read back to the host (what a
-    planner reads off the surface)."""
+    planner reads off the surface).  A faulted cell's has the rows of
+    ``FAULT_ROWS`` after those (NaN where the program reports none)."""
     if cell.grid is not None:
         return _grid_dispatch(cell, device)
     from repro_torch.core import simulator
@@ -99,8 +123,10 @@ def make_dispatch(cell: Cell, inputs: Inputs, device):
     from repro_torch.core.queueing import ServerParams
 
     kw = run_kwargs(cell)
+    faulted = cell.fault is not None
     spec = ClusterSpec(r=kw["r"], routing=kw["routing"],
-                       result_cache=kw["result_cache"])
+                       result_cache=kw["result_cache"],
+                       fault=fault_spec(cell.fault) if faulted else None)
     params = ServerParams(p=kw["p"], **inputs.fields)
     q = kw["quantile"]
     dtype = getattr(torch, cell.config["dtype"])
@@ -111,8 +137,12 @@ def make_dispatch(cell: Cell, inputs: Inputs, device):
             mode=kw["mode"], warmup_fraction=kw["warmup_fraction"],
             chunk_size=kw["chunk"], hist_bins=kw["hist_bins"], cluster=spec,
             device=device, dtype=dtype)
-        out = torch.stack([res.mean_response, res.quantile(q), res.count])
-        return out.to("cpu", torch.float64)
+        rows = [res.mean_response, res.quantile(q), res.count]
+        if faulted:
+            rows += [torch.full_like(res.count, math.nan)
+                     if getattr(res, k) is None else getattr(res, k)
+                     for k in FAULT_ROWS]
+        return torch.stack(rows).to("cpu", torch.float64)
 
     return dispatch
 

@@ -7,8 +7,11 @@ program's layer functions are wrapped in ``torch.profiler``
 Each device operation is tied to the host call that launched it by the
 profiler's correlation id, and so to the innermost span and ``aten::``
 operator around that launch, and to the dispatch (a ``DISPATCH`` span
-the traced loop opens around each) it belongs to.  Busy and idle time
-are each card's own; a cell's is the mean over its cards.
+the traced loop opens around each) it belongs to.  It is tied the same
+way to the innermost of the program's own layer spans
+(``repro_torch.sim.*``, `repro_torch.obs.profile`), for the layers the
+benchmark cannot wrap from outside.  Busy and idle time are each card's
+own; a cell's is the mean over its cards.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 
 PREFIX = "portbench."
 DISPATCH = PREFIX + "dispatch"          # one traced dispatch, host side
+LAYER_PREFIX = "repro_torch.sim."       # the program's own layer spans
 # span -> the program functions it wraps (module, attribute)
 SPANS = {
     PREFIX + "sampling": (("repro_torch.core.simulator", "chunk_random_draws"),
@@ -79,6 +83,7 @@ class DeviceOp:
     aten: Optional[str]       # innermost aten operator around its launch
     device: int = 0           # the card it ran on
     dispatch: Optional[int] = None  # the traced dispatch that launched it
+    layer: Optional[str] = None  # innermost program span (after its prefix)
 
     @property
     def seconds(self) -> float:
@@ -173,7 +178,7 @@ def view_from_events(events, *, window_s: float, dispatches: int,
                      cards: int = 1) -> TraceView:
     """Build the reader's view from ``torch.profiler`` function events."""
     cuda = torch.autograd.DeviceType.CUDA
-    launches, spans, atens, device, marks = {}, [], [], [], []
+    launches, spans, atens, layers, device, marks = {}, [], [], [], [], []
     for e in events:
         start, end = e.time_range.start, e.time_range.end
         if e.device_type == cuda:
@@ -186,9 +191,12 @@ def view_from_events(events, *, window_s: float, dispatches: int,
                 spans.append((e.name, start, end))
         elif e.name.startswith("aten::"):
             atens.append((e.name, start, end))
+        elif e.name.startswith(LAYER_PREFIX):
+            layers.append((e.name[len(LAYER_PREFIX):], start, end))
         elif e.name.startswith("cuda"):
             launches[e.id] = start
     span_at, aten_at = _Intervals(spans), _Intervals(atens)
+    layer_at = _Intervals(layers)
     dispatch_at = _Intervals([(i, s, e) for i, (s, e) in
                               enumerate(sorted(marks))])
     ops = []
@@ -200,7 +208,8 @@ def view_from_events(events, *, window_s: float, dispatches: int,
             span=None if t is None else span_at.at(t),
             aten=None if t is None else aten_at.at(t),
             device=e.device_index,
-            dispatch=None if t is None else dispatch_at.at(t)))
+            dispatch=None if t is None else dispatch_at.at(t),
+            layer=None if t is None else layer_at.at(t)))
     return TraceView(ops=tuple(ops), window_s=window_s, dispatches=dispatches,
                      chunks=chunks, shape=shape, peaks=peaks,
                      spans_seen=frozenset(s[0] for s in spans), cards=cards)

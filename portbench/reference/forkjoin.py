@@ -26,7 +26,9 @@ function of the tracker, so trackers rounded differently part at near
 ties, and from there the two sides simulate two different sample paths
 (at full size, gaps of 10^-4-10^-3 in the mean that say nothing of
 either side's precision).  Inputs are the float32 tensors the program
-gets; the variates come from `rng_plan`.
+gets; the variates come from `rng_plan`.  A configuration's faults
+(`faulted`) change the routing, the services and the join, and add
+three counts.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import math
 
 import torch
 
-from portbench.reference import rng_plan
+from portbench.reference import faulted, rng_plan
 
 Tensor = torch.Tensor
 
@@ -133,6 +135,7 @@ def simulate(seed: int, lam: Tensor, fields: dict, *, p: int,
              n_queries: int, chunk: int, warmup_fraction: float,
              hist_bins: int, quantile: float, mode: str, r: int = 1,
              routing: str = "round_robin", result_cache=None,
+             fault: dict | None = None,
              dtype: torch.dtype = torch.float64,
              route_dtype: torch.dtype = torch.float32) -> dict:
     """Mean, q-quantile and count of the response per scenario.
@@ -140,9 +143,15 @@ def simulate(seed: int, lam: Tensor, fields: dict, *, p: int,
     ``lam`` (S,) and every ``fields`` value (S,) are the program's float32
     inputs, on the device the program ran on (the variates depend on
     it).  ``result_cache`` is (hit_r, s_cache) or None.  ``route_dtype``
-    is the JSQ tracker's precision (see the module docstring).  Returns
-    (S,) tensors ``mean``, ``quantile`` (in ``dtype``) and ``count``.
+    is the JSQ tracker's precision (see the module docstring).  ``fault``
+    is a configuration's six fault keys (`faulted`), under JSQ over two
+    or more replicas.  Returns (S,) tensors ``mean``, ``quantile`` (in
+    ``dtype``) and ``count``, and with ``fault`` ``degraded_count``,
+    ``spill_count`` and ``unavail_count``.
     """
+    if fault is not None and (routing != "jsq" or r < 2):
+        raise ValueError("the faulted reference routes by jsq over two or "
+                         f"more replicas; got {routing!r}, r = {r}")
     dev = lam.device
     dt = dtype
     n_scen = lam.shape[0]
@@ -166,15 +175,23 @@ def simulate(seed: int, lam: Tensor, fields: dict, *, p: int,
     count = torch.zeros(n_scen, dtype=torch.int64, device=dev)
     hist = zeros(hist_bins)
     col = torch.arange(chunk, device=dev)
+    if fault is not None:
+        chain = torch.ones((n_scen, r), dtype=torch.bool, device=dev)
+        clock = torch.zeros(n_scen, dtype=route_dtype, device=dev)
+        tallies = {key: torch.zeros(n_scen, dtype=torch.int64, device=dev)
+                   for key in faulted.COUNTS}
     for c_idx in range(n_chunks):
         v = rng_plan.chunk_variates(
             seed, c_idx, n_scen=n_scen, chunk=chunk, p=p, mode=mode,
             route_r=r if random_route else None,
-            result_cache=result_cache is not None, device=dev)
+            result_cache=result_cache is not None, device=dev,
+            fault_r=None if fault is None else r)
         gaps = v["gap"].to(dt) / lam_d[:, None]
         arr = torch.cumsum(gaps, dim=-1)
         s_brk = v["broker"].to(dt) * f["s_broker"][:, None]
         svc = services(v, fields, mode, dt)
+        if fault is not None:
+            svc = faulted.slowed(svc, fault)
         if result_cache is not None:
             is_hit = v["cache_u"].to(dt) < torch.tensor(hit_r, dtype=dt)
             t_cache = v["cache_e"].to(dt) * float(result_cache[1])
@@ -191,11 +208,25 @@ def simulate(seed: int, lam: Tensor, fields: dict, *, p: int,
             assign = (gidx % r)[None, :].expand(n_scen, chunk)
         elif routing == "random":
             assign = v["route"]
-        elif routing == "jsq":
+        elif routing == "jsq" and fault is None:
             rd = route_dtype
             assign, w_jsq = jsq_assign(
                 w_jsq, v["gap"].to(rd) / lam.to(rd)[:, None],
                 services(v, fields, mode, rd), live.to(rd))
+        elif routing == "jsq":
+            rd = route_dtype
+            gaps_rd = v["gap"].to(rd) / lam.to(rd)[:, None]
+            arr_rd = torch.cumsum(gaps_rd, dim=-1)
+            assign, w_jsq, chain, spill_q, unav_q = faulted.jsq_faulted(
+                w_jsq, chain, gaps_rd,
+                faulted.slowed(services(v, fields, mode, rd), fault),
+                live.to(rd),
+                faulted.window_up(fault, r, clock[:, None] + arr_rd),
+                v["fault_u"].to(rd), mtbf=float(fault["mtbf_seconds"]),
+                mttr=float(fault["mttr_seconds"]))
+            clock = clock + arr_rd[:, -1]
+            degr_q = torch.zeros((n_scen, chunk), dtype=torch.bool,
+                                 device=dev)
         else:
             raise ValueError(f"no reference for routing {routing!r}")
 
@@ -212,7 +243,14 @@ def simulate(seed: int, lam: Tensor, fields: dict, *, p: int,
                                c_srv[:, k, :])
             c_brk[:, k] = brk_done[:, -1]
             c_srv[:, k, :] = srv_done[:, :, -1]
-            resp_k = torch.amax(srv_done, dim=1) - arr
+            if fault is None:
+                resp_k = torch.amax(srv_done, dim=1) - arr
+            else:
+                join, late = faulted.quorum_join(
+                    srv_done, brk_done, k=int(fault["quorum_k"]),
+                    timeout=float(fault["broker_timeout_seconds"]))
+                resp_k = join - arr
+                degr_q = torch.where(mine, late & ~is_hit, degr_q)
             del srv_done
             if result_cache is not None:
                 resp_k = torch.where(is_hit, cache_done - arr, resp_k)
@@ -227,6 +265,9 @@ def simulate(seed: int, lam: Tensor, fields: dict, *, p: int,
         vf = valid.to(dt)[None, :]
         total = total + torch.sum(response * vf, dim=-1)
         count = count + int(valid.sum())
+        if fault is not None:
+            for key, flags in zip(faulted.COUNTS, (degr_q, spill_q, unav_q)):
+                tallies[key] = tallies[key] + torch.sum(flags & valid, dim=-1)
         bins = torch.clamp(torch.floor(
             (torch.log(torch.clamp_min(response, 1e-30)) - log_lo[:, None])
             / log_step[:, None]), 0, hist_bins - 1).to(torch.int64)
@@ -234,4 +275,4 @@ def simulate(seed: int, lam: Tensor, fields: dict, *, p: int,
     cnt = count.to(dt)
     return {"mean": total / torch.clamp_min(cnt, 1.0),
             "quantile": hist_quantile(hist, cnt, log_lo, log_step, quantile),
-            "count": count}
+            "count": count, **({} if fault is None else tallies)}

@@ -10,7 +10,8 @@ program did.  It copies the plan and nothing else: all arithmetic on
 the variates (means, mixtures, queues, statistics) is the reference's
 own.  A program change to this plan (hash, salts, stream words, draw
 order or shapes) changes the simulated results, and has to be carried
-here in a benchmark change.
+here in a benchmark change.  A faulted run's MTBF/MTTR chain draws from
+one more salted stream (``fault_u``).
 
 A sharded sweep (`core.sweep.sweep_simulated(mesh=)`) seeds its flat
 (p, r) dispatch k from ``mix(seed, k)`` and that dispatch's shard d from
@@ -26,6 +27,7 @@ import torch
 _MASK64 = (1 << 64) - 1
 ROUTE_SALT = 0x2077
 CACHE_SALT = 0xCA8E
+FAULT_SALT = 0xFA17
 
 
 def mix(*words: int) -> int:
@@ -72,7 +74,8 @@ def unit_uniform(seed: int, shape, device) -> torch.Tensor:
 
 def chunk_variates(seed: int, chunk_idx: int, *, n_scen: int, chunk: int,
                    p: int, mode: str, route_r: int | None,
-                   result_cache: bool, device) -> dict:
+                   result_cache: bool, device,
+                   fault_r: int | None = None) -> dict:
     """The raw float32 variates of one chunk of a dispatch seeded ``seed``.
 
     Keys: ``gap`` and ``broker`` (S, chunk) unit exponentials; for
@@ -81,7 +84,8 @@ def chunk_variates(seed: int, chunk_idx: int, *, n_scen: int, chunk: int,
     ``miss_e``, ``disk_e`` (S, p, chunk) unit exponentials; with
     ``route_r`` (random routing) ``route`` (S, chunk) int64 replicas; with
     ``result_cache`` ``cache_u`` (S, chunk) uniforms and ``cache_e``
-    (S, chunk) unit exponentials.
+    (S, chunk) unit exponentials; with ``fault_r`` (an MTBF/MTTR chain
+    over that many replicas) ``fault_u`` (S, chunk, r) uniforms.
     """
     dev = torch.device(device)
     row, full = (n_scen, chunk), (n_scen, p, chunk)
@@ -107,4 +111,7 @@ def chunk_variates(seed: int, chunk_idx: int, *, n_scen: int, chunk: int,
                                       row, dev)
         out["cache_e"] = unit_exponential(mix(seed, chunk_idx, CACHE_SALT, 1),
                                           row, dev)
+    if fault_r is not None:
+        out["fault_u"] = unit_uniform(mix(seed, chunk_idx, FAULT_SALT, 0),
+                                      row + (fault_r,), dev)
     return out

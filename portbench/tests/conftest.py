@@ -14,13 +14,22 @@ TINY_GRID = {"memory": 1, "lam": [2.0, 8.5], "cpu": [1.0, 4.0],
              "disk": [1.0, 4.0]}
 
 
+# A fault's chain at a tiny run's horizon (tens of simulated seconds):
+# each replica up two thirds of the time, so that it fails and is
+# repaired within a run
+TINY_CHAIN = {"mtbf_seconds": 10.0, "mttr_seconds": 5.0}
+
+
 def shrink(root, *, p=8, queries=1024, chunk=256):
     """Cut every configuration and traffic mix under ``root`` in place:
     8 scenarios (a slab's or a grid's), ``p`` servers, ``queries`` a
-    scenario in ``chunk``s."""
+    scenario in ``chunk``s; a fault's chain to ``TINY_CHAIN`` and its
+    quorum to all servers but one."""
     for path in (root / "configs").glob("*.json"):
         cfg = json.loads(path.read_text())
         cfg.update(p=p, queries_per_scenario=queries)
+        if "fault" in cfg:
+            cfg["fault"].update(TINY_CHAIN, quorum_k=p - 1)
         path.write_text(json.dumps(cfg))
     for path in (root / "traffic").glob("*.json"):
         tr = json.loads(path.read_text())

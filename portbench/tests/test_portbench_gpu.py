@@ -8,6 +8,7 @@ from __future__ import annotations
 import pytest
 import torch
 
+from portbench.tests import test_portbench_faulted as faulted_cases
 from portbench.tests.test_portbench_reference import CASES
 
 pytestmark = pytest.mark.gpu
@@ -23,3 +24,12 @@ def test_kernels_match_reference(r, routing, cache, mode):
                                rtol=t.RTOL, atol=0.0)
     torch.testing.assert_close(res.quantile(0.95).double(), ref["quantile"],
                                rtol=t.RTOL, atol=0.0)
+
+
+@pytest.mark.parametrize("case", sorted(faulted_cases.CASES))
+def test_fault_kernels_match_reference(case):
+    """The fleet scan and the masked router on the card against the
+    faulted reference, each fault channel alone and all together."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    faulted_cases.check_case(2**35 + 7, case, device="cuda")

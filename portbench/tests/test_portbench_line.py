@@ -11,7 +11,7 @@ from portbench.bench import cells
 
 
 @pytest.mark.parametrize("name", ["t6-r1-whatif", "t6-r4-jsq-whatif",
-                                  "t6-r1-shard4"])
+                                  "t6-r1-shard4", "t6-r4-jsq-faulted"])
 def test_untraced_line(tiny_root, name):
     cell = cells.load_cell(name, tiny_root)
     line = json.loads(json.dumps(run.run_cell(

@@ -4,6 +4,7 @@ new reading's arithmetic, and a tiny traced window on the CPU."""
 
 from __future__ import annotations
 
+import dataclasses
 import types
 
 import pytest
@@ -98,13 +99,96 @@ def test_existing_readers_read_the_same_with_program_spans():
     t = synthetic()
     base = _trace_view(t.events(program=False))
     spanned = _trace_view(t.events(program=True))
-    assert base == spanned
+    # the program's spans give each operation its layer, and nothing else
+    assert {op.layer for op in base.ops} == {None}
+    assert {op.layer for op in spanned.ops} >= {"draws", "route", "stats"}
+    assert base == dataclasses.replace(spanned, ops=tuple(
+        dataclasses.replace(op, layer=None) for op in spanned.ops))
     got = _readers(spanned)
     assert got == _readers(base)
-    # every reader reads, but the lag between cards, on this one card
-    assert got.pop("shard_start_lag_ms") is None
+    # every reader reads, but the lag between cards (on this one card), the
+    # fleet layer's (no fault here) and the join's (no join span here)
+    for name in ("shard_start_lag_ms", "fleet_ms_per_chunk",
+                 "join_ms_per_chunk"):
+        assert got.pop(name) is None, name
     assert all(v is not None for v in got.values()), got
     assert got["launches_per_chunk"] == 14 / 2
+
+
+MASKED = "void (anonymous namespace)::jsq_reg_kernel<float, 4, 4, true>(...)"
+UNMASKED = MASKED.replace("true", "false")
+
+
+def faulted_trace(*, fleet=True, join=True, router=MASKED) -> Trace:
+    """Two chunks of a faulted cell's loop: the fleet scan under the
+    program's ``fleet`` span, the router, and the join's ``amax`` and
+    ``kthvalue`` under the program's ``join`` span."""
+    t = Trace()
+    for b in (0, 400):
+        t.span(SIM + "chunk", b, b + 400)
+        if fleet:
+            t.span(SIM + "fleet", b, b + 50)
+        t.launch(b + 10, "fleet_scan_kernel<float>", b + 20, b + 32)
+        t.span(SIM + "route", b + 50, b + 150)
+        t.span(tr.PREFIX + "jsq", b + 55, b + 145, bench=True)
+        t.launch(b + 60, router, b + 60, b + 70)
+        if join:
+            t.span(SIM + "join", b + 200, b + 300)
+        t.launch(b + 210, "reduce_kernel", b + 210, b + 214,
+                 aten="aten::amax")
+        t.launch(b + 220, "sort_kernel", b + 220, b + 250,
+                 aten="aten::kthvalue")
+        t.span(SIM + "stats", b + 300, b + 390)
+        t.launch(b + 310, "reduce_kernel", b + 310, b + 315)
+    return t
+
+
+def test_fault_readers_read_their_layers():
+    got = _readers(_trace_view(faulted_trace().events()))
+    # microseconds over two chunks -> ms a chunk
+    assert got["fleet_ms_per_chunk"] == pytest.approx(12e-3)
+    assert got["join_ms_per_chunk"] == pytest.approx(34e-3)
+    assert got["jsq_route_roofline"] is not None
+
+
+# The router's count by hand at SHAPE (S 4, p 8, r 4, n 256, float32):
+# bytes (4 8 256 + 2 4 256 + 2 4 4 8) 4 + 4 256 8 (choices) = 50,176, and
+# a MASKED launch's 4 256 (4 (active count) + 4 (one word of up bits) + 2
+# (flags)) = 10,240 more; operations 4 256 (3 4 8 + 4 + 2 8) = 118,784,
+# and masked 4 256 (2 4 + 2) = 10,240 more.  Bytes bound both.
+@pytest.mark.parametrize("router,n_bytes,n_ops", [
+    (UNMASKED, 50_176, 118_784),
+    (MASKED, 60_416, 129_024),
+])
+def test_router_roofline_counts_each_instance(router, n_bytes, n_ops):
+    mod = cells.load_metric("jsq_route_roofline")
+    masked = router == MASKED
+    count_b = mod.masked_bytes_per_launch if masked else mod.bytes_per_launch
+    count_o = mod.masked_ops_per_launch if masked else mod.ops_per_launch
+    assert (count_b(SHAPE), count_o(SHAPE)) == (n_bytes, n_ops)
+    view = _trace_view(faulted_trace(router=router).events())
+    got = mod.read(view)
+    # two 10 us launches
+    assert got == pytest.approx(100.0 * 2 * (n_bytes / 3.35e12) / 20e-6)
+    if not masked:      # digit for digit the reading before masks counted
+        ks = [op for op in view.kernels() if mod.PATTERN.search(op.name)]
+        least = max(n_bytes / PEAKS["hbm_bytes_per_s"],
+                    n_ops / PEAKS["fp32_flops_per_s"])
+        assert got == 100.0 * len(ks) * least / sum(op.seconds for op in ks)
+
+
+@pytest.mark.parametrize("absent,reader", [
+    ({"fleet": False}, "fleet_ms_per_chunk"),
+    ({"join": False}, "join_ms_per_chunk"),
+])
+def test_fault_reader_is_none_without_its_layer(absent, reader):
+    t = faulted_trace(**absent)
+    got = _readers(_trace_view(t.events()))
+    assert got[reader] is None
+    # no program span at all: neither reads anything
+    bare = _readers(_trace_view(t.events(program=False)))
+    assert bare["join_ms_per_chunk"] is None
+    assert bare["fleet_ms_per_chunk"] is None
 
 
 def test_layer_view_drops_every_span_copy():
